@@ -1,0 +1,284 @@
+"""DIO F0 estimation, f32 fast path, batched over utterances.
+
+Counterpart of `hts_train_world_tpu/ops/dio.py` (externs/WORLD_v2/src/
+dio.cpp): the constant band-filter spectra times the utterance spectrum in
+one batched irfft; per band, four zero-crossing streams compacted under a
+band cap and interpolated onto the frame grid; the band argmin; and the
+contour fixing, which is kernel K4 (csrc/fix_f0.cu) with its plain twin
+`fix_f0_contour_plain`.
+"""
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+from hts_train_world_tpu_torch import config as cfg
+from hts_train_world_tpu_torch import kernels
+from hts_train_world_tpu_torch.ops import prims
+
+
+def zero_crossings(sig, fs: float, cap: int):
+    """ZeroCrossingEngine (dio.cpp:357-393) on rows sig (R, n):
+    negative-going crossings -> (locations, intervals, n_intervals,
+    t_limit), each (R, cap) / (R,); the valid prefix of each row is
+    n_intervals long.  A shorter signal is passed padded with its last
+    value, which adds no crossing."""
+    dtype = sig.dtype
+    n_s = sig.shape[1]
+    mask = (sig[:, :-1] > 0.0) & (sig[:, 1:] <= 0.0)
+    n_edges = mask.sum(dim=1)
+    pos = prims.compact_indices(mask, cap, n_s - 1)
+    e = pos + 1  # edge sample index (dio.cpp:363)
+    s_em1 = torch.gather(sig, 1, e - 1)
+    s_e = torch.gather(sig, 1, e.clamp(max=n_s - 1))
+    fine = e.to(dtype) - s_em1 / (s_e - s_em1)
+    fine_next = torch.roll(fine, -1, dims=1)
+    intervals = prims.rdiv(fs, fine_next - fine)
+    locations = prims.exact_div(prims.exact_div(fine + fine_next, 2.0), fs)
+    n = torch.where(n_edges < 2, 0, n_edges - 1)
+    # cap saturation: the kept prefix is exact; frames past its last
+    # covered time get no candidate (see the JAX zero_crossings)
+    saturated = n_edges > cap
+    n = torch.clamp(n, max=cap - 1)
+    last_loc = torch.gather(locations, 1, torch.clamp(n - 1, min=0)[:, None])
+    big = torch.finfo(dtype).max
+    t_limit = torch.where(saturated, last_loc[:, 0],
+                          torch.full_like(last_loc[:, 0], big))
+    return locations, intervals, n, t_limit
+
+
+def _band_candidate(filtered, y_length: int, actual_fs: float,
+                    boundary_f0: float, f0_floor: float, f0_ceil: float,
+                    temporal_positions, cap: int, fp_s: float):
+    """GetF0CandidateFromRawEvent minus the filtering (dio.cpp:441-508)
+    for a batch of band-filtered rows (B, y_length)."""
+    B = filtered.shape[0]
+    T = temporal_positions.shape[0]
+    d = filtered[:, 1:] - filtered[:, :-1]
+    d = torch.cat([d, d[:, -1:]], dim=1)   # pad: no crossing added
+    streams = torch.stack([filtered, -filtered, d, -d], dim=1)
+    locs, vals, n, t_lim = zero_crossings(
+        streams.reshape(B * 4, y_length), actual_fs, cap)
+    f = prims.interp1_regular_grid(locs, vals, T, fp_s, n).reshape(B, 4, T)
+    n = n.reshape(B, 4)
+    enough = (n > 2).all(dim=1)[:, None]        # CheckEvent, dio.cpp:475
+    t_limit = t_lim.reshape(B, 4).min(dim=1).values[:, None]
+    cand = f.mean(dim=1)
+    score = torch.sqrt(((f - cand[:, None, :]) ** 2).sum(dim=1) / 3.0)
+    bad = ((cand > boundary_f0) | (cand < boundary_f0 / 2.0)
+           | (cand > f0_ceil) | (cand < f0_floor)
+           | (temporal_positions[None, :] > t_limit))
+    zero = torch.zeros((), dtype=cand.dtype, device=cand.device)
+    big = torch.full((), cfg.K_MAXIMUM_VALUE, dtype=cand.dtype,
+                     device=cand.device)
+    cand = torch.where(bad, zero, cand)
+    score = torch.where(bad, big, score)
+    cand = torch.where(enough, cand, zero)
+    score = torch.where(enough, score, big)
+    return cand, score
+
+
+# ---------------------------------------------------------------------------
+# K4: contour fixing (FixStep1..4, dio.cpp:132-289)
+# ---------------------------------------------------------------------------
+
+
+def _vrm(frame_period: float, f0_floor: float) -> int:
+    return int(0.5 + 1000.0 / frame_period / f0_floor) * 2 + 1
+
+
+def _select_best_f0(current, past, cands, allowed_range: float):
+    """SelectBestF0 (dio.cpp:190-209); cands (B, bands) at the target
+    frame, current / past (B,)."""
+    ref = (current * 3.0 - past) / 2.0
+    err = torch.abs(ref[:, None] - cands)
+    best = torch.gather(cands, 1, torch.argmin(err, dim=1, keepdim=True))[:, 0]
+    rel = torch.abs(1.0 - best / ref)
+    ok = (rel <= allowed_range) & (ref != 0.0)
+    return torch.where(ok, best, torch.zeros_like(best))
+
+
+def fix_f0_contour_plain(best_f0, f0_candidates, frame_period: float,
+                         f0_floor: float, allowed_range: float):
+    """FixF0Contour (dio.cpp:259-289).  best_f0 (B, T), f0_candidates
+    (B, bands, T)."""
+    B, T = best_f0.shape
+    vrm = _vrm(frame_period, f0_floor)
+    if T <= vrm:
+        return torch.zeros_like(best_f0)
+    dev = best_f0.device
+    zero = torch.zeros((), dtype=best_f0.dtype, device=dev)
+    idx = torch.arange(T, device=dev)[None, :]
+
+    # Step1: zero the edges, kill jumps (dio.cpp:132-150)
+    base = torch.where((idx < vrm) | (idx >= T - vrm), zero, best_f0)
+    prev = torch.cat([torch.zeros_like(base[:, :1]), base[:, :-1]], dim=1)
+    jump = torch.abs((base - prev) / (cfg.K_MY_SAFE_GUARD_MINIMUM + base))
+    s1 = torch.where((idx >= vrm) & (jump < allowed_range), base, zero)
+
+    # Step2: zero any frame with a zero inside +/-center (dio.cpp:156-169)
+    center = (vrm - 1) // 2
+    has_zero = torch.zeros_like(s1, dtype=torch.bool)
+    for k in range(-center, center + 1):
+        has_zero = has_zero | (torch.roll(s1, -k, dims=1) == 0.0)
+    inner = (idx >= center) & (idx < T - center)
+    s2 = torch.where(inner & has_zero, zero, s1)
+
+    # Step3 (forward extension from negative boundaries, dio.cpp:215-231)
+    out = [s2[:, 0]]
+    active = torch.zeros(B, dtype=torch.bool, device=dev)
+    p1, p2 = s2[:, 0], torch.zeros_like(s2[:, 0])
+    for j in range(T - 1):
+        active = active | ((s2[:, j] != 0.0) & (s2[:, j + 1] == 0.0))
+        v = torch.where(active, _select_best_f0(
+            p1, p2, f0_candidates[:, :, j + 1], allowed_range), s2[:, j + 1])
+        out.append(v)
+        active = active & (v != 0.0)
+        p1, p2 = v, p1
+    s3 = torch.stack(out, dim=1)
+
+    # Step4 (backward extension from positive boundaries, dio.cpp:237-253)
+    out = [None] * T
+    out[T - 1] = s3[:, T - 1]
+    active = torch.zeros(B, dtype=torch.bool, device=dev)
+    p1, p2 = s3[:, T - 1], torch.zeros_like(s3[:, 0])
+    for j in range(T - 2, -1, -1):
+        active = active | ((s2[:, j + 1] != 0.0) & (s2[:, j] == 0.0))
+        v = torch.where(active, _select_best_f0(
+            p1, p2, f0_candidates[:, :, j], allowed_range), s3[:, j])
+        out[j] = v
+        active = active & (v != 0.0)
+        p1, p2 = v, p1
+    return torch.stack(out, dim=1)
+
+
+def fix_f0_contour(best_f0, f0_candidates, frame_period: float,
+                   f0_floor: float, allowed_range: float):
+    """K4: FixF0Contour for a batch, steps 1-4 in one launch."""
+    if not best_f0.is_cuda:
+        return fix_f0_contour_plain(best_f0, f0_candidates, frame_period,
+                                    f0_floor, allowed_range)
+    B, T = best_f0.shape
+    bands = f0_candidates.shape[1]
+    if best_f0.dtype != torch.float32 or f0_candidates.shape != (B, bands, T):
+        raise ValueError("fix_f0_contour: f32 best (B, T), cands (B, bands, T)")
+    best = best_f0.contiguous()
+    cands = f0_candidates.to(torch.float32).contiguous()
+    kernels.check_cuda("fix_f0_contour", best, cands)
+    scratch = torch.empty((B, 2, T), dtype=torch.float32, device=best.device)
+    out = torch.empty_like(best)
+    kernels.launch("fix_f0", [
+        best.data_ptr(), cands.data_ptr(), B, bands, T,
+        _vrm(frame_period, f0_floor), float(allowed_range),
+        scratch.data_ptr(), out.data_ptr()],
+        dict(best_f0=best, f0_candidates=cands, frame_period=frame_period,
+             f0_floor=f0_floor, allowed_range=allowed_range))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# DIO main body
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _band_filter_specs_np(fft_size: int, cutoff: int,
+                          boundaries: tuple, actual_fs: float):
+    """Static per-band filter spectra (low-cut FIR, dio.cpp:40-53, times
+    each band's Nuttall low-pass, dio.cpp:325-333), numpy f64.
+    Returns (bands, fft/2+1) complex128."""
+    i = np.arange(1, cutoff * 2 + 2)
+    lcf = np.zeros(fft_size)
+    n = cutoff * 2 + 1
+    lcf[:n] = 0.5 - 0.5 * np.cos(i * 2.0 * np.pi / (n + 1))
+    lcf[:n] = -lcf[:n] / lcf[:n].sum()
+    lcf = np.roll(lcf, -((n - 1) // 2))
+    lcf[0] += 1.0
+    lcf_spec = np.fft.rfft(lcf)
+    specs = []
+    for boundary in boundaries:
+        half_avg = int(actual_fs / boundary / 2.0 + 0.5)
+        m = half_avg * 4
+        t = np.arange(m) / (m - 1.0)
+        w = (0.355768 - 0.487396 * np.cos(2 * np.pi * t)
+             + 0.144232 * np.cos(4 * np.pi * t)
+             - 0.012604 * np.cos(6 * np.pi * t))
+        lpf = np.zeros(fft_size)
+        lpf[:m] = w
+        specs.append(np.fft.rfft(lpf) * lcf_spec)
+    return np.stack(specs)
+
+
+def dio_plan(x_length: int, fs: int, frame_period: float = 5.0,
+             f0_floor: float = cfg.K_FLOOR_F0, f0_ceil: float = cfg.K_CEIL_F0,
+             channels_in_octave: float = 2.0, speed: int = 1):
+    """Static shape plan (DioGeneralBody setup, dio.cpp:578-609)."""
+    number_of_bands = 1 + int(math.log(f0_ceil / f0_floor) / cfg.K_LOG2
+                              * channels_in_octave)
+    boundary_f0 = [f0_floor * 2.0 ** ((i + 1) / channels_in_octave)
+                   for i in range(number_of_bands)]
+    ratio = max(min(speed, 12), 1)
+    y_length = 1 + x_length // ratio
+    actual_fs = fs / ratio
+    fft_size = cfg.get_suitable_fft_size(
+        y_length + 4 * int(1.0 + actual_fs / boundary_f0[0] / 2.0))
+    f0_length = cfg.samples_for_dio(fs, x_length, frame_period)
+    return dict(number_of_bands=number_of_bands, boundary_f0=boundary_f0,
+                ratio=ratio, y_length=y_length, actual_fs=actual_fs,
+                fft_size=fft_size, f0_length=f0_length)
+
+
+def dio(xs, fs: int, frame_period: float = 5.0,
+        f0_floor: float = cfg.K_FLOOR_F0, f0_ceil: float = cfg.K_CEIL_F0,
+        channels_in_octave: float = 2.0, allowed_range: float = 0.1):
+    """Dio (dio.cpp:642-647) for f32 utterances xs (B, L) at speed 1 ->
+    (temporal_positions (T,), f0 (B, T), candidates and scores (B, bands,
+    T))."""
+    B, L = xs.shape
+    dtype, dev = xs.dtype, xs.device
+    plan = dio_plan(L, fs, frame_period, f0_floor, f0_ceil,
+                    channels_in_octave)
+    y_length = plan["y_length"]
+    actual_fs = plan["actual_fs"]
+    fft_size = plan["fft_size"]
+    T = plan["f0_length"]
+
+    # GetSpectrumForEstimation (dio.cpp:60-106).  Speed 1: y_length = L+1,
+    # the extra sample is a zero that still joins the mean (dio.cpp:69-79)
+    y = torch.zeros((B, fft_size), dtype=dtype, device=dev)
+    y[:, :L] = xs
+    mean_y = prims.exact_div(y[:, :y_length].sum(dim=1, keepdim=True),
+                             y_length)
+    y[:, :y_length] -= mean_y
+    y_spec = torch.fft.rfft(y, dim=1)
+    cutoff = int(actual_fs / 50.0 + 0.5)
+    specs = torch.as_tensor(_band_filter_specs_np(
+        fft_size, cutoff, tuple(plan["boundary_f0"]), actual_fs),
+        dtype=torch.complex64, device=dev)
+    filt_bands = torch.fft.irfft(y_spec[:, None, :] * specs, n=fft_size,
+                                 dim=2) * fft_size
+
+    tp = torch.arange(T, dtype=dtype, device=dev) * (frame_period / 1000.0)
+    cap = y_length // 2 + 2
+    duration = y_length / actual_fs
+    cands, scores = [], []
+    for bi, boundary in enumerate(plan["boundary_f0"]):
+        half_avg = int(actual_fs / boundary / 2.0 + 0.5)
+        # delay compensation (dio.cpp:335-337)
+        filt = filt_bands[:, bi, 2 * half_avg:2 * half_avg + y_length]
+        # the Nuttall low-pass bounds the crossing rate by ~boundary_f0
+        band_cap = min(cap, int(2.5 * boundary * duration) + 64)
+        c, s = _band_candidate(filt, y_length, actual_fs, boundary, f0_floor,
+                               f0_ceil, tp, band_cap, frame_period / 1000.0)
+        cands.append(c)
+        scores.append(s / (c + cfg.K_MY_SAFE_GUARD_MINIMUM))  # dio.cpp:563
+    f0_candidates = torch.stack(cands, dim=1)
+    f0_scores = torch.stack(scores, dim=1)
+    best = torch.gather(f0_candidates, 1,
+                        torch.argmin(f0_scores, dim=1, keepdim=True))[:, 0]
+    f0 = fix_f0_contour(best, f0_candidates, frame_period, f0_floor,
+                        allowed_range)
+    return tp, f0, f0_candidates, f0_scores
