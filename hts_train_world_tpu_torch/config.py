@@ -4,6 +4,7 @@ Same values and formulas as the JAX package's `config.py`:
 - WORLD constants:  externs/WORLD_v2/src/world/constantnumbers.h:13-43
 - CheapTrick FFT:   externs/WORLD_v2/src/cheaptrick.cpp:191-198
 - D4C FFT sizes:    externs/WORLD_v2/src/d4c.cpp:262-263,344-346
+- codec mel scale:  externs/WORLD_v2/src/world/constantnumbers.h:39-43
 """
 from __future__ import annotations
 
@@ -20,6 +21,11 @@ K_FREQUENCY_INTERVAL = 3000.0
 K_UPPER_LIMIT = 15000.0
 K_THRESHOLD = 0.85
 K_FLOOR_F0_D4C = 47.0
+# Codec mel scale (Stevens & Volkmann 1940)
+K_M0 = 1127.01048
+K_F0 = 700.0
+K_FLOOR_FREQUENCY = 40.0
+K_CEIL_FREQUENCY = 20000.0
 
 
 def get_suitable_fft_size(sample: int) -> int:

@@ -1,0 +1,134 @@
+// K8: MLPG, one thread per (utterance, dimension).
+//
+// Replaces hts_train_world_tpu/ops/mlpg.py:29-119 (build_banded_normal +
+// banded_ldlt_solve under vmap), which on the TPU built the pentadiagonal
+// normal equations with scatter-adds over whole (3, T) band arrays and then
+// ran two lax.scans over frames.  Here each thread keeps the precisions and
+// means of frames i-1, i, i+1 in registers, forms row i of the bands and of
+// the right-hand side on the fly (the same products, summed in the same
+// window and tap order as the plain twin), and runs the LDL^T forward
+// recursion, storing z, L[i,i-1], L[i,i-2]; the back substitution then walks
+// the frames in reverse.  Means, variances and outputs are laid out
+// (..., T, n_win, D) / (..., T, D), so the threads of a warp (neighbouring
+// dimensions) read and write neighbouring addresses.
+//
+// Bound: latency.  The recursion is strictly sequential: 2*T dependent steps
+// per thread, with B*D independent threads (1200 at the 48 kHz feature
+// shapes).  Bytes (means and variances read once, the output written once)
+// give the floor that PERF.md states beside it.  Built with --fmad=false.
+#include "common.cuh"
+
+namespace {
+
+constexpr int THREADS = 128;
+constexpr int MAXW = 4;
+
+__global__ void __launch_bounds__(THREADS)
+mlpg_solve_kernel(const float* __restrict__ mu, const float* __restrict__ var,
+                  int B, int T, int nw, int D,
+                  const float* __restrict__ coef, float* __restrict__ zs,
+                  float* __restrict__ l1s, float* __restrict__ l2s,
+                  float* __restrict__ out) {
+  const int g = blockIdx.x * THREADS + threadIdx.x;
+  if (g >= B * D) return;
+  const int b = g / D, d = g % D;
+  const float* mub = mu + (size_t)b * T * nw * D + d;
+  const float* vb = var + (size_t)b * T * nw * D + d;
+  const size_t ob = (size_t)b * T * D + d;
+  float c[MAXW][3];
+#pragma unroll
+  for (int w = 0; w < MAXW; ++w)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) c[w][k] = w < nw ? coef[w * 3 + k] : 0.f;
+
+  // P / U [w][slot]: precision and mean at frame i-1+slot (0 outside [0, T))
+  float P[MAXW][3], U[MAXW][3];
+#pragma unroll
+  for (int w = 0; w < MAXW; ++w) {
+    P[w][0] = U[w][0] = 0.f;
+#pragma unroll
+    for (int s = 1; s < 3; ++s) {
+      const int t = s - 1;
+      const bool ok = w < nw && t < T;
+      P[w][s] = ok ? 1.0f / vb[((size_t)t * nw + w) * D] : 0.f;
+      U[w][s] = ok ? mub[((size_t)t * nw + w) * D] : 0.f;
+    }
+  }
+
+  float d1 = 1.f, d2 = 1.f, y1 = 0.f, y2 = 0.f, lp = 0.f;
+  for (int i = 0; i < T; ++i) {
+    // row i: A[i,i], A[i-1,i], A[i-2,i] and rhs[i]
+    float a[3] = {0.f, 0.f, 0.f}, r = 0.f;
+#pragma unroll
+    for (int w = 0; w < MAXW; ++w) {
+#pragma unroll
+      for (int ki = 0; ki < 3; ++ki) {
+        const float wk = c[w][ki];
+        if (wk == 0.f) continue;
+        // rhs: frame t = i - k, slot 2 - ki
+        const int t = i - (ki - 1);
+        if (t >= 0 && t < T) r = r + P[w][2 - ki] * U[w][2 - ki] * wk;
+#pragma unroll
+        for (int kj = ki; kj < 3; ++kj) {
+          const float wj = c[w][kj];
+          if (wj == 0.f) continue;
+          const int off = kj - ki;
+          const int tt = i - (kj - 1);  // frame of the product, slot 2 - kj
+          if (tt >= 0 && tt < T && i - off >= 0)
+            a[off] = a[off] + P[w][2 - kj] * wk * wj;
+        }
+      }
+    }
+    const float ai1 = i >= 1 ? a[1] : 0.f, ai2 = i >= 2 ? a[2] : 0.f;
+    const float l2 = ai2 / d2;
+    const float l1 = (ai1 - l2 * d2 * lp) / d1;
+    const float di = a[0] - l1 * l1 * d1 - l2 * l2 * d2;
+    const float yi = r - l1 * y1 - l2 * y2;
+    zs[ob + (size_t)i * D] = yi / di;
+    l1s[ob + (size_t)i * D] = l1;
+    l2s[ob + (size_t)i * D] = l2;
+    d2 = d1;
+    d1 = di;
+    y2 = y1;
+    y1 = yi;
+    lp = l1;
+    // slide the frame window: slot 2 becomes frame i+2
+    const int tn = i + 2;
+#pragma unroll
+    for (int w = 0; w < MAXW; ++w) {
+      P[w][0] = P[w][1];
+      U[w][0] = U[w][1];
+      P[w][1] = P[w][2];
+      U[w][1] = U[w][2];
+      const bool ok = w < nw && tn < T;
+      P[w][2] = ok ? 1.0f / vb[((size_t)tn * nw + w) * D] : 0.f;
+      U[w][2] = ok ? mub[((size_t)tn * nw + w) * D] : 0.f;
+    }
+  }
+
+  float c1 = 0.f, c2 = 0.f;
+  for (int i = T - 1; i >= 0; --i) {
+    const float ln1 = i + 1 < T ? l1s[ob + (size_t)(i + 1) * D] : 0.f;
+    const float ln2 = i + 2 < T ? l2s[ob + (size_t)(i + 2) * D] : 0.f;
+    const float ci = zs[ob + (size_t)i * D] - ln1 * c1 - ln2 * c2;
+    out[ob + (size_t)i * D] = ci;
+    c2 = c1;
+    c1 = ci;
+  }
+}
+
+}  // namespace
+
+extern "C" int mlpg_solve_launch(const float* mu, const float* var, int B,
+                                 int T, int nw, int D, const float* coef,
+                                 float* scratch, float* out, cudaStream_t s) {
+  if (nw > MAXW) return (int)cudaErrorInvalidValue;
+  const int n = B * D;
+  if (n > 0 && T > 0) {
+    const size_t plane = (size_t)B * T * D;
+    mlpg_solve_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0, s>>>(
+        mu, var, B, T, nw, D, coef, scratch, scratch + plane,
+        scratch + 2 * plane, out);
+  }
+  return (int)cudaGetLastError();
+}

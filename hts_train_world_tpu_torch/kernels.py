@@ -47,6 +47,15 @@ KERNELS = {
                  [_P, _I, _I, _I, _P, _P]),
     "fix_f0": ("fix_f0.cu", "fix_f0_launch",
                [_P, _P, _I, _I, _I, _I, _F, _P, _P]),
+    "dio_candidates": ("dio_candidates.cu", "dio_candidates_launch",
+                       [_P, _I, _I, _I, _I, _P, _P, _F, _F, _F, _I, _F, _I,
+                        _P, _P, _P, _P, _P]),
+    "codec_encode": ("codec_encode.cu", "codec_encode_launch",
+                     [_P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P]),
+    "delta_window": ("delta_window.cu", "delta_window_launch",
+                     [_P, _I, _I, _I, _P, _P, _I, _I, _P]),
+    "mlpg_solve": ("mlpg_solve.cu", "mlpg_solve_launch",
+                   [_P, _P, _I, _I, _I, _I, _P, _P, _P]),
 }
 
 launches: collections.Counter = collections.Counter()

@@ -45,7 +45,7 @@ def analyze_stages(xs, fs: int, frame_period: float = 5.0,
     yield "d4c", (t.expand(f0.shape), f0, sp, ap)
 
 
-def _check_algorithm(algorithm: str) -> None:
+def check_algorithm(algorithm: str) -> None:
     if algorithm != "dio":
         raise NotImplementedError(
             f"f0 algorithm {algorithm!r}: the port has DIO only so far "
@@ -57,7 +57,7 @@ def batch_analyze(xs, fs: int, frame_period: float = 5.0,
                   device="cuda"):
     """xs: (B, L) equal-length utterances -> batched (t, f0, sp, ap) on
     `device` (f32 fast mode)."""
-    _check_algorithm(algorithm)
+    check_algorithm(algorithm)
     xs = device_mod.as_input(xs, device)
     *_, (_, out) = analyze_stages(xs, fs, frame_period, d4c_threshold)
     return out
@@ -114,7 +114,7 @@ def batch_copy_synth(xs, fs: int, frame_period: float = 5.0,
     per-batch pulse count, then synthesis at the bucketed pulse cap.
     `noise` (B, y_length+16) is drawn from `seed` when not given.
     Returns (t, f0, sp, ap, y)."""
-    _check_algorithm(algorithm)
+    check_algorithm(algorithm)
     xs = device_mod.as_input(xs, device)
     *_, (_, out) = copy_synth_stages(xs, fs, frame_period, d4c_threshold,
                                      noise, seed)

@@ -10,10 +10,14 @@ import pytest
 import torch
 
 from hts_train_world_tpu_torch import kernels
-from hts_train_world_tpu_torch.ops import dio, frames, prims
-from hts_train_world_tpu_torch.parallel import batch
+from hts_train_world_tpu_torch.features import encode, windows
+from hts_train_world_tpu_torch.ops import dio, frames, mlpg, prims
+from hts_train_world_tpu_torch.parallel import batch, bucketing, features
 
 pytestmark = pytest.mark.cuda
+
+COPY_SYNTH_KERNELS = ("frame_window", "spectral_smooth", "topk_sum", "fix_f0",
+                      "dio_candidates")
 
 
 @pytest.fixture
@@ -113,12 +117,111 @@ def test_k4_kernel_matches_plain(cuda, seed):
     assert torch.equal(got, want)
 
 
+def _k5_rows(plan, B, rng):
+    """Band rows: tones at 3/4 of each boundary; utterance 1 turns to
+    wideband noise over its last 30% (overrunning every band cap);
+    utterance 2 silent."""
+    L, fs = plan["y_length"], plan["actual_fs"]
+    rows = np.zeros((B, len(plan["boundary_f0"]), plan["fft_size"]))
+    t = np.arange(plan["fft_size"]) / fs
+    for bi, (b, off, _) in enumerate(dio.band_layout(plan)):
+        rows[:2, bi] = np.sin(2 * np.pi * 0.75 * b * t
+                              + rng.uniform(0, 6, (2, 1)))
+        rows[1, bi, off + int(0.7 * L):] = rng.standard_normal(
+            len(t) - off - int(0.7 * L))
+    rows[2] = 0.0
+    return rows
+
+
+@pytest.mark.parametrize("fs,L", [(16000, 8000), (48000, 96000)])
+def test_k5_kernel_matches_plain(cuda, fs, L):
+    """Crossing positions and counts identical to the twin's; candidates
+    no further from the f64 interp1 of those crossings than the twin's
+    (+1e-6 relative); zero/nonzero pattern agreeing on >= 0.999 of the
+    frames; silent rows all zero."""
+    plan = dio.dio_plan(L, fs)
+    T = plan["f0_length"]
+    rows = torch.as_tensor(_k5_rows(plan, 3, np.random.default_rng(L)),
+                           dtype=torch.float32, device=cuda)
+    got = dio.band_candidates(rows, plan, 71.0, 800.0, T, 0.005,
+                              crossings=True)
+    want = dio.band_candidates_plain(rows, plan, 71.0, 800.0, T, 0.005,
+                                     crossings=True)
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    assert (got[0][2] == 0).all()
+    ref = dio.crossing_candidates_f64(rows, plan, T, 0.005, want[2], want[3])
+    both = (got[0] > 0) & (want[0] > 0)
+    assert both.float().mean() > 0.1
+    rel_k = ((got[0].double() - ref).abs() / ref)[both].max()
+    rel_p = ((want[0].double() - ref).abs() / ref)[both].max()
+    assert rel_k <= rel_p + 1e-6
+    assert ((got[0] > 0) == (want[0] > 0)).float().mean() >= 0.999
+
+
+@pytest.mark.parametrize("fs", [16000, 48000])
+def test_k6_kernel_matches_plain(cuda, fs):
+    """Zero, tiny and huge sp and ap, and rows that exercise the bap[0]
+    snap: elementwise within encode_spectra_limit (1e-5 |plain| + 1e-5
+    row max |plain| before the c0 offsets)."""
+    N = 1024 if fs == 16000 else 2048
+    rng = np.random.default_rng(fs)
+    sp = 10.0 ** rng.uniform(-8, 2, (3, 20, N // 2 + 1))
+    sp[rng.random(sp.shape) < 0.05] = 0.0
+    sp[0, 0] = 0.0
+    sp[0, 1] = 1e-30
+    ap = 10.0 ** rng.uniform(-8, 0, sp.shape)
+    ap[:, 0] = 1.0
+    sp, ap = (torch.as_tensor(a, dtype=torch.float32, device=cuda)
+              for a in (sp, ap))
+    got = encode.encode_spectra(sp, ap, fs, N)
+    want = encode.encode_spectra_plain(sp, ap, fs, N)
+    for k, p, lim in zip(got, want, encode.encode_spectra_limit(*want)):
+        assert ((k - p).abs() <= lim).all()
+
+
+def test_k7_kernel_bit_equal(cuda):
+    """All-magic columns, magic frames at the edges, T of 1 and 2."""
+    rng = np.random.default_rng(7)
+    for T in (1, 2, 401):
+        x = rng.standard_normal((4, T, 75)).astype(np.float32)
+        x[:, :, 3] = windows.MAGIC
+        x[1, 0] = x[2, -1] = windows.MAGIC
+        x = torch.as_tensor(x, device=cuda)
+        got, want = windows.expand(x), windows.expand_plain(x)
+        assert torch.equal(got, want)
+        assert (got[..., 3] == windows.MAGIC).all()
+
+
+@pytest.mark.parametrize("T", [1, 2, 4, 401])
+def test_k8_kernel_matches_plain(cuda, T):
+    """Within rel 1e-5 of the twin; the statics-only windows take the
+    closed form and launch nothing."""
+    rng = np.random.default_rng(T)
+    mu = torch.as_tensor(rng.standard_normal((3, T, 3, 75)),
+                         dtype=torch.float32, device=cuda)
+    var = 1.0 + 0.1 * mu.abs()
+    got = mlpg.mlpg(mu, var)
+    want = mlpg.mlpg_plain(mu, var)
+    assert ((got - want).abs() <= 1e-5 * want.abs().clamp(min=1e-3)).all()
+    kernels.reset_counts()
+    s = mlpg.mlpg(mu[:, :, :2], var[:, :, :2], ((1.0,), (1.0,)))
+    assert kernels.launches["mlpg_solve"] == 0
+    assert torch.allclose(s, mlpg.mlpg_plain(mu[:, :, :2], var[:, :, :2],
+                                             ((1.0,), (1.0,))))
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     ps = torch.ones((4, 1025), dtype=torch.float64, device=cuda)
     with pytest.raises(ValueError):
         prims.smooth_spectrum(ps, 48000, 2048, width=ps[:, 0], b_max=100)
     with pytest.raises(ValueError):
         prims.top_k_threshold_sum(ps.float(), 2000)
+    with pytest.raises(ValueError):
+        windows.expand(ps[None])
+    with pytest.raises(ValueError):
+        mlpg.mlpg(torch.ones((1, 5, 3, 2), device=cuda),
+                  torch.ones((1, 5, 3, 2), device=cuda),
+                  ((1.0,), (-0.5, 0.0, 0.5), (1.0, 0.0, 0.0, 0.0, 1.0)))
 
 
 @pytest.mark.parametrize("name", ["silence", "clicks", "noise"])
@@ -149,7 +252,7 @@ def test_main_path_runs_the_kernels_and_matches_the_cpu_path(cuda):
     kernels.reset_counts()
     g = batch.batch_copy_synth(xs, fs, noise=noise)
     torch.cuda.synchronize()
-    assert all(kernels.launches[k] > 0 for k in kernels.KERNELS)
+    assert all(kernels.launches[k] > 0 for k in COPY_SYNTH_KERNELS)
     c = batch.batch_copy_synth(xs, fs, noise=noise, device="cpu")
     f0g, f0c = g[1].cpu(), c[1]
     assert ((f0g > 0) == (f0c > 0)).float().mean() >= 0.98
@@ -158,3 +261,29 @@ def test_main_path_runs_the_kernels_and_matches_the_cpu_path(cuda):
     assert (g[2].cpu().log() - c[2].log()).abs().median() <= 0.05
     eg, ec = g[4].cpu().double().pow(2).sum(1), c[4].double().pow(2).sum(1)
     assert ((eg / ec) - 1).abs().max() <= 0.05
+
+
+def test_feature_lane_runs_every_kernel_and_matches_the_cpu_path(cuda):
+    fs, L = 16000, 8000
+    t = np.arange(L) / fs
+    rng = np.random.default_rng(2)
+    xs = np.stack([0.5 * np.sin(2 * np.pi * f * t)
+                   + 0.2 * np.sin(4 * np.pi * f * t)
+                   + 0.01 * rng.standard_normal(L) for f in (150.0, 210.0)])
+    kernels.reset_counts()
+    g = features.feature_lane(xs, fs)
+    torch.cuda.synchronize()
+    assert all(kernels.launches[k] > 0 for k in kernels.KERNELS)
+    c = features.feature_lane(xs, fs, device="cpu")
+    lf0g, lf0c = g[0].cpu(), c[0]
+    assert ((lf0g != 0) == (lf0c != 0)).float().mean() >= 0.98
+    both = (lf0g != 0) & (lf0c != 0)
+    assert (lf0g[both] - lf0c[both]).abs().median() <= 1e-3
+    for k in (1, 2, 3):
+        assert torch.isfinite(g[k]).all()
+        assert (g[k].cpu() - c[k]).abs().median() <= 1e-2
+    kernels.reset_counts()
+    out = bucketing.bucketed_extract(list(xs[:, :L - 700]) + [xs[0]], fs)
+    assert len(out) == 3 and all(np.isfinite(v).all() for r in out for v in r)
+    assert all(kernels.launches[k] > 0 for k in
+               COPY_SYNTH_KERNELS + ("codec_encode",))

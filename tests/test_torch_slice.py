@@ -200,6 +200,10 @@ def test_port_imports_nothing_of_jax():
                                                "hts_train_world_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
+    for mod in ("features/encode.py", "features/windows.py", "ops/codec.py",
+                "ops/mlpg.py", "parallel/bucketing.py",
+                "parallel/features.py"):
+        assert os.path.join(REPO, "hts_train_world_tpu_torch", mod) in files
     for f in files:
         with open(f) as fh:
             assert not pat.search(fh.read()), f
