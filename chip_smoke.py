@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Smoke test and measurement of the PyTorch/CUDA port on one GPU.
 
-Drives the port's three paths at full size on a corpus made from a seed:
+Drives the port's four paths at full size on a corpus made from a seed:
 
 - copy-synthesis (`parallel.batch.batch_copy_synth`): 48 kHz, 2.0 s
   utterances, batch 16, 5 ms frames, f32 fast mode;
 - the feature lane (`parallel.features.feature_lane`): the same batch
   through analysis, the lf0/mgc/bap encode (mgc 50, bap 25), the delta
   windows and MLPG;
+- the synth lane (`parallel.features.synth_lane`, the synth CLI's and the
+  pipeline's WGEN path): the feature lane's (lf0, mgc, bap) of that batch
+  decoded, pulse-counted and synthesised;
 - corpus extraction (`parallel.bucketing.bucketed_extract`): bench.py's
   corpus500 recipe in memory, 500 utterances of 0.7-1.4 s at 48 kHz.
 
@@ -20,15 +23,19 @@ Phases (any failure raises):
    the outputs are not finite, in range and plausible;
 3. replay every recorded launch through the kernel and its plain PyTorch
    version on the same inputs and hold them within the stated tolerance
-   (K5 and K8 also against float64 references); time kernel, plain
-   version, bound and, where one exists, the library call;
-4. compare the card's copy-synthesis and feature lane with the CPU
-   (plain) path on a small input;
+   (K5 and K8 also against float64 references; K9 and K11 bit for bit
+   against the plain version run on the CPU, K11 also across two
+   launches); time kernel, plain version, bound and, where one exists,
+   the library call;
+4. compare the card's copy-synthesis, feature lane and synth lane with
+   the CPU (plain) path on a small input (the synth lane must fire the
+   same pulses);
 5. time the copy-synthesis stages and its audio-seconds per second; DIO's
    stage time and the device idle share with K5 and with its plain twin,
    in turns, in this one run;
 6. one copy-synthesis batch under the profiler;
-7. the feature lane's stage times and audio-seconds per second;
+7. the feature lane's and the synth lane's stage times and audio-seconds
+   per second, and one synth-lane batch under the profiler;
 8. corpus extraction: audio-seconds per second, buckets and batches, the
    device busy share for one bucket group, host time padding and
    trimming.
@@ -66,14 +73,21 @@ REPLACES = {
     "codec_encode": ("K6", "hts_train_world_tpu/ops/codec.py:113"),
     "delta_window": ("K7", "hts_train_world_tpu/features/windows.py:44"),
     "mlpg_solve": ("K8", "hts_train_world_tpu/ops/mlpg.py:62"),
+    "synth_time_base": ("K9", "hts_train_world_tpu/ops/synthesis.py:44"),
+    "synth_pulse_spectra": ("K10", "hts_train_world_tpu/ops/synthesis.py:154"),
+    "synth_ola": ("K11", "hts_train_world_tpu/ops/synthesis.py:248"),
+    "codec_decode": ("K12", "hts_train_world_tpu/ops/codec.py:121"),
 }
+ANALYSIS = ("frame_window", "spectral_smooth", "topk_sum", "fix_f0",
+            "dio_candidates")
+SYNTHESIS = ("synth_time_base", "synth_pulse_spectra", "synth_ola")
 # the kernels each path must launch
 PATHS = {
-    "copy_synth": ("frame_window", "spectral_smooth", "topk_sum", "fix_f0",
-                   "dio_candidates"),
-    "feature_lane": tuple(REPLACES),
-    "corpus500": ("frame_window", "spectral_smooth", "topk_sum", "fix_f0",
-                  "dio_candidates", "codec_encode"),
+    "copy_synth": ANALYSIS + SYNTHESIS,
+    "feature_lane": ANALYSIS + ("codec_encode", "delta_window",
+                                "mlpg_solve"),
+    "synth_lane": ("codec_decode",) + SYNTHESIS,
+    "corpus500": ANALYSIS + ("codec_encode",),
 }
 
 
@@ -120,7 +134,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from hts_train_world_tpu_torch import config as cfg
     from hts_train_world_tpu_torch import kernels
-    from hts_train_world_tpu_torch.features import encode
+    from hts_train_world_tpu_torch.features import decode, encode
     from hts_train_world_tpu_torch.features import windows as win_mod
     from hts_train_world_tpu_torch.ops import codec
     from hts_train_world_tpu_torch.ops import dio as dio_mod
@@ -253,7 +267,21 @@ def main() -> int:
             or bap.shape != (BATCH, T, 25) or traj.shape != (BATCH, T, 75):
         raise RuntimeError("unexpected feature shapes")
     check_features(lf0, mgc, bap, traj, "feature lane outputs")
+    feats = (lf0, mgc, bap)
     del lf0, mgc, bap, traj
+
+    feat_mod.synth_lane(*feats, FS, seed=1)          # warm-up
+    ys, counts_sl, rec_sl = counted(
+        "synth_lane", lambda: feat_mod.synth_lane(*feats, FS, seed=1),
+        record=True)
+    if ys.shape != (BATCH, yl) or not torch.isfinite(ys).all():
+        raise RuntimeError("synth lane: unexpected shape or non-finite "
+                           "waveform")
+    rms = ys.pow(2).mean().sqrt().item()
+    print(f"synth lane outputs: y rms {rms:.4f}", flush=True)
+    if not 0.01 <= rms <= 1.0:
+        raise RuntimeError("synth lane: implausible output level")
+    del ys
 
     # ---- 3. every kernel against its plain version on its inputs ----
     twins = {
@@ -268,6 +296,11 @@ def main() -> int:
         "codec_encode": (encode.encode_spectra, encode.encode_spectra_plain),
         "delta_window": (win_mod.expand, win_mod.expand_plain),
         "mlpg_solve": (mlpg_mod.mlpg, mlpg_mod.mlpg_plain),
+        "synth_time_base": (syn.time_base, syn.time_base_plain),
+        "synth_pulse_spectra": (syn.pulse_spectra, syn.pulse_spectra_plain),
+        "synth_ola": (syn.overlap_add, syn.overlap_add_plain),
+        "codec_decode": (decode.decode_features,
+                         decode.decode_features_plain),
     }
 
     def nbytes(*ts):
@@ -302,6 +335,25 @@ def main() -> int:
             t_o = 2.0 * 3 * outs[0].numel() / F32_OPS_PER_S
         elif name == "mlpg_solve":
             t_o = 60.0 * outs[0].numel() / F32_OPS_PER_S
+        elif name == "synth_time_base":
+            # ~40 f32 operations a sample (search, lerp, increment, wrap,
+            # jump) and one float64 add; the serial sum is not counted
+            samples = inp["f0"].shape[0] * inp["y_length"]
+            t_o = max(40.0 * samples / F32_OPS_PER_S,
+                      samples / F64_OPS_PER_S)
+        elif name == "synth_pulse_spectra":
+            # per bin the lerps and two logs (~60), per noise sample 3
+            pulses = inp["pulse_time"].numel()
+            t_o = pulses * (60.0 * inp["sp"].shape[-1]
+                            + 3.0 * inp["fft_size"]) / F32_OPS_PER_S
+        elif name == "synth_ola":
+            t_o = 8.0 * inp["per_raw"].numel() / F32_OPS_PER_S
+        elif name == "codec_decode":
+            rows = inp["lf0"].numel()
+            H = inp["fft_size"] // 2 + 1
+            db = inp["bap"].shape[-1]
+            t_o = rows * (2.0 * inp["mgc"].shape[-1] * (H - 1) + 30.0 * H
+                          + 2.0 * db * decode.ap_order(db)) / F32_OPS_PER_S
         t_b = moved / HBM_BYTES_PER_S
         return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
@@ -326,6 +378,31 @@ def main() -> int:
             return lambda: (
                 codec.code_spectral_envelope(sp4, *a, inp["mgc_dim"]),
                 codec.code_spectral_envelope(ap4, *a, inp["bap_dim"]))
+        if name == "synth_time_base":
+            inc = syn.phase_increments(inp["f0"], inp["frame_period"],
+                                       inp["fs"], inp["y_length"],
+                                       inp["fft_size"])
+            return lambda: torch.cumsum(inc, dim=1)
+        if name == "synth_ola":
+            resp = syn.finish_responses(
+                inp["per_raw"], inp["aper_raw"], inp["unvoiced"],
+                inp["noise_size"], inp["n"]).reshape(-1)
+            at, Lb = syn.ola_index(inp["pidx"], inp["per_raw"].shape[-1],
+                                   inp["y_length"])
+            B = inp["pidx"].shape[0]
+            return lambda: torch.zeros(B * Lb, device=dev).index_add_(
+                0, at, resp)
+        if name == "codec_decode":
+            m, b, fs_, N_ = inp["mgc"], inp["bap"], inp["fs"], inp["fft_size"]
+            m0 = torch.cat([m[..., :1] - 12.0, m[..., 1:]], dim=-1)
+            W = torch.as_tensor(decode._ap_matrix_np(b.shape[-1], N_),
+                                dtype=torch.float32, device=dev)
+            b0 = torch.cat([b[..., :1] + encode.LN_1E4, b[..., 1:]],
+                           dim=-1)[..., :W.shape[0]]
+            return lambda: (
+                torch.exp(inp["lf0"]),
+                codec.decode_spectral_envelope(m0, fs_, N_, m.shape[-1]),
+                torch.exp(fftmat.matmul(b0, W)))
         if name == "delta_window":
             x = inp["x"]
 
@@ -387,9 +464,78 @@ def main() -> int:
                 f"vs dense f64 solve, worst column err / range: kernel "
                 f"{rk:.2e}, twin {rp:.2e} (<= 1e-3)")
 
+    def on_cpu(inp):
+        return {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                for k, v in inp.items()}
+
+    def bit_same(a, b):
+        a, b = a.cpu(), b.cpu()
+        if a.is_floating_point():
+            return bool(((a == b) | (a.isnan() & b.isnan())).all())
+        return torch.equal(a, b)
+
+    def max_err(pairs):
+        errs = [float((k.cpu().double() - p.cpu().double()).abs()
+                      .nan_to_num(0.0).max()) for k, p in pairs
+                if k.numel() and k.is_floating_point()]
+        return max(errs, default=0.0)
+
+    def check_k9(inp, out_k):
+        """Bit-equal to the plain version run on the CPU."""
+        out_c = syn.time_base_plain(**on_cpu(inp))
+        bad = [f for f, k, c in zip(syn.Pulses._fields, out_k, out_c)
+               if not bit_same(k, c)]
+        return (not bad, max_err(zip(out_k, out_c)),
+                f"bit-equal to the plain version on the CPU (count, pulse "
+                f"indices, noise sizes and offsets, shifts, times, V/UV): "
+                f"{not bad}{' ' + str(bad) if bad else ''}; "
+                f"{int(out_k.n.max())} pulses at most")
+
+    def check_k10(inp, out_k, out_p):
+        lims = syn.pulse_spectra_limit(*out_p[:3], inp["stream"])
+        worst = max(float(((k - p).abs() / lim).max())
+                    for k, p, lim in zip(out_k, out_p, lims))
+        same_unv = torch.equal(out_k[3], out_p[3])
+        return (worst <= 1.0 and same_unv, max_err(zip(out_k[:3], out_p)),
+                f"log spectra within 4 ulps (+4 ulps of 1), noise within "
+                f"1e-5 of the stream's peak: worst err/limit {worst:.3f}; "
+                f"unvoiced flags equal: {same_unv}")
+
+    def check_k11(inp, out_k):
+        out_c = syn.overlap_add_plain(**on_cpu(inp))
+        again = syn.overlap_add(**inp)
+        same, det = bit_same(out_k[0], out_c), torch.equal(again, out_k[0])
+        return (same and det, max_err([(out_k[0], out_c)]),
+                f"bit-equal to the plain version's index_add_ on the CPU: "
+                f"{same}; two launches identical: {det}")
+
+    def check_k12(inp, out_k, out_p):
+        f0_c = decode.decode_features_plain(**on_cpu(inp))[0]
+        lim_sp, lim_ap = decode.decode_limit(**inp)
+        apl = decode.ap_order(inp["bap"].shape[-1])
+        r_sp = float(((out_k[1].log() - out_p[1].log()).abs()
+                      / lim_sp).max())
+        r_ap = float(((out_k[2][..., :apl].log()
+                       - out_p[2][..., :apl].log()).abs() / lim_ap).max())
+        f0_same = bit_same(out_k[0], f0_c)
+        tail = bool((out_k[2][..., apl:] == 0).all())
+        return (f0_same and tail and max(r_sp, r_ap) <= 1.0,
+                max_err(zip(out_k, out_p)),
+                f"f0 bit-equal to the CPU: {f0_same}; |dlog| within "
+                f"decode_limit, worst err/limit sp {r_sp:.3f}, ap "
+                f"{r_ap:.3f}; ap zero past bin {apl}: {tail}")
+
     def check(name, inp, out_k, out_p):
         """(passed, max abs err against the reference, what was held and
         what was read)."""
+        if name == "synth_time_base":
+            return check_k9(inp, out_k)
+        if name == "synth_pulse_spectra":
+            return check_k10(inp, out_k, out_p)
+        if name == "synth_ola":
+            return check_k11(inp, out_k)
+        if name == "codec_decode":
+            return check_k12(inp, out_k, out_p)
         if name == "dio_candidates":
             return check_k5(inp, out_k, out_p)
         if name == "mlpg_solve":
@@ -447,9 +593,17 @@ def main() -> int:
                      f", share > 1% {float((rel > 0.01).double().mean()):.3f}")
         return ok, float(err.max()), text
 
+    def primary(name):
+        """The path whose launches a kernel's line reports: the first in
+        PATHS that runs it."""
+        return next(p for p in PATHS if name in PATHS[p])
+
     summary = {}
     heavy = ("fix_f0", "mlpg_solve", "dio_candidates")  # slow plain twins
-    for name, inp in rec_cs + rec_fl:
+    replays = ([("copy_synth", n, i) for n, i in rec_cs]
+               + [("feature_lane", n, i) for n, i in rec_fl]
+               + [("synth_lane", n, i) for n, i in rec_sl])
+    for path, name, inp in replays:
         kern, plain = twins[name]
         debug = dict(crossings=True) if name == "dio_candidates" else {}
         out_k = kern(**inp, **debug)
@@ -465,8 +619,9 @@ def main() -> int:
         lib_ms = cuda_ms(lib, reps=10, warm=2) if lib else None
         outs = out_k[:2] if name == "dio_candidates" else out_k
         bms, by = bound_of(name, inp, outs)
-        shape = "x".join(str(s) for s in out_k[0].shape)
-        print(f"{REPLACES[name][0]} {name} out {shape}: max_abs_err "
+        shape = "x".join(str(s) for s in out_k[
+            1 if name == "synth_time_base" else 0].shape)
+        print(f"{REPLACES[name][0]} {name} ({path}) out {shape}: max_abs_err "
               f"{err:.3e} ({tol}) {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bms:.4f} ms ({by})"
               + (f", library {lib_ms:.4f} ms" if lib_ms is not None else ""),
@@ -478,6 +633,8 @@ def main() -> int:
                                           bound_ms=0.0, lib_ms=None,
                                           by={}))
         s["err"] = max(s["err"], err)
+        if path != primary(name):
+            continue
         s["ms"] += ms
         s["plain_ms"] += plain_ms
         s["bound_ms"] += bms
@@ -485,7 +642,7 @@ def main() -> int:
         if lib_ms is not None:
             s["lib_ms"] = (s["lib_ms"] or 0.0) + lib_ms
         del out_k, out_p
-    del rec_cs, rec_fl
+    del rec_cs, rec_fl, rec_sl, replays
     torch.cuda.empty_cache()
 
     # the per-frame DFT route: matmul against the tables vs torch.fft
@@ -537,6 +694,32 @@ def main() -> int:
           f"bap {dfeat[1]:.2e}, traj {dfeat[2]:.2e}", flush=True)
     if not (vuv >= 0.98 and dlf0 <= 1e-3 and max(dfeat) <= 1e-2):
         raise RuntimeError("the card's feature lane disagrees with the CPU "
+                           "path")
+    # the synth lane on the CPU path's features, with injected noise: the
+    # decoded f0 and the pulses must be the same on both
+    lf0c, mgcc, bapc = (v.float() for v in c[:3])
+    nz = np.random.default_rng(5).standard_normal(
+        (2, syn.synthesis_stream_len(ylm)))
+    yg = feat_mod.synth_lane(lf0c, mgcc, bapc, FS, noise=nz).cpu().double()
+    yc = feat_mod.synth_lane(lf0c, mgcc, bapc, FS, noise=nz,
+                             device="cpu").double()
+    f0g = decode.decode_features(lf0c.to(dev), mgcc.to(dev), bapc.to(dev),
+                                 FS, N)[0]
+    f0c = decode.decode_features(lf0c, mgcc, bapc, FS, N)[0]
+    Pm = syn.default_max_pulses(ylm, FS)
+    pg = syn.time_base(f0g, FRAME_PERIOD, FS, ylm, N, Pm)
+    pc = syn.time_base(f0c, FRAME_PERIOD, FS, ylm, N, Pm)
+    f0_same = torch.equal(f0g.cpu(), f0c)
+    pulses_same = torch.equal(pg.n.cpu(), pc.n) \
+        and torch.equal(pg.pidx.cpu(), pc.pidx)
+    d_peak = float((yg - yc).abs().max() / yc.abs().max())
+    e_rel = float(((yg.pow(2).sum(1) / yc.pow(2).sum(1)) - 1).abs().max())
+    print(f"synth lane, card vs CPU path (2 x 0.5 s, injected noise): f0 "
+          f"bit-equal {f0_same}, pulses identical {pulses_same} "
+          f"({pc.n.tolist()} pulses), max |dy| / peak {d_peak:.2e}, energy "
+          f"rel {e_rel:.2e}", flush=True)
+    if not (f0_same and pulses_same and d_peak <= 1e-3 and e_rel <= 1e-3):
+        raise RuntimeError("the card's synth lane disagrees with the CPU "
                            "path")
 
     # ---- 5. copy-synthesis stage times and throughput; K5 vs its twin ----
@@ -608,28 +791,31 @@ def main() -> int:
                         for v in k5_runs.values()))
 
     # ---- 6. where the device time goes: one batch under the profiler ----
-    wall, busy, evs = profiled(one_batch)
-    if busy > 0:
+    def report_profile(label, fn):
+        wall, busy, evs = profiled(fn)
+        if busy <= 0:
+            print(f"profiler ({label}): no device time recorded")
+            return
         groups = {g: [0.0, 0] for g in ("gemm (DFT matmuls)", "fft",
-                                        "K1-K8", "other")}
+                                        "K1-K12", "other")}
         for e in evs:
             k = e.key.lower()
             g = ("gemm (DFT matmuls)" if "gemm" in k
                  else "fft" if "fft" in k
-                 else "K1-K8" if any(n in k for n in kernels.KERNELS)
+                 else "K1-K12" if any(n in k for n in kernels.KERNELS)
                  else "other")
             groups[g][0] += dev_us(e) / 1e3
             groups[g][1] += e.count
-        print(f"profiler: one batch, wall {1e3 * wall:.1f} ms, device busy "
-              f"{1e3 * busy:.1f} ms ({100 * busy / wall:.0f}%, idle "
-              f"{100 - 100 * busy / wall:.0f}%); by kind: "
+        print(f"profiler ({label}): one batch, wall {1e3 * wall:.1f} ms, "
+              f"device busy {1e3 * busy:.1f} ms ({100 * busy / wall:.0f}%, "
+              f"idle {100 - 100 * busy / wall:.0f}%); by kind: "
               + ", ".join(f"{g} {v:.2f} ms in {n} launches"
                           for g, (v, n) in groups.items()))
         for e in evs[:12]:
             print(f"  {dev_us(e) / 1e3:8.2f} ms  {e.count:5d} x  "
                   f"{e.key[:90]}")
-    else:
-        print("profiler: no device time recorded")
+
+    report_profile("copy-synthesis", one_batch)
 
     # ---- 7. the feature lane: stage times and throughput ----
     sm = stage_ms(lambda: feat_mod.feature_lane_stages(xs, FS, FRAME_PERIOD))
@@ -638,6 +824,17 @@ def main() -> int:
     throughput(lambda s: float(feat_mod.feature_lane(xs, FS)[3].sum()),
                "feature lane")
     del xs
+    torch.cuda.empty_cache()
+    # the synth lane on the feature lane's (lf0, mgc, bap) of the batch
+    sm = stage_ms(lambda: feat_mod.synth_lane_stages(*feats, FS, FRAME_PERIOD,
+                                                     seed=3))
+    print("synth lane stage ms (mean of 3, B=16 x 2.0 s @ 48 kHz): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in sm.items()))
+    throughput(lambda s: float(feat_mod.synth_lane(
+        *feats, FS, seed=30 + s).pow(2).sum()), "synth lane")
+    report_profile("synth lane",
+                   lambda: feat_mod.synth_lane(*feats, FS, seed=40))
+    del feats
     torch.cuda.empty_cache()
 
     # ---- 8. corpus extraction (corpus500) ----
@@ -689,13 +886,12 @@ def main() -> int:
     print(smi)
     src = "hts_train_world_tpu_torch/csrc/"
     by_path = {"copy_synth": counts_cs, "feature_lane": counts_fl,
-               "corpus500": counts_cp}
+               "synth_lane": counts_sl, "corpus500": counts_cp}
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": src + kernels.KERNELS[name][0],
          "replaces": REPLACES[name][1],
-         "launches": (counts_cs if name in PATHS["copy_synth"]
-                      else counts_fl)[name],
+         "launches": by_path[primary(name)][name],
          "max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
          "bound_ms": s["bound_ms"], "bound_by": max(s["by"], key=s["by"].get),
          "library_ms": s["lib_ms"],

@@ -56,6 +56,18 @@ KERNELS = {
                      [_P, _I, _I, _I, _P, _P, _I, _I, _P]),
     "mlpg_solve": ("mlpg_solve.cu", "mlpg_solve_launch",
                    [_P, _P, _I, _I, _I, _I, _P, _P, _P]),
+    "synth_time_base": ("synth_time_base.cu", "synth_time_base_launch",
+                        [_P, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P,
+                         _P, _P]),
+    "synth_pulse_spectra": ("synth_pulse_spectra.cu",
+                            "synth_pulse_spectra_launch",
+                            [_P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _I,
+                             _I, _F, _F, _P, _P, _P, _P]),
+    "synth_ola": ("synth_ola.cu", "synth_ola_launch",
+                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P]),
+    "codec_decode": ("codec_decode.cu", "codec_decode_launch",
+                     [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P,
+                      _P, _P]),
 }
 
 launches: collections.Counter = collections.Counter()

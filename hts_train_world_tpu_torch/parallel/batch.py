@@ -1,10 +1,11 @@
-"""Batched WORLD analysis and copy-synthesis on one device.
+"""Batched WORLD analysis, synthesis and copy-synthesis on one device.
 
 Counterpart of `hts_train_world_tpu/parallel/batch.py` (algorithm="dio",
 fast mode): a batch of equal-length utterances runs through DIO ->
-StoneMask -> CheapTrick -> D4C as batched tensors, the exact pulse count
-is read once on the host, and synthesis runs at a 128-aligned pulse
-bucket of that count plus slack.
+StoneMask -> CheapTrick -> D4C as batched tensors; synthesis reads the
+exact pulse count once on the host (kernel K9, the arithmetic synthesis
+itself runs) and runs at a 128-aligned pulse bucket of that count plus
+slack.
 """
 from __future__ import annotations
 
@@ -70,7 +71,8 @@ def _pulse_bucket(n: int, cap: int) -> int:
 
 def pulse_bucket(f0, fs: int, frame_period: float, y_length: int) -> int:
     """The synthesis pulse cap for a batch: its exact largest pulse count
-    (one host read) + 8 slack for cumsum rounding, 128-aligned."""
+    (one host read of K9's count, the arithmetic synthesis runs) + 8
+    slack, 128-aligned, as the JAX package sizes it."""
     N = cfg.cheaptrick_fft_size(fs)
     ncs = syn.count_pulses(f0, frame_period, fs, y_length, N)
     return _pulse_bucket(int(ncs.max().item()) + 8,
@@ -86,25 +88,47 @@ def synthesis_noise_batch(generator: torch.Generator, batch: int,
                        device=generator.device)
 
 
-def copy_synth_stages(xs, fs: int, frame_period: float = 5.0,
-                      d4c_threshold: float = 0.0, noise=None, seed: int = 0):
-    """`batch_copy_synth` one stage at a time on xs's device, yielding
-    (stage name, result): the analysis stages, "count" (the pulse
-    bucket) and "synthesis", whose result is (t, f0, sp, ap, y)."""
-    for stage, out in analyze_stages(xs, fs, frame_period, d4c_threshold):
-        yield stage, out
-    t, f0, sp, ap = out
-    yl = cfg.y_length_for(f0.shape[1], frame_period, fs)
+def synth_stages(f0, sp, ap, fs: int, frame_period: float = 5.0,
+                 noise=None, seed: int = 0):
+    """Batched synthesis one stage at a time on f0's device, yielding
+    (stage name, result): "count" (the pulse bucket) and "synthesis" (the
+    waveform (B, y_length), y_length from the frame count as synth.cpp
+    sizes it).  `noise` (B, y_length+16) is drawn from `seed` when not
+    given."""
+    B, T = f0.shape
+    yl = cfg.y_length_for(T, frame_period, fs)
     bucket = pulse_bucket(f0, fs, frame_period, yl)
     yield "count", bucket
     if noise is None:
-        gen = torch.Generator(device=xs.device).manual_seed(seed)
-        noise = synthesis_noise_batch(gen, xs.shape[0], yl, xs.dtype)
+        gen = torch.Generator(device=f0.device).manual_seed(seed)
+        noise = synthesis_noise_batch(gen, B, yl, sp.dtype)
     else:
-        noise = torch.as_tensor(noise, dtype=xs.dtype, device=xs.device)
-    y = syn.synthesis(f0, sp, ap, cfg.cheaptrick_fft_size(fs), frame_period,
-                      fs, yl, noise, bucket)
-    yield "synthesis", (t, f0, sp, ap, y)
+        noise = torch.as_tensor(noise, dtype=sp.dtype, device=f0.device)
+    yield "synthesis", syn.synthesis(f0, sp, ap, cfg.cheaptrick_fft_size(fs),
+                                     frame_period, fs, yl, noise, bucket)
+
+
+def batch_synth(f0, sp, ap, fs: int, frame_period: float = 5.0, noise=None,
+                seed: int = 0, device="cuda"):
+    """Batched synthesis of f0 (B, T), sp and ap (B, T, N/2+1) on
+    `device` (f32 fast mode): ONE host read of the exact per-batch pulse
+    count, then synthesis at the bucketed pulse cap -> (B, y_length)."""
+    f0, sp, ap = (device_mod.as_input(v, device) for v in (f0, sp, ap))
+    *_, (_, y) = synth_stages(f0, sp, ap, fs, frame_period, noise, seed)
+    return y
+
+
+def copy_synth_stages(xs, fs: int, frame_period: float = 5.0,
+                      d4c_threshold: float = 0.0, noise=None, seed: int = 0):
+    """`batch_copy_synth` one stage at a time on xs's device, yielding
+    (stage name, result): the analysis stages, then those of
+    `synth_stages`, the last result being (t, f0, sp, ap, y)."""
+    for stage, out in analyze_stages(xs, fs, frame_period, d4c_threshold):
+        yield stage, out
+    t, f0, sp, ap = out
+    for stage, res in synth_stages(f0, sp, ap, fs, frame_period, noise,
+                                   seed):
+        yield stage, ((t, f0, sp, ap, res) if stage == "synthesis" else res)
 
 
 def batch_copy_synth(xs, fs: int, frame_period: float = 5.0,

@@ -9,15 +9,21 @@ import numpy as np
 import pytest
 import torch
 
+from hts_train_world_tpu_torch import config as cfg
 from hts_train_world_tpu_torch import kernels
-from hts_train_world_tpu_torch.features import encode, windows
+from hts_train_world_tpu_torch.features import decode, encode, windows
 from hts_train_world_tpu_torch.ops import dio, frames, mlpg, prims
+from hts_train_world_tpu_torch.ops import synthesis as syn
 from hts_train_world_tpu_torch.parallel import batch, bucketing, features
 
 pytestmark = pytest.mark.cuda
 
+SYNTH_KERNELS = ("synth_time_base", "synth_pulse_spectra", "synth_ola")
 COPY_SYNTH_KERNELS = ("frame_window", "spectral_smooth", "topk_sum", "fix_f0",
-                      "dio_candidates")
+                      "dio_candidates") + SYNTH_KERNELS
+FEATURE_LANE_KERNELS = ("frame_window", "spectral_smooth", "topk_sum",
+                        "fix_f0", "dio_candidates", "codec_encode",
+                        "delta_window", "mlpg_solve")
 
 
 @pytest.fixture
@@ -273,7 +279,7 @@ def test_feature_lane_runs_every_kernel_and_matches_the_cpu_path(cuda):
     kernels.reset_counts()
     g = features.feature_lane(xs, fs)
     torch.cuda.synchronize()
-    assert all(kernels.launches[k] > 0 for k in kernels.KERNELS)
+    assert all(kernels.launches[k] > 0 for k in FEATURE_LANE_KERNELS)
     c = features.feature_lane(xs, fs, device="cpu")
     lf0g, lf0c = g[0].cpu(), c[0]
     assert ((lf0g != 0) == (lf0c != 0)).float().mean() >= 0.98
@@ -286,4 +292,209 @@ def test_feature_lane_runs_every_kernel_and_matches_the_cpu_path(cuda):
     out = bucketing.bucketed_extract(list(xs[:, :L - 700]) + [xs[0]], fs)
     assert len(out) == 3 and all(np.isfinite(v).all() for r in out for v in r)
     assert all(kernels.launches[k] > 0 for k in
-               COPY_SYNTH_KERNELS + ("codec_encode",))
+               COPY_SYNTH_KERNELS[:5] + ("codec_encode",))
+
+
+# ---------------------------------------------------------------------------
+# the synth path: K9-K12
+# ---------------------------------------------------------------------------
+
+
+def _contour(T, seed, kind):
+    """voiced; with unvoiced runs; or with 500 Hz frames beside unvoiced
+    ones and frames below the lowest f0 (phase wraps on sample bounds)."""
+    rng = np.random.default_rng(seed)
+    f0 = 150.0 + 60.0 * np.sin(np.arange(T) / 7.0 + rng.uniform(0, 3))
+    if kind in ("unvoiced", "boundary"):
+        f0[T // 3:T // 3 + 8] = 0.0
+        f0[-5:] = 0.0
+    if kind == "boundary":
+        f0[T // 3 - 4:T // 3] = 500.0
+        f0[T // 2:T // 2 + 3] = 20.0
+    return f0
+
+
+def _same(a, b):
+    """Bit-equal, NaN where NaN (the fill slots' shifts may be any value)."""
+    a, b = a.cpu(), b.cpu()
+    if a.is_floating_point():
+        return bool(((a == b) | (a.isnan() & b.isnan())).all())
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("fs,T,B", [(16000, 60, 3), (48000, 30, 3),
+                                    (48000, 401, 4)])
+@pytest.mark.parametrize("kind", ["voiced", "unvoiced", "boundary"])
+def test_k9_kernel_bit_equal_to_cpu_twin(cuda, fs, T, B, kind):
+    """Counts, pulse indices, noise sizes and offsets, time shifts, times
+    and V/UV flags equal to the twin run on the CPU, bit for bit; the
+    count-only launch gives the same counts."""
+    N = cfg.cheaptrick_fft_size(fs)
+    yl = cfg.y_length_for(T, 5.0, fs)
+    P = syn.default_max_pulses(yl, fs)
+    f0 = torch.as_tensor(np.stack([_contour(T, s, kind) for s in range(B)]),
+                         dtype=torch.float32)
+    got = syn.time_base(f0.to(cuda), 5.0, fs, yl, N, P)
+    want = syn.time_base_plain(f0, 5.0, fs, yl, N, P)
+    for name, g, w in zip(syn.Pulses._fields, got, want):
+        assert _same(g, w), name
+    assert torch.equal(syn.count_pulses(f0.to(cuda), 5.0, fs, yl, N).cpu(),
+                       want.n)
+    small = syn.time_base(f0.to(cuda), 5.0, fs, yl, N, 8)   # cap < count
+    for g, w in zip(small, syn.time_base_plain(f0, 5.0, fs, yl, N, 8)):
+        assert _same(g, w)
+
+
+def _synth_inputs(cuda, fs, T, seed):
+    rng = np.random.default_rng(seed)
+    N = cfg.cheaptrick_fft_size(fs)
+    yl = cfg.y_length_for(T, 5.0, fs)
+    P = syn.default_max_pulses(yl, fs)
+    freq = np.arange(N // 2 + 1) / N * fs
+    sp = np.exp(-freq / 1500.0)[None, None] * (1 + rng.random((2, T, 1)))
+    ap = np.clip(freq / (fs / 2) + 0.1 * rng.random((2, T, 1)), 0, 1)
+    ap[:, :T // 4, :3] = 0.9995
+    f0 = np.stack([_contour(T, s, "unvoiced") for s in (seed, seed + 1)])
+    noise = rng.standard_normal((2, syn.synthesis_stream_len(yl)))
+    f32 = dict(dtype=torch.float32, device=cuda)
+    return ([torch.as_tensor(v, **f32) for v in (f0, sp, ap, noise)], N, yl,
+            P)
+
+
+@pytest.mark.parametrize("fs", [16000, 48000])
+def test_k10_kernel_matches_plain(cuda, fs):
+    """log_p, log_a within 4 ulps (+4 ulps of 1), the noise within 1e-5 of
+    the stream's scale, the unvoiced flags equal."""
+    (f0, sp, ap, noise), N, yl, P = _synth_inputs(cuda, fs, 40, 1)
+    pl = syn.time_base(f0, 5.0, fs, yl, N, P)
+    args = (sp, ap, noise, pl.pulse_time, pl.vuv, pl.noise_size,
+            pl.noise_off, 5.0, N)
+    got = syn.pulse_spectra(*args)
+    want = syn.pulse_spectra_plain(*args)
+    for g, w, lim in zip(got, want, syn.pulse_spectra_limit(*want[:3],
+                                                            noise)):
+        assert ((g - w).abs() <= lim).all()
+    assert torch.equal(got[3], want[3]) and got[3].any()
+
+
+@pytest.mark.parametrize("fs", [16000, 48000])
+def test_k11_kernel_bit_equal_and_deterministic(cuda, fs):
+    """The gather OLA equals the twin's index_add_ run on the CPU bit for
+    bit, and two launches give the same waveform."""
+    (f0, sp, ap, noise), N, yl, P = _synth_inputs(cuda, fs, 40, 2)
+    pl = syn.time_base(f0, 5.0, fs, yl, N, P)
+    lp, la, nz, unv = syn.pulse_spectra(sp, ap, noise, pl.pulse_time, pl.vuv,
+                                        pl.noise_size, pl.noise_off, 5.0, N)
+    per, aper = syn.responses(lp, la, nz, pl.time_shift, fs, N)
+    args = (per, aper, unv, pl.pidx, pl.noise_size, pl.n, yl)
+    a, b = syn.overlap_add(*args), syn.overlap_add(*args)
+    want = syn.overlap_add_plain(*(v.cpu() if torch.is_tensor(v) else v
+                                   for v in args))
+    assert torch.equal(a, b)
+    assert torch.equal(a.cpu(), want) and want.abs().max() > 0.01
+
+
+@pytest.mark.parametrize("bap_dim", [24, 25])
+def test_k12_kernel_matches_plain(cuda, bap_dim):
+    """f0 equal to the CPU twin's (exp in float64, rounded); sp and ap
+    within decode_limit of the twin on the card; ap zero past apl."""
+    fs = 48000
+    N = cfg.cheaptrick_fft_size(fs)
+    rng = np.random.default_rng(bap_dim)
+    mgc = rng.standard_normal((3, 50, 50)) / (1.0 + np.arange(50)) ** 1.2
+    mgc[..., 0] += 13.0
+    bap = 0.5 * rng.standard_normal((3, 50, bap_dim)) \
+        / (1.0 + np.arange(bap_dim))
+    bap[..., 0] -= 2.0
+    lf0 = np.log(100.0 + 200.0 * rng.random((3, 50)))
+    lf0[:, 10:15] = 0.0
+    ins = [torch.as_tensor(v, dtype=torch.float32, device=cuda)
+           for v in (lf0, mgc, bap)]
+    got = decode.decode_features(*ins, fs, N)
+    want = decode.decode_features_plain(*ins, fs, N)
+    lim_sp, lim_ap = decode.decode_limit(*ins, fs, N)
+    assert torch.equal(got[0].cpu(), decode.decode_features_plain(
+        *(v.cpu() for v in ins), fs, N)[0])
+    assert ((got[1].log() - want[1].log()).abs() <= lim_sp).all()
+    apl = decode.ap_order(bap_dim)
+    assert ((got[2][..., :apl].log() - want[2][..., :apl].log()).abs()
+            <= lim_ap).all()
+    assert (got[2][..., apl:] == 0).all()
+
+
+def test_synth_lane_and_batch_synth_match_the_cpu_path(cuda):
+    """On injected noise: the card's decode gives the CPU's f0 bit for bit,
+    both fire the same pulses, and the waveforms agree within 1e-3 of
+    their peak; batch_synth on the decoded parameters gives the lane's
+    waveform; the lane launches K9-K12."""
+    fs, T = 48000, 60
+    rng = np.random.default_rng(11)
+    mgc = rng.standard_normal((2, T, 50)) / (1.0 + np.arange(50)) ** 1.2
+    mgc[..., 0] += 13.0
+    bap = 0.5 * rng.standard_normal((2, T, 25)) / (1.0 + np.arange(25))
+    bap[..., 0] -= 2.0
+    lf0 = np.log(np.stack([_contour(T, s, "voiced") for s in (0, 1)]))
+    lf0[1, 20:30] = 0.0
+    yl = cfg.y_length_for(T, 5.0, fs)
+    noise = rng.standard_normal((2, syn.synthesis_stream_len(yl)))
+    kernels.reset_counts()
+    yg = features.synth_lane(lf0, mgc, bap, fs, noise=noise)
+    torch.cuda.synchronize()
+    assert all(kernels.launches[k] > 0
+               for k in SYNTH_KERNELS + ("codec_decode",))
+    yc = features.synth_lane(lf0, mgc, bap, fs, noise=noise, device="cpu")
+    N = cfg.cheaptrick_fft_size(fs)
+    fg = decode.decode_features(*(torch.as_tensor(
+        v, dtype=torch.float32, device=cuda) for v in (lf0, mgc, bap)), fs,
+        N)
+    fc = decode.decode_features(*(torch.as_tensor(v, dtype=torch.float32)
+                                  for v in (lf0, mgc, bap)), fs, N)
+    assert torch.equal(fg[0].cpu(), fc[0])
+    P = syn.default_max_pulses(yl, fs)
+    pg = syn.time_base(fg[0], 5.0, fs, yl, N, P)
+    pc = syn.time_base(fc[0], 5.0, fs, yl, N, P)
+    assert torch.equal(pg.pidx.cpu(), pc.pidx) and torch.equal(pg.n.cpu(),
+                                                               pc.n)
+    assert ((yg.cpu() - yc).abs().max() <= 1e-3 * yc.abs().max())
+    bg = batch.batch_synth(*fg, fs, noise=noise)
+    bc = batch.batch_synth(*fc, fs, noise=noise, device="cpu")
+    assert torch.equal(bc, yc)
+    assert (bg - yg).abs().max() <= 1e-6 * yg.abs().max()
+
+
+def test_synth_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    f0 = torch.full((2, 10), 150.0, device=cuda)
+    with pytest.raises(ValueError):
+        syn.time_base(f0.double(), 5.0, 16000, 800, 1024, 32)
+    with pytest.raises(ValueError):
+        syn.time_base(f0[:, :1], 5.0, 16000, 800, 1024, 32)
+    pl = syn.time_base(f0, 5.0, 16000, 721, 1024, 32)
+    sp = torch.ones((2, 10, 513), device=cuda)
+    noise = torch.zeros((2, 737), device=cuda)
+    with pytest.raises(ValueError):
+        syn.pulse_spectra(sp, sp[..., :512], noise, pl.pulse_time, pl.vuv,
+                          pl.noise_size, pl.noise_off, 5.0, 1024)
+    with pytest.raises(ValueError):
+        syn.pulse_spectra(sp, sp, noise, pl.pulse_time, pl.vuv,
+                          pl.noise_size.int(), pl.noise_off, 5.0, 1024)
+    with pytest.raises(ValueError):
+        syn.pulse_spectra(sp, sp, noise.cpu(), pl.pulse_time, pl.vuv,
+                          pl.noise_size, pl.noise_off, 5.0, 1024)
+    resp = torch.zeros((2, 32, 1024), device=cuda)
+    unv = torch.zeros((2, 32), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):
+        syn.overlap_add(resp, resp.double(), unv, pl.pidx, pl.noise_size,
+                        pl.n, 721)
+    with pytest.raises(ValueError):
+        syn.overlap_add(resp, resp, unv.float(), pl.pidx, pl.noise_size,
+                        pl.n, 721)
+    lf0 = torch.zeros((2, 10), device=cuda)
+    with pytest.raises(ValueError):
+        decode.decode_features(lf0, torch.zeros((2, 9, 50), device=cuda),
+                               torch.zeros((2, 10, 25), device=cuda), 16000,
+                               1024)
+    with pytest.raises(ValueError):
+        decode.decode_features(lf0.double(), torch.zeros((2, 10, 50),
+                                                         device=cuda),
+                               torch.zeros((2, 10, 25), device=cuda), 16000,
+                               1024)

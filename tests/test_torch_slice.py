@@ -202,7 +202,8 @@ def test_port_imports_nothing_of_jax():
     assert len(files) > 10
     for mod in ("features/encode.py", "features/windows.py", "ops/codec.py",
                 "ops/mlpg.py", "parallel/bucketing.py",
-                "parallel/features.py"):
+                "parallel/features.py", "features/decode.py", "cli.py",
+                "io/rawio.py", "io/wavio.py", "ops/synthesis.py"):
         assert os.path.join(REPO, "hts_train_world_tpu_torch", mod) in files
     for f in files:
         with open(f) as fh:
