@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test and measurement of the PyTorch/CUDA port on one GPU.
 
-Drives the port's four paths at full size on a corpus made from a seed:
+Drives the port's paths at full size on a corpus made from a seed:
 
 - copy-synthesis (`parallel.batch.batch_copy_synth`): 48 kHz, 2.0 s
   utterances, batch 16, 5 ms frames, f32 fast mode;
@@ -12,24 +12,30 @@ Drives the port's four paths at full size on a corpus made from a seed:
   pipeline's WGEN path): the feature lane's (lf0, mgc, bap) of that batch
   decoded, pulse-counted and synthesised;
 - corpus extraction (`parallel.bucketing.bucketed_extract`): bench.py's
-  corpus500 recipe in memory, 500 utterances of 0.7-1.4 s at 48 kHz.
+  corpus500 recipe in memory, 500 utterances of 0.7-1.4 s at 48 kHz;
+- the Harvest lane (`parallel.batch.batch_analyze(algorithm="harvest")`):
+  the headline batch through Harvest's F0 (decimation, band filter, raw
+  candidates, detection, refinement, contour), CheapTrick and D4C;
+- corpus extraction with Harvest (`bucketed_extract(algorithm="harvest")`)
+  on corpus500.
 
 Phases (any failure raises):
 
 1. build every CUDA kernel from `hts_train_world_tpu_torch/csrc/`;
 2. run each path once with the launch counts set to 0 just before it and
-   read just after (copy-synthesis and the feature lane also record each
-   kernel's inputs); fail if a kernel of the path was not launched, or if
-   the outputs are not finite, in range and plausible;
+   read just after (copy-synthesis, the feature lane, the synth lane and
+   the Harvest lane also record each kernel's inputs); fail if a kernel of
+   the path was not launched, or if the outputs are not finite, in range
+   and plausible;
 3. replay every recorded launch through the kernel and its plain PyTorch
    version on the same inputs and hold them within the stated tolerance
-   (K5 and K8 also against float64 references; K9 and K11 bit for bit
-   against the plain version run on the CPU, K11 also across two
+   (K5, K8 and K14 also against float64 references; K9 and K11 bit for
+   bit against the plain version run on the CPU, K11 also across two
    launches); time kernel, plain version, bound and, where one exists,
    the library call;
-4. compare the card's copy-synthesis, feature lane and synth lane with
-   the CPU (plain) path on a small input (the synth lane must fire the
-   same pulses);
+4. compare the card's copy-synthesis, feature lane, synth lane and
+   Harvest lane with the CPU (plain) path on a small input (the synth
+   lane must fire the same pulses);
 5. time the copy-synthesis stages and its audio-seconds per second; DIO's
    stage time and the device idle share with K5 and with its plain twin,
    in turns, in this one run;
@@ -38,7 +44,10 @@ Phases (any failure raises):
    per second, and one synth-lane batch under the profiler;
 8. corpus extraction: audio-seconds per second, buckets and batches, the
    device busy share for one bucket group, host time padding and
-   trimming.
+   trimming;
+9. the Harvest lane's stage times and audio-seconds per second on the
+   headline batch, one batch under the profiler; corpus extraction with
+   Harvest, one timed run after one warm run.
 
 Prints each measurement, the card's name and power limit, a `kernels`
 JSON line, and as the last line {"ok": true, "device": {...}}.  Exits
@@ -77,10 +86,16 @@ REPLACES = {
     "synth_pulse_spectra": ("K10", "hts_train_world_tpu/ops/synthesis.py:154"),
     "synth_ola": ("K11", "hts_train_world_tpu/ops/synthesis.py:248"),
     "codec_decode": ("K12", "hts_train_world_tpu/ops/codec.py:121"),
+    "harvest_decimate": ("K13", "hts_train_world_tpu/ops/prims.py:262"),
+    "harvest_candidates": ("K14", "hts_train_world_tpu/ops/harvest.py:129"),
+    "harvest_refine": ("K15", "hts_train_world_tpu/ops/harvest.py:320"),
+    "harvest_contour": ("K16", "hts_train_world_tpu/ops/harvest_fix.py:121"),
 }
 ANALYSIS = ("frame_window", "spectral_smooth", "topk_sum", "fix_f0",
             "dio_candidates")
 SYNTHESIS = ("synth_time_base", "synth_pulse_spectra", "synth_ola")
+HARVEST = ("harvest_decimate", "harvest_candidates", "harvest_refine",
+           "harvest_contour", "frame_window", "spectral_smooth", "topk_sum")
 # the kernels each path must launch
 PATHS = {
     "copy_synth": ANALYSIS + SYNTHESIS,
@@ -88,6 +103,8 @@ PATHS = {
                                 "mlpg_solve"),
     "synth_lane": ("codec_decode",) + SYNTHESIS,
     "corpus500": ANALYSIS + ("codec_encode",),
+    "harvest_lane": HARVEST,
+    "corpus500_harvest": HARVEST + ("codec_encode",),
 }
 
 
@@ -139,6 +156,8 @@ def main() -> int:
     from hts_train_world_tpu_torch.ops import codec
     from hts_train_world_tpu_torch.ops import dio as dio_mod
     from hts_train_world_tpu_torch.ops import fftmat, frames
+    from hts_train_world_tpu_torch.ops import harvest as hv
+    from hts_train_world_tpu_torch.ops import harvest_fix as hf
     from hts_train_world_tpu_torch.ops import mlpg as mlpg_mod
     from hts_train_world_tpu_torch.ops import prims
     from hts_train_world_tpu_torch.ops import synthesis as syn
@@ -283,6 +302,27 @@ def main() -> int:
         raise RuntimeError("synth lane: implausible output level")
     del ys
 
+    def harvest_lane():
+        return batch_mod.batch_analyze(xs, FS, algorithm="harvest")
+
+    harvest_lane()                                   # warm-up
+    (_, f0, sp, ap), counts_hl, rec_hl = counted("harvest_lane", harvest_lane,
+                                                 record=True)
+    rec_hl = [(n, i) for n, i in rec_hl if n.startswith("harvest_")]
+    if f0.shape != (BATCH, T) or sp.shape != (BATCH, T, half + 1) \
+            or ap.shape != sp.shape:
+        raise RuntimeError("Harvest lane: unexpected output shapes")
+    if not all(bool(torch.isfinite(v).all()) for v in (f0, sp, ap)) \
+            or not (sp > 0).all() or ap.min() < 0 or ap.max() > 1:
+        raise RuntimeError("Harvest lane: non-finite or out-of-range output")
+    voiced = (f0 > 0).float().mean().item()
+    med_f0 = f0[f0 > 0].median().item()
+    print(f"Harvest lane outputs: voiced rate {voiced:.3f}, median f0 "
+          f"{med_f0:.1f} Hz", flush=True)
+    if not (0.8 <= voiced <= 1.0 and 150.0 <= med_f0 <= 250.0):
+        raise RuntimeError("Harvest lane: implausible V/UV rate or f0")
+    del f0, sp, ap
+
     # ---- 3. every kernel against its plain version on its inputs ----
     twins = {
         "frame_window": (frames.frame_windows, frames.frame_windows_plain),
@@ -301,6 +341,10 @@ def main() -> int:
         "synth_ola": (syn.overlap_add, syn.overlap_add_plain),
         "codec_decode": (decode.decode_features,
                          decode.decode_features_plain),
+        "harvest_decimate": (prims.decimate, prims.decimate_plain),
+        "harvest_candidates": (hv.raw_candidates, hv.raw_candidates_plain),
+        "harvest_refine": (hv.refine, hv.refine_plain),
+        "harvest_contour": (hf.contour, hf.contour_plain),
     }
 
     def nbytes(*ts):
@@ -354,6 +398,24 @@ def main() -> int:
             db = inp["bap"].shape[-1]
             t_o = rows * (2.0 * inp["mgc"].shape[-1] * (H - 1) + 30.0 * H
                           + 2.0 * db * decode.ap_order(db)) / F32_OPS_PER_S
+        elif name == "harvest_decimate":
+            # the order-3 recurrence and its output taps, twice, in f64
+            x = inp["x"]
+            t_o = 2 * 13.0 * x.shape[0] * (x.shape[1] + 18) / F64_OPS_PER_S
+        elif name == "harvest_candidates":
+            # the channel rows it reads, the four streams' crossing tests
+            fb = inp["filt"]
+            samples = fb.shape[0] * fb.shape[1] * inp["plan"]["y_length"]
+            moved = 4 * samples + nbytes(*outs)
+            t_o = 12.0 * samples / F32_OPS_PER_S
+        elif name == "harvest_refine":
+            # per non-zero pair, 2h+1 samples x 6 bins x 2 windows x 2 (re,
+            # im) multiply-adds: what this run's candidates need
+            c = inp["cands"]
+            ub, tt, cc = torch.nonzero(c > 0, as_tuple=True)
+            _, B_dft = hv.refine_sizes(inp["fs8"], inp["f0_floor"])
+            h = hv.pair_integers(c[ub, tt, cc], tt, inp["fs8"], B_dft)[0]
+            t_o = 48.0 * float((2 * h + 1).sum()) / F32_OPS_PER_S
         t_b = moved / HBM_BYTES_PER_S
         return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
@@ -403,6 +465,19 @@ def main() -> int:
                 torch.exp(inp["lf0"]),
                 codec.decode_spectral_envelope(m0, fs_, N_, m.shape[-1]),
                 torch.exp(fftmat.matmul(b0, W)))
+        if name == "harvest_refine":
+            # torch.fft.rfft at the B-point size of every non-zero pair's
+            # two windowed segments, and the six-bin gather
+            c = inp["cands"]
+            ub, tt, cc = torch.nonzero(c > 0, as_tuple=True)
+            xm, xd, ints = hv.windowed_pairs(inp["y"], ub, tt, c[ub, tt, cc],
+                                             inp["fs8"], inp["f0_floor"])
+            _, B_dft = hv.refine_sizes(inp["fs8"], inp["f0_floor"])
+            rows = torch.stack([xm, xd])
+            bins = (ints[5] * (B_dft // ints[2])[:, None])[None].expand(
+                2, -1, -1)
+            return lambda: torch.gather(torch.fft.rfft(rows, n=B_dft, dim=-1),
+                                        2, bins)
         if name == "delta_window":
             x = inp["x"]
 
@@ -525,9 +600,70 @@ def main() -> int:
                 f"decode_limit, worst err/limit sp {r_sp:.3f}, ap "
                 f"{r_ap:.3f}; ap zero past bin {apl}: {tail}")
 
+    def check_k14(inp, out_k, out_p):
+        same = bool(torch.equal(out_k[1], out_p[1])
+                    and torch.equal(out_k[2], out_p[2]))
+        ref = hv.crossing_candidates_f64(inp["filt"], inp["plan"], inp["T"],
+                                         out_p[1], out_p[2])
+        ck, cp = out_k[0], out_p[0]
+        both = (ck > 0) & (cp > 0)
+        rel_k = float(((ck.double() - ref).abs() / ref)[both].max())
+        rel_p = float(((cp.double() - ref).abs() / ref)[both].max())
+        agree = float(((ck > 0) == (cp > 0)).double().mean())
+        ok = same and rel_k <= rel_p + 1e-6 and agree >= 0.999
+        return (ok, float((ck - cp).abs()[both].max()),
+                f"positions and n equal: {same}; vs f64 interp1 of the same "
+                f"crossings: kernel rel {rel_k:.2e}, twin rel {rel_p:.2e} "
+                f"(kernel <= twin + 1e-6); zero/nonzero agreement "
+                f"{agree:.5f} >= 0.999")
+
+    def check_k15(inp, out_k, out_p):
+        """Refined f0 against the twin; a score is 1 / (mean relative
+        harmonic error), ill-conditioned at weak harmonics, so the scores
+        are held through that error against the float64 twin."""
+        (gr, gs), (wr, ws) = out_k, out_p
+        both = (gr > 0) & (wr > 0)
+        flips = int(((gr > 0) != (wr > 0)).sum())
+        n = int((wr > 0).sum())
+        rel = float(((gr - wr).abs() / wr)[both].max())
+        ref = hv.refine_plain(inp["y"].double(), inp["cands"].double(),
+                              inp["fs8"], inp["f0_floor"],
+                              inp["f0_ceil"])[1]
+        live = both & (ref > 0)
+        e_k = (1.0 / gs[live].double() - 1.0 / ref[live]).abs()
+        e_p = (1.0 / ws[live].double() - 1.0 / ref[live]).abs()
+        qk = [float(e_k.quantile(q)) for q in (0.5, 0.99)]
+        qp = [float(e_p.quantile(q)) for q in (0.5, 0.99)]
+        ok = (flips <= 0.002 * n and rel <= 1e-5
+              and all(a <= 1.5 * b + 1e-9 for a, b in zip(qk, qp)))
+        return (ok, float((gr - wr).abs()[both].max()),
+                f"refined f0 rel {rel:.2e} <= 1e-5 where both nonzero; "
+                f"flips {flips} of {n} nonzero pairs <= 0.2 %; mean harmonic "
+                f"error vs the f64 twin, median / 99th pct: kernel "
+                f"{qk[0]:.2e} / {qk[1]:.2e}, f32 twin {qp[0]:.2e} / "
+                f"{qp[1]:.2e} (kernel <= 1.5x twin)")
+
     def check(name, inp, out_k, out_p):
         """(passed, max abs err against the reference, what was held and
         what was read)."""
+        if name == "harvest_decimate":
+            k, p = out_k[0], out_p[0]
+            err = (k - p).abs()
+            worst = float((err / p.abs().amax(1, keepdim=True)
+                           .clamp(min=1e-30)).max())
+            return (worst <= 1e-6, float(err.max()),
+                    f"per row |err| <= 1e-6 row max |plain| (both float64 "
+                    f"inside): worst row {worst:.2e}")
+        if name == "harvest_candidates":
+            return check_k14(inp, out_k, out_p)
+        if name == "harvest_refine":
+            return check_k15(inp, out_k, out_p)
+        if name == "harvest_contour":
+            k, p = out_k[0], out_p[0]
+            err = (k - p).abs()
+            ok = bool(torch.equal(k > 0, p > 0)
+                      and (err <= 1e-5 * p.abs()).all())
+            return (ok, float(err.max()), "V/UV equal, |err| <= 1e-5 |plain|")
         if name == "synth_time_base":
             return check_k9(inp, out_k)
         if name == "synth_pulse_spectra":
@@ -599,13 +735,16 @@ def main() -> int:
         return next(p for p in PATHS if name in PATHS[p])
 
     summary = {}
-    heavy = ("fix_f0", "mlpg_solve", "dio_candidates")  # slow plain twins
+    heavy = ("fix_f0", "mlpg_solve", "dio_candidates", "harvest_candidates",
+             "harvest_refine", "harvest_contour")  # slow plain twins
     replays = ([("copy_synth", n, i) for n, i in rec_cs]
                + [("feature_lane", n, i) for n, i in rec_fl]
-               + [("synth_lane", n, i) for n, i in rec_sl])
+               + [("synth_lane", n, i) for n, i in rec_sl]
+               + [("harvest_lane", n, i) for n, i in rec_hl])
     for path, name, inp in replays:
         kern, plain = twins[name]
-        debug = dict(crossings=True) if name == "dio_candidates" else {}
+        debug = (dict(crossings=True)
+                 if name in ("dio_candidates", "harvest_candidates") else {})
         out_k = kern(**inp, **debug)
         out_p = plain(**inp, **debug)
         sync()
@@ -617,7 +756,8 @@ def main() -> int:
                            reps=1 if name in heavy else 5)
         lib = library(name, inp)
         lib_ms = cuda_ms(lib, reps=10, warm=2) if lib else None
-        outs = out_k[:2] if name == "dio_candidates" else out_k
+        outs = (out_k[:2] if name == "dio_candidates"
+                else out_k[:1] if name == "harvest_candidates" else out_k)
         bms, by = bound_of(name, inp, outs)
         shape = "x".join(str(s) for s in out_k[
             1 if name == "synth_time_base" else 0].shape)
@@ -642,7 +782,7 @@ def main() -> int:
         if lib_ms is not None:
             s["lib_ms"] = (s["lib_ms"] or 0.0) + lib_ms
         del out_k, out_p
-    del rec_cs, rec_fl, rec_sl, replays
+    del rec_cs, rec_fl, rec_sl, rec_hl, replays
     torch.cuda.empty_cache()
 
     # the per-frame DFT route: matmul against the tables vs torch.fft
@@ -721,6 +861,20 @@ def main() -> int:
     if not (f0_same and pulses_same and d_peak <= 1e-3 and e_rel <= 1e-3):
         raise RuntimeError("the card's synth lane disagrees with the CPU "
                            "path")
+    g = [v.cpu().double() for v in batch_mod.batch_analyze(
+        xsm, FS, algorithm="harvest")]
+    c = [v.double() for v in batch_mod.batch_analyze(
+        xsm, FS, algorithm="harvest", device="cpu")]
+    vuv = float(((g[1] > 0) == (c[1] > 0)).double().mean())
+    both = (g[1] > 0) & (c[1] > 0)
+    f0_rel = float(((g[1][both] - c[1][both]).abs() / c[1][both]).median())
+    dlog = float((g[2].log() - c[2].log()).abs().median())
+    print(f"Harvest lane, card vs CPU path (2 x 0.5 s): V/UV agreement "
+          f"{vuv:.4f}, f0 med rel {f0_rel:.2e}, sp med |dlog| {dlog:.2e}",
+          flush=True)
+    if not (vuv >= 0.95 and f0_rel < 1e-3 and dlog < 0.1):
+        raise RuntimeError("the card's Harvest lane disagrees with the CPU "
+                           "path")
 
     # ---- 5. copy-synthesis stage times and throughput; K5 vs its twin ----
     @contextlib.contextmanager
@@ -797,12 +951,12 @@ def main() -> int:
             print(f"profiler ({label}): no device time recorded")
             return
         groups = {g: [0.0, 0] for g in ("gemm (DFT matmuls)", "fft",
-                                        "K1-K12", "other")}
+                                        "K1-K16", "other")}
         for e in evs:
             k = e.key.lower()
             g = ("gemm (DFT matmuls)" if "gemm" in k
                  else "fft" if "fft" in k
-                 else "K1-K12" if any(n in k for n in kernels.KERNELS)
+                 else "K1-K16" if any(n in k for n in kernels.KERNELS)
                  else "other")
             groups[g][0] += dev_us(e) / 1e3
             groups[g][1] += e.count
@@ -823,6 +977,14 @@ def main() -> int:
           + ", ".join(f"{k} {v:.2f}" for k, v in sm.items()))
     throughput(lambda s: float(feat_mod.feature_lane(xs, FS)[3].sum()),
                "feature lane")
+
+    # ---- 9a. the Harvest lane: stage times, throughput, profile ----
+    sm = stage_ms(lambda: batch_mod.analyze_stages(xs, FS, FRAME_PERIOD,
+                                                   algorithm="harvest"))
+    print("Harvest lane stage ms (mean of 3, B=16 x 2.0 s @ 48 kHz): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in sm.items()))
+    throughput(lambda s: float(harvest_lane()[1].sum()), "Harvest lane")
+    report_profile("Harvest lane", harvest_lane)
     del xs
     torch.cuda.empty_cache()
     # the synth lane on the feature lane's (lf0, mgc, bap) of the batch
@@ -883,10 +1045,35 @@ def main() -> int:
           f"the profiler: wall {1e3 * wall:.1f} ms, device busy "
           f"{1e3 * busy:.1f} ms ({100 * busy / wall:.0f}%)", flush=True)
 
+    # ---- 9b. corpus extraction with Harvest ----
+    def extract_harvest():
+        return bucketing.bucketed_extract(sigs, FS, max_batch=16,
+                                          algorithm="harvest")
+
+    extract_harvest()                                              # warm
+    t0 = time.perf_counter()
+    res, counts_ch, _ = counted("corpus500_harvest", extract_harvest)
+    dt = time.perf_counter() - t0
+    print(f"corpus500 Harvest throughput: {audio_s / dt:.2f} audio-s/s "
+          f"({dt:.2f} s for {audio_s:.1f} s of audio, one timed run after "
+          f"one warm run)", flush=True)
+    if len(res) != len(sigs) or any(
+            r[0].shape[0] != cfg.samples_for_dio(FS, n, FRAME_PERIOD)
+            for r, n in zip(res, lengths)):
+        raise RuntimeError("corpus500 Harvest: unexpected frame counts")
+    check_features(*(torch.as_tensor(np.concatenate([r[k] for r in res]))
+                     for k in range(3)), label="corpus500 Harvest outputs")
+    wall, busy, _ = profiled(lambda: bucketing.bucketed_extract(
+        [sigs[i] for i in grp], FS, max_batch=16, algorithm="harvest"))
+    print(f"corpus500 Harvest one bucket group ({len(grp)} x {blen} "
+          f"samples) under the profiler: wall {1e3 * wall:.1f} ms, device "
+          f"busy {1e3 * busy:.1f} ms ({100 * busy / wall:.0f}%)", flush=True)
+
     print(smi)
     src = "hts_train_world_tpu_torch/csrc/"
     by_path = {"copy_synth": counts_cs, "feature_lane": counts_fl,
-               "synth_lane": counts_sl, "corpus500": counts_cp}
+               "synth_lane": counts_sl, "corpus500": counts_cp,
+               "harvest_lane": counts_hl, "corpus500_harvest": counts_ch}
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": src + kernels.KERNELS[name][0],

@@ -7,12 +7,13 @@ scaling quirks of the compressed (lf0/mgc/bap) files; the encode is
 (`features/decode.py`, re-exported here).
 
 The port has the f32 fast mode only: `--f32` is required (without it the
-command raises, as `vocoder` does for parity=True), `--harvest` raises
-(Harvest is still to be ported), and `--device` (default `cuda`) picks
-the device; a missing card is an error.
+command raises, as `vocoder` does for parity=True), `--harvest` picks
+Harvest for F0 (the JAX CLI's extension), and `--device` (default `cuda`)
+picks the device; a missing card is an error.
 
 Run: python -m hts_train_world_tpu_torch.cli analysis in.wav out.lf0 \\
-         out.mgc out.bap [fp fftlen mgcdim bapdim] --f32 [--device cpu]
+         out.mgc out.bap [fp fftlen mgcdim bapdim] [--harvest] --f32 \\
+         [--device cpu]
      python -m hts_train_world_tpu_torch.cli synth in.lf0 in.mgc in.bap \\
          out.wav fp fftlen fs [mgcdim bapdim] --f32 [--device cpu]
 """
@@ -28,13 +29,12 @@ from hts_train_world_tpu_torch.io import rawio, wavio
 
 __all__ = ["decode_features", "analysis_main", "synth_main", "main"]
 
-_HARVEST = ("--harvest: Harvest is not ported yet (ROADMAP.md, Queue A "
-            "item 10); use DIO (the default)")
-
 
 def analysis_main(argv, device="cuda"):
-    if "--harvest" in argv:
-        raise NotImplementedError(_HARVEST)
+    algorithm = "dio"
+    if "--harvest" in argv:        # extension: Harvest F0 (harvest.cpp)
+        argv = [a for a in argv if a != "--harvest"]
+        algorithm = "harvest"
     wav, lf0_p, mgc_p, bap_p = argv[:4]
     fp = float(argv[4]) if len(argv) > 4 else 5.0
     fftlen = int(argv[5]) if len(argv) > 5 else 0
@@ -42,7 +42,7 @@ def analysis_main(argv, device="cuda"):
     bap_dim = int(argv[7]) if len(argv) > 7 else 24
     x, fs = wavio.wavread(wav)
     a = vocoder.analyze(x, fs, fp, parity=False, fft_size=fftlen,
-                        device=device)
+                        algorithm=algorithm, device=device)
     if mgc_dim:
         outs = encode_features(a.f0, a.spectrogram, a.aperiodicity, fs,
                                a.fft_size, mgc_dim, bap_dim)

@@ -68,6 +68,18 @@ KERNELS = {
     "codec_decode": ("codec_decode.cu", "codec_decode_launch",
                      [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P,
                       _P, _P]),
+    "harvest_decimate": ("harvest_decimate.cu", "harvest_decimate_launch",
+                         [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
+    "harvest_candidates": ("harvest_candidates.cu",
+                           "harvest_candidates_launch",
+                           [_P, _I, _I, _I, _I, _P, _P, _F, _F, _F, _I, _F,
+                            _I, _P, _P, _P, _P]),
+    "harvest_refine": ("harvest_refine.cu", "harvest_refine_launch",
+                       [_P, _P, _I, _I, _I, _I, _I, _I, _P, _F, _F, _F, _P,
+                        _P]),
+    "harvest_contour": ("harvest_contour.cu", "harvest_contour_launch",
+                        [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                         _P, _P, _P]),
 }
 
 launches: collections.Counter = collections.Counter()

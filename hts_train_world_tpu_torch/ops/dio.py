@@ -201,18 +201,16 @@ def band_candidates(filt_bands, plan: dict, f0_floor: float, f0_ceil: float,
     return (cands, scores) + ((n, pos) if crossings else ())
 
 
-def crossing_candidates_f64(filt_bands, plan: dict, T: int, fp_s: float, n,
-                            pos):
-    """The f64 oracle of K5 and its twin: the 4-stream mean of float64
-    interp1 over the given compacted crossings (n (B, bands, 4), pos
-    (B, bands, 4, cap)), before any gate -> (B, bands, T) float64.  The
-    crossings' locations and intervals are the f32 values both K5 and its
-    twin form (the same f32 operations); only the interpolation onto the
-    frame grid, where the two differ, runs in float64."""
-    L, fs = plan["y_length"], plan["actual_fs"]
-    s = torch.stack([_four_streams(filt_bands[:, bi, off:off + L])
-                     for bi, (_, off, _) in enumerate(band_layout(plan))],
-                    dim=1)
+def crossing_interp_f64(rows, fs: float, t, n, pos):
+    """The f64 oracle of a crossing kernel (K5, K14) and its twin: the
+    4-stream mean of float64 interp1 over the given compacted crossings
+    (n (B, C, 4), pos (B, C, 4, cap)) of the band rows (B, C, L) at the f32
+    frame times t (T,), before any gate -> (B, C, T) float64.  The
+    crossings' locations and intervals are the f32 values kernel and twin
+    form (the same f32 operations); only the interpolation onto the frame
+    grid, where the two differ, runs in float64."""
+    L = rows.shape[-1]
+    s = _four_streams(rows)
     p = pos.long()
     e = p + 1
     s0 = torch.gather(s, -1, p)
@@ -221,18 +219,20 @@ def crossing_candidates_f64(filt_bands, plan: dict, T: int, fp_s: float, n,
     loc = prims.exact_div(prims.exact_div(fine[..., :-1] + fine[..., 1:],
                                           2.0), fs).double()
     itv = prims.rdiv(fs, fine[..., 1:] - fine[..., :-1]).double()
-    nn = n.long()[..., None]
-    valid = torch.arange(loc.shape[-1], device=loc.device) < nn
-    loc_m = torch.where(valid, loc, torch.full_like(loc, float("inf")))
-    t = (torch.arange(T, dtype=torch.float32, device=loc.device)
-         * np.float32(fp_s)).double()
-    k = torch.searchsorted(loc_m.contiguous(),
-                           t.expand(loc.shape[:-1] + (T,)).contiguous(),
-                           right=True)
-    k = torch.minimum(k.clamp(min=1), (nn - 1).clamp(min=1))
-    x0, x1 = torch.gather(loc, -1, k - 1), torch.gather(loc, -1, k)
-    y0, y1 = torch.gather(itv, -1, k - 1), torch.gather(itv, -1, k)
-    return (y0 + (t - x0) / (x1 - x0) * (y1 - y0)).mean(dim=2)
+    return prims.interp1_rows(loc, itv, n, t.double()).mean(dim=2)
+
+
+def crossing_candidates_f64(filt_bands, plan: dict, T: int, fp_s: float, n,
+                            pos):
+    """crossing_interp_f64 of K5's delay-compensated band rows on DIO's
+    frame grid -> (B, bands, T) float64."""
+    L = plan["y_length"]
+    rows = torch.stack([filt_bands[:, bi, off:off + L]
+                        for bi, (_, off, _) in enumerate(band_layout(plan))],
+                       dim=1)
+    t = torch.arange(T, dtype=torch.float32,
+                     device=rows.device) * np.float32(fp_s)
+    return crossing_interp_f64(rows, plan["actual_fs"], t, n, pos)
 
 
 # ---------------------------------------------------------------------------

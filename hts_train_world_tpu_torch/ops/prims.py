@@ -1,12 +1,16 @@
 """L0 math primitives of the fast path, batched over leading axes.
 
 Counterpart of `hts_train_world_tpu/ops/prims.py` (main-path subset, f32
-fast branches).  Two kernels live here, each with its plain PyTorch twin:
+fast branches).  Three kernels live here, each with its plain PyTorch twin:
 
 - K2 `smooth_spectrum`: `dc_correction` and/or `linear_smoothing` of
   spectral rows (csrc/spectral_smooth.cu);
 - K3 `top_k_threshold_sum`: the exact sum of the k largest entries of
-  non-negative f32 rows (csrc/topk_sum.cu).
+  non-negative f32 rows (csrc/topk_sum.cu);
+- K13 `decimate`: Harvest's forward-backward order-3 IIR decimation
+  (csrc/harvest_decimate.cu), whose twin runs the recurrence as a float64
+  block formulation (`iir_first_state`, shared with the Butterworth
+  smoothing of ops/harvest_fix.py).
 
 A wrapper launches its kernel for CUDA tensors and runs the plain twin
 only for CPU tensors.
@@ -17,6 +21,8 @@ division), which would let the card's plain twins drift from the kernels
 and the CPU path on decisions that hang on the last ulp.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -83,6 +89,23 @@ def interp1(x, y, xi):
     y0, y1 = y[..., k - 1], y[..., k]
     s = (xi - x0) / (x1 - x0)
     return y0 + s * (y1 - y0)
+
+
+def interp1_rows(x, y, n_valid, xi):
+    """interp1 of rows (x, y) (..., n), each ascending on its valid
+    prefix n_valid (...), at the ascending points xi (T,) -> (..., T):
+    segment k = clip(#(x <= xi), 1, max(n_valid-1, 1)), y0 + s*(y1 - y0)
+    (matlabfunctions.cpp:157-182, a binary search per point)."""
+    nn = n_valid.long()[..., None]
+    valid = torch.arange(x.shape[-1], device=x.device) < nn
+    xm = torch.where(valid, x, torch.full_like(x, float("inf")))
+    k = torch.searchsorted(xm.contiguous(),
+                           xi.expand(x.shape[:-1] + xi.shape).contiguous(),
+                           right=True)
+    k = torch.minimum(k.clamp(min=1), (nn - 1).clamp(min=1))
+    x0, x1 = torch.gather(x, -1, k - 1), torch.gather(x, -1, k)
+    y0, y1 = torch.gather(y, -1, k - 1), torch.gather(y, -1, k)
+    return y0 + (xi - x0) / (x1 - x0) * (y1 - y0)
 
 
 def interp1_regular_grid(x, y, T: int, fp: float, n_valid):
@@ -317,3 +340,169 @@ def top_k_threshold_sum(p, k: int):
 
 def sum_top_k(p, k: int):
     return top_k_threshold_sum(p, k)[0]
+
+
+# ---------------------------------------------------------------------------
+# IIR filters as a block formulation (float64), and K13: decimation
+# ---------------------------------------------------------------------------
+
+DECIMATE_COEF = {
+    # r: (a0, a1, a2, b0, b1)  -- matlabfunctions.cpp:27-113
+    11: (2.450743295230728, -2.06794904601978, 0.59574774438332101,
+         0.0026822508007163792, 0.0080467524021491377),
+    12: (2.4981398605924205, -2.1368928194784025, 0.62187513816221485,
+         0.0021097275904709001, 0.0063291827714127002),
+    10: (2.3936475118069387, -1.9873904075111861, 0.5658879979027055,
+         0.0034818622251927556, 0.010445586675578267),
+    9: (2.3236003491759578, -1.8921545617463598, 0.53148928133729068,
+        0.0046331164041389372, 0.013899349212416812),
+    8: (2.2357462340187593, -1.7780899984041358, 0.49152555365968692,
+        0.0063522763407111993, 0.019056829022133598),
+    7: (2.1225239019534703, -1.6395144861046302, 0.44469707800587366,
+        0.0090366882681608418, 0.027110064804482525),
+    6: (1.9715352749512141, -1.4686795689225347, 0.3893908434965701,
+        0.013469181309343825, 0.040407543928031475),
+    5: (1.7610939654280557, -1.2554914843859768, 0.3237186507788215,
+        0.021334858522387423, 0.06400457556716227),
+    4: (1.4499664446880227, -0.98943497080950582, 0.24578252340690215,
+        0.036710750339322612, 0.11013225101796784),
+    3: (0.95039378983237421, -0.67429146741526791, 0.15412211621346475,
+        0.071221945171178636, 0.21366583551353591),
+    2: (0.041156734567757189, -0.42599112459189636, 0.041037215479961225,
+        0.16797464681802227, 0.50392394045406674),
+}
+
+IIR_BLOCK = 256
+DECIMATE_PAD = 9
+
+
+def companion(coefs: tuple) -> np.ndarray:
+    """A of s_t = A s_{t-1} + x_t e0: s_t[0] = sum_k coefs[k] s_{t-1}[k]
+    + x_t, the rest shift down."""
+    d = len(coefs)
+    A = np.zeros((d, d))
+    A[0, :] = coefs
+    A[1:, :-1] = np.eye(d - 1)
+    return A
+
+
+@functools.lru_cache(maxsize=None)
+def affine_kernel(coefs: tuple, block: int):
+    """Host-precomputed float64 operators of the block evaluation of the
+    recurrence above (the JAX package's `_affine_kernel`, for an input on
+    component 0 only): F[k] = A^k for k = 1..block, the impulse matrix
+    K[j, i, :] = A^(i-j) e0 for j <= i, and A^block."""
+    d = len(coefs)
+    A = companion(coefs)
+    F = np.empty((block + 1, d, d))
+    F[0] = np.eye(d)
+    for k in range(block):
+        F[k + 1] = A @ F[k]
+    K = np.zeros((block, block, d))
+    for j in range(block):
+        K[j, j:, :] = F[:block - j, :, 0]
+    return F[1:], K.reshape(block, block * d), F[block]
+
+
+def iir_first_state(coefs: tuple, x):
+    """w_t = x_t + sum_k coefs[k] w_{t-1-k} (zero initial state) for rows
+    x (R, L) in float64, by blocks: within a block of IIR_BLOCK steps the
+    zero-start states are one product with the impulse matrix; the block
+    starts follow a carry over blocks; w = F_{i+1}[0] . start + q_i."""
+    block = IIR_BLOCK
+    d = len(coefs)
+    R, L = x.shape
+    Fj, Km, Fb = (torch.as_tensor(a, dtype=torch.float64, device=x.device)
+                  for a in affine_kernel(tuple(float(c) for c in coefs),
+                                         block))
+    pad = (-L) % block
+    xb = torch.nn.functional.pad(x.double(), (0, pad)).reshape(R, -1, block)
+    q = (xb @ Km).reshape(R, -1, block, d)            # zero-start states
+    starts = [torch.zeros((R, d), dtype=torch.float64, device=x.device)]
+    for b in range(q.shape[1] - 1):
+        starts.append(starts[-1] @ Fb.T + q[:, b, -1])
+    s0 = torch.stack(starts, dim=1)                   # (R, nb, d)
+    w = torch.einsum("kj,rbj->rbk", Fj[:, 0, :], s0) + q[..., 0]
+    return w.reshape(R, -1)[:, :L]
+
+
+def iir_filter_plain(coefs: tuple, taps: tuple, x):
+    """The order-len(coefs) IIR y_t = sum_m taps[m] w_{t-m} over the
+    states above, float64 (matlabfunctions.cpp:115-124's filter for the
+    decimation, harvest.cpp:1055-1074's biquad for the smoothing)."""
+    w = iir_first_state(coefs, x)
+    y = taps[0] * w
+    for m, b in enumerate(taps[1:], 1):
+        y = y + b * torch.nn.functional.pad(w[:, :-m], (m, 0))
+    return y
+
+
+def decimate_count(n: int, r: int) -> int:
+    """Values the C loop (matlabfunctions.cpp:204-206) emits: it runs i in
+    [nbeg, n+9) step r, up to 2 more than MATLAB's nout."""
+    nout = (n - 1) // r + 1
+    nbeg = r - r * nout + n
+    return (n + DECIMATE_PAD - 1 - nbeg) // r + 1
+
+
+def decimate_plain(x, r: int):
+    """matlabfunctions.cpp:184-210 for rows x (B, n): reflect-pad by 9,
+    filter, reverse, filter, reverse, strided pick; float64 throughout
+    (the block formulation above), cast back to x's dtype."""
+    a0, a1, a2, b0, b1 = DECIMATE_COEF[r]
+    n = x.shape[1]
+    xd = x.double()
+    k = torch.arange(DECIMATE_PAD, device=x.device)
+    head = 2 * xd[:, :1] - xd[:, DECIMATE_PAD - k]
+    tail = 2 * xd[:, -1:] - xd[:, n - 2 - k]
+    tmp = torch.cat([head, xd, tail], dim=1)
+    for _ in range(2):
+        tmp = iir_filter_plain((a0, a1, a2), (b0, b1, b1, b0), tmp).flip(1)
+    nout = (n - 1) // r + 1
+    nbeg = r - r * nout + n
+    idx = nbeg + torch.arange(decimate_count(n, r), device=x.device) * r \
+        + DECIMATE_PAD - 1
+    return tmp[:, idx].to(x.dtype)
+
+
+THREADS_K13 = 1024
+
+
+@functools.lru_cache(maxsize=None)
+def _decimate_table(r: int, chunk: int, device):
+    """K13's float64 constants: a0 a1 a2 b0 b1, then P^0..P^32, P^64,
+    P^128, P^256, P^512 (3x3 each, row-major) for P = A^chunk."""
+    a0, a1, a2, b0, b1 = DECIMATE_COEF[r]
+    P = np.linalg.matrix_power(companion((a0, a1, a2)), chunk)
+    pows = [np.linalg.matrix_power(P, e) for e in range(33)]
+    pows += [np.linalg.matrix_power(P, e) for e in (64, 128, 256, 512)]
+    flat = np.concatenate([[a0, a1, a2, b0, b1]]
+                          + [p.reshape(-1) for p in pows])
+    return torch.as_tensor(flat, dtype=torch.float64, device=device)
+
+
+def decimate(x, r: int):
+    """K13: `decimate_plain` of f32 rows x (B, n) in one launch, one
+    block per row; the recurrence runs in float64 chunks whose start
+    states come from a scan of the chunks' zero-start end states."""
+    if not x.is_cuda:
+        return decimate_plain(x, r)
+    B, n = x.shape
+    if x.dtype != torch.float32 or r not in DECIMATE_COEF \
+            or n < DECIMATE_PAD + 2:
+        raise ValueError("decimate: f32 rows longer than 10 samples, a "
+                         "ratio of 2-12")
+    x = x.contiguous()
+    kernels.check_cuda("decimate", x)
+    M = n + 2 * DECIMATE_PAD
+    chunk = -(-M // THREADS_K13)
+    table = _decimate_table(r, chunk, x.device)
+    count = decimate_count(n, r)
+    nout = (n - 1) // r + 1
+    nbeg = r - r * nout + n
+    scratch = torch.empty((B, M), dtype=torch.float64, device=x.device)
+    out = torch.empty((B, count), dtype=torch.float32, device=x.device)
+    kernels.launch("harvest_decimate", [
+        x.data_ptr(), B, n, r, chunk, nbeg, count, table.data_ptr(),
+        scratch.data_ptr(), out.data_ptr()], dict(x=x, r=r))
+    return out

@@ -1,11 +1,11 @@
 """Batched WORLD analysis, synthesis and copy-synthesis on one device.
 
-Counterpart of `hts_train_world_tpu/parallel/batch.py` (algorithm="dio",
-fast mode): a batch of equal-length utterances runs through DIO ->
-StoneMask -> CheapTrick -> D4C as batched tensors; synthesis reads the
-exact pulse count once on the host (kernel K9, the arithmetic synthesis
-itself runs) and runs at a 128-aligned pulse bucket of that count plus
-slack.
+Counterpart of `hts_train_world_tpu/parallel/batch.py` (fast mode): a
+batch of equal-length utterances runs through DIO -> StoneMask (or
+Harvest, whose refinement is built in, so no StoneMask) -> CheapTrick ->
+D4C as batched tensors; synthesis reads the exact pulse count once on the
+host (kernel K9, the arithmetic synthesis itself runs) and runs at a
+128-aligned pulse bucket of that count plus slack.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from hts_train_world_tpu_torch import device as device_mod
 from hts_train_world_tpu_torch.ops import cheaptrick as ct
 from hts_train_world_tpu_torch.ops import d4c as d4c_mod
 from hts_train_world_tpu_torch.ops import dio as dio_mod
+from hts_train_world_tpu_torch.ops import harvest as hv
 from hts_train_world_tpu_torch.ops import stonemask as sm
 from hts_train_world_tpu_torch.ops import synthesis as syn
 
@@ -31,15 +32,25 @@ def grid_step_for(fs: int, frame_period: float) -> int:
 
 
 def analyze_stages(xs, fs: int, frame_period: float = 5.0,
-                   d4c_threshold: float = 0.0):
-    """The four analysis stages one after another, yielding
-    (stage name, result); the last result is (t, f0, sp, ap)."""
+                   d4c_threshold: float = 0.0, algorithm: str = "dio"):
+    """The analysis stages one after another, yielding (stage name,
+    result); the last result is (t, f0, sp, ap).  DIO's stages are "dio"
+    and "stonemask"; Harvest's are those of `harvest.harvest_f0_stages`,
+    then "harvest", the 1 ms contour picked onto the frame grid in
+    float64 on the host (harvest.cpp:1246-1251)."""
+    check_algorithm(algorithm)
     gs = grid_step_for(fs, frame_period)
     N = cfg.cheaptrick_fft_size(fs)
-    t, f0, _, _ = dio_mod.dio(xs, fs, frame_period)
-    yield "dio", f0
-    f0 = sm.stonemask(xs, fs, t, f0, grid_step=gs)
-    yield "stonemask", f0
+    if algorithm == "harvest":
+        for stage, f0_1ms in hv.harvest_f0_stages(xs, fs):
+            yield stage, f0_1ms
+        t, f0 = hv.frame_pick(f0_1ms, fs, xs.shape[1], frame_period)
+        yield "harvest", f0
+    else:
+        t, f0, _, _ = dio_mod.dio(xs, fs, frame_period)
+        yield "dio", f0
+        f0 = sm.stonemask(xs, fs, t, f0, grid_step=gs)
+        yield "stonemask", f0
     sp = ct.cheaptrick(xs, fs, t, f0, N, grid_step=gs)
     yield "cheaptrick", sp
     ap, _ = d4c_mod.d4c(xs, fs, t, f0, N, d4c_threshold, grid_step=gs)
@@ -47,20 +58,18 @@ def analyze_stages(xs, fs: int, frame_period: float = 5.0,
 
 
 def check_algorithm(algorithm: str) -> None:
-    if algorithm != "dio":
-        raise NotImplementedError(
-            f"f0 algorithm {algorithm!r}: the port has DIO only so far "
-            "(Harvest is queued in ROADMAP.md)")
+    if algorithm not in ("dio", "harvest"):
+        raise ValueError(f"unknown f0 algorithm {algorithm!r}")
 
 
 def batch_analyze(xs, fs: int, frame_period: float = 5.0,
                   d4c_threshold: float = 0.0, algorithm: str = "dio",
                   device="cuda"):
     """xs: (B, L) equal-length utterances -> batched (t, f0, sp, ap) on
-    `device` (f32 fast mode)."""
-    check_algorithm(algorithm)
+    `device` (f32 fast mode); `algorithm` "dio" or "harvest"."""
     xs = device_mod.as_input(xs, device)
-    *_, (_, out) = analyze_stages(xs, fs, frame_period, d4c_threshold)
+    *_, (_, out) = analyze_stages(xs, fs, frame_period, d4c_threshold,
+                                  algorithm)
     return out
 
 
@@ -119,11 +128,13 @@ def batch_synth(f0, sp, ap, fs: int, frame_period: float = 5.0, noise=None,
 
 
 def copy_synth_stages(xs, fs: int, frame_period: float = 5.0,
-                      d4c_threshold: float = 0.0, noise=None, seed: int = 0):
+                      d4c_threshold: float = 0.0, noise=None, seed: int = 0,
+                      algorithm: str = "dio"):
     """`batch_copy_synth` one stage at a time on xs's device, yielding
     (stage name, result): the analysis stages, then those of
     `synth_stages`, the last result being (t, f0, sp, ap, y)."""
-    for stage, out in analyze_stages(xs, fs, frame_period, d4c_threshold):
+    for stage, out in analyze_stages(xs, fs, frame_period, d4c_threshold,
+                                     algorithm):
         yield stage, out
     t, f0, sp, ap = out
     for stage, res in synth_stages(f0, sp, ap, fs, frame_period, noise,
@@ -138,8 +149,7 @@ def batch_copy_synth(xs, fs: int, frame_period: float = 5.0,
     per-batch pulse count, then synthesis at the bucketed pulse cap.
     `noise` (B, y_length+16) is drawn from `seed` when not given.
     Returns (t, f0, sp, ap, y)."""
-    check_algorithm(algorithm)
     xs = device_mod.as_input(xs, device)
     *_, (_, out) = copy_synth_stages(xs, fs, frame_period, d4c_threshold,
-                                     noise, seed)
+                                     noise, seed, algorithm)
     return out

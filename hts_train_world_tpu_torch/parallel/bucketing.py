@@ -75,7 +75,8 @@ def bucketed_analyze(signals: Sequence[np.ndarray], fs: int,
                      algorithm: str = "dio", device="cuda") -> List[Tuple]:
     """signals: list of 1-D arrays of any lengths -> per utterance the
     numpy tuple (temporal_positions, f0, spectrogram, aperiodicity) of its
-    true frame count, analysed on `device` (f32 fast mode)."""
+    true frame count, analysed on `device` (f32 fast mode) with the F0
+    `algorithm` ("dio" or "harvest")."""
     batch_mod.check_algorithm(algorithm)
     dev = device_mod.resolve(device)
     lengths = [len(s) for s in signals]
@@ -83,7 +84,7 @@ def bucketed_analyze(signals: Sequence[np.ndarray], fs: int,
     for blen, grp in bucket_groups(lengths, growth, max_batch):
         res = batch_mod.batch_analyze(pad_group(signals, grp, blen), fs,
                                       frame_period, d4c_threshold,
-                                      device=dev)
+                                      algorithm, device=dev)
         res = [v.cpu().numpy() for v in res]
         for i, r in zip(grp, trim_group(res, lengths, grp, fs,
                                         frame_period)):
@@ -110,7 +111,7 @@ def bucketed_extract(signals: Sequence[np.ndarray], fs: int,
     for blen, grp in bucket_groups(lengths, growth, max_batch):
         _, f0, sp, ap = batch_mod.batch_analyze(
             pad_group(signals, grp, blen), fs, frame_period, d4c_threshold,
-            device=dev)
+            algorithm, device=dev)
         feats = encode.encode_features(f0, sp, ap, fs, N, mgc_dim, bap_dim)
         feats = [v.cpu().numpy() for v in feats]
         for i, r in zip(grp, trim_group(feats, lengths, grp, fs,

@@ -16,6 +16,7 @@ from hts_train_world_tpu_torch import device as device_mod
 from hts_train_world_tpu_torch.ops import cheaptrick as ct
 from hts_train_world_tpu_torch.ops import d4c as d4c_mod
 from hts_train_world_tpu_torch.ops import dio as dio_mod
+from hts_train_world_tpu_torch.ops import harvest as hv
 from hts_train_world_tpu_torch.ops import prims
 from hts_train_world_tpu_torch.ops import stonemask as sm
 from hts_train_world_tpu_torch.ops import synthesis as syn
@@ -28,7 +29,7 @@ _PARITY = ("parity=True (the f64 path with the reference's PRNG streams) is "
 @dataclasses.dataclass
 class WorldAnalysis:
     temporal_positions: torch.Tensor
-    f0: torch.Tensor            # refined (StoneMask) F0, 0 = unvoiced
+    f0: torch.Tensor            # refined (StoneMask or Harvest) F0, 0 = unvoiced
     spectrogram: torch.Tensor   # (T, fft/2+1) power-ish spectral envelope
     aperiodicity: torch.Tensor  # (T, fft/2+1) in [0, 1)
     fs: int
@@ -42,18 +43,20 @@ def analyze(x, fs: int, frame_period: float = 5.0, q1: float = -0.15,
             f0_floor: float = cfg.K_FLOOR_F0,
             f0_ceil: float = cfg.K_CEIL_F0,
             device="cuda") -> WorldAnalysis:
-    """DIO + StoneMask + CheapTrick + D4C of one waveform (float32)."""
+    """DIO + StoneMask, or Harvest (its refinement is built in, so no
+    StoneMask; harvest.cpp:1223-1255), then CheapTrick + D4C of one
+    waveform (float32)."""
     if parity:
         raise NotImplementedError(_PARITY)
-    if algorithm != "dio":
-        raise NotImplementedError(
-            f"f0 algorithm {algorithm!r}: the port has DIO only so far "
-            "(Harvest is queued in ROADMAP.md)")
+    batch_mod.check_algorithm(algorithm)
     xs = device_mod.as_input(x, device)[None]
     gs = batch_mod.grid_step_for(fs, frame_period)
     N = fft_size or cfg.cheaptrick_fft_size(fs)
-    t, f0, _, _ = dio_mod.dio(xs, fs, frame_period, f0_floor, f0_ceil)
-    f0 = sm.stonemask(xs, fs, t, f0, f0_floor, f0_ceil, grid_step=gs)
+    if algorithm == "harvest":
+        t, f0 = hv.harvest(xs, fs, frame_period, f0_floor, f0_ceil)
+    else:
+        t, f0, _, _ = dio_mod.dio(xs, fs, frame_period, f0_floor, f0_ceil)
+        f0 = sm.stonemask(xs, fs, t, f0, f0_floor, f0_ceil, grid_step=gs)
     sp = ct.cheaptrick(xs, fs, t, f0, N, q1, grid_step=gs)
     ap, _ = d4c_mod.d4c(xs, fs, t, f0, N, d4c_threshold, f0_floor=f0_floor,
                         grid_step=gs)

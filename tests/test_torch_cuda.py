@@ -13,6 +13,8 @@ from hts_train_world_tpu_torch import config as cfg
 from hts_train_world_tpu_torch import kernels
 from hts_train_world_tpu_torch.features import decode, encode, windows
 from hts_train_world_tpu_torch.ops import dio, frames, mlpg, prims
+from hts_train_world_tpu_torch.ops import harvest as hv
+from hts_train_world_tpu_torch.ops import harvest_fix as hf
 from hts_train_world_tpu_torch.ops import synthesis as syn
 from hts_train_world_tpu_torch.parallel import batch, bucketing, features
 
@@ -24,6 +26,8 @@ COPY_SYNTH_KERNELS = ("frame_window", "spectral_smooth", "topk_sum", "fix_f0",
 FEATURE_LANE_KERNELS = ("frame_window", "spectral_smooth", "topk_sum",
                         "fix_f0", "dio_candidates", "codec_encode",
                         "delta_window", "mlpg_solve")
+HARVEST_KERNELS = ("harvest_decimate", "harvest_candidates", "harvest_refine",
+                   "harvest_contour")
 
 
 @pytest.fixture
@@ -498,3 +502,223 @@ def test_synth_wrappers_reject_what_the_kernels_do_not_take(cuda):
                                                          device=cuda),
                                torch.zeros((2, 10, 25), device=cuda), 16000,
                                1024)
+
+
+# ---------------------------------------------------------------------------
+# the Harvest lane: K13-K16
+# ---------------------------------------------------------------------------
+
+
+def _voices(fs, n, kinds=("voice", "voice", "noise", "silence"), seed=0):
+    """Rows of harmonic voices (170 and 230 Hz, 2 % vibrato, a pause in the
+    first), wideband noise, a click train or silence."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / fs
+    rows = []
+    for i, kind in enumerate(kinds):
+        x = np.zeros(n)
+        if kind == "voice":
+            f = 170.0 + 60.0 * (i % 2)
+            ph = 2 * np.pi * np.cumsum(
+                f * (1 + 0.02 * np.sin(2 * np.pi * 5.5 * t))) / fs
+            x = sum(a * np.sin((h + 1) * ph)
+                    for h, a in enumerate([0.5, 0.3, 0.15, 0.08]))
+            x = 0.7 * x / np.abs(x).max() + 0.005 * rng.standard_normal(n)
+            if i == 0:
+                x[n // 2:n // 2 + n // 8] *= 0.01
+        elif kind == "noise":
+            x = 0.5 * rng.standard_normal(n)
+        elif kind == "clicks":
+            x[::fs // 50] = 0.9
+        rows.append(x)
+    return np.stack(rows)
+
+
+def _front(cuda, fs, n, kinds=("voice", "voice", "noise", "silence")):
+    """The plain front on the card: decimated rows, filtered bands, raw
+    candidates and the spread candidate field of each row."""
+    xs = torch.as_tensor(_voices(fs, n, kinds), dtype=torch.float32,
+                         device=cuda)
+    plan = hv.harvest_plan(n, fs, 71.0, 800.0)
+    T1 = cfg.samples_for_dio(fs, n, 1.0)
+    lag = int(np.ceil(140.0 / plan["ratio"]) * plan["ratio"])
+    ext = torch.cat([xs[:, :1].expand(-1, lag), xs,
+                     xs[:, -1:].expand(-1, lag)], dim=1)
+    y = prims.decimate_plain(ext, plan["ratio"])
+    y = y[:, lag // plan["ratio"]:lag // plan["ratio"] + plan["y_length"]]
+    y = y - y.mean(dim=1, keepdim=True)
+    filt = hv.band_filter(y, plan)
+    raw = hv.raw_candidates_plain(filt, plan, 71.0, 800.0, T1)
+    cands, nc = hv.detect_candidates(raw, plan["nc_pad"])
+    return dict(xs=xs, ext=ext, plan=plan, T1=T1, y=y.contiguous(),
+                filt=filt, cands=hv.overlap_candidates(cands, nc), nc=nc)
+
+
+@pytest.mark.parametrize("fs", [16000, 48000])
+def test_k13_kernel_matches_plain(cuda, fs):
+    """Voices, noise, clicks and silence: within 1e-6 of each row's peak
+    (both run the recurrence in float64; the kernel's chunk scan reorders
+    it); the C's output count."""
+    n = fs // 2
+    x = torch.as_tensor(_voices(fs, n, ("voice", "noise", "clicks",
+                                        "silence")), dtype=torch.float32,
+                        device=cuda)
+    r = hv.harvest_plan(n, fs, 71.0, 800.0)["ratio"]
+    got = prims.decimate(x, r)
+    want = prims.decimate_plain(x, r)
+    assert got.shape == want.shape == (4, prims.decimate_count(n, r))
+    peak = want.abs().amax(1, keepdim=True)
+    assert ((got - want).abs() <= 1e-6 * peak + 1e-30).all()
+    assert (got[3] == 0).all()
+
+
+@pytest.mark.parametrize("fs", [16000, 48000])
+def test_k14_kernel_matches_plain(cuda, fs):
+    """Crossing positions and counts identical to the twin's; candidates
+    no further from the float64 interp1 of those crossings than the twin's
+    (+1e-6 relative); zero/nonzero agreement >= 0.999; the silent row all
+    zero."""
+    f = _front(cuda, fs, fs // 2)
+    plan, T1 = f["plan"], f["T1"]
+    got = hv.raw_candidates(f["filt"], plan, 71.0, 800.0, T1, crossings=True)
+    want = hv.raw_candidates_plain(f["filt"], plan, 71.0, 800.0, T1,
+                                   crossings=True)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert (got[0][3] == 0).all()
+    ref = hv.crossing_candidates_f64(f["filt"], plan, T1, want[1], want[2])
+    both = (got[0] > 0) & (want[0] > 0)
+    assert both.float().mean() > 0.02
+    rel_k = ((got[0].double() - ref).abs() / ref)[both].max()
+    rel_p = ((want[0].double() - ref).abs() / ref)[both].max()
+    assert rel_k <= rel_p + 1e-6
+    assert ((got[0] > 0) == (want[0] > 0)).float().mean() >= 0.999
+
+
+@pytest.mark.parametrize("fs", [16000, 48000])
+def test_k15_kernel_matches_plain(cuda, fs):
+    """On a batch whose rows have different candidate counts: refined f0
+    within 1e-5 relative where both are nonzero, flips under 0.2 % of the
+    nonzero pairs.  A score is 1 / (mean relative harmonic error), whose
+    weak harmonics read an ill-conditioned IF; against the float64 twin,
+    the kernel's error in that mean is no worse than 1.5x the f32 twin's
+    at the median and the 99th percentile."""
+    f = _front(cuda, fs, fs // 2)
+    assert len(set(f["nc"].tolist())) > 1
+    args = (f["plan"]["actual_fs"], 71.0, 800.0)
+    gr, gs = hv.refine(f["y"], f["cands"], *args)
+    wr, ws = hv.refine_plain(f["y"], f["cands"], *args)
+    both = (gr > 0) & (wr > 0)
+    assert both.sum() > 100
+    assert ((gr > 0) != (wr > 0)).sum() <= 0.002 * (wr > 0).sum()
+    assert ((gr - wr).abs() <= 1e-5 * wr)[both].all()
+    ref = hv.refine_plain(f["y"].double(), f["cands"].double(), *args)[1]
+    live = both & (ref > 0)
+    e_k = (1.0 / gs[live].double() - 1.0 / ref[live]).abs()
+    e_p = (1.0 / ws[live].double() - 1.0 / ref[live]).abs()
+    for q in (0.5, 0.99):
+        assert e_k.quantile(q) <= 1.5 * e_p.quantile(q) + 1e-9
+
+
+def _fields(cuda, B=4, T=300, NC=21, seed=0):
+    """Candidate and score fields shaped like the refiner's output: voiced
+    stretches near a base contour with dropouts and outliers, one
+    utterance all zero."""
+    rng = np.random.default_rng(seed)
+    c = np.zeros((B, T, NC))
+    s = np.zeros((B, T, NC))
+    for b in range(B - 1):
+        t0 = 0
+        while t0 < T - 10:
+            seg = int(rng.integers(5, 80))
+            if rng.random() < 0.35:
+                t0 += seg
+                continue
+            base = rng.uniform(80, 700)
+            for t in range(t0, min(T, t0 + seg)):
+                k = int(rng.integers(1, NC + 1))
+                v = base * (1 + 0.01 * rng.standard_normal(k))
+                if rng.random() < 0.1:
+                    v[rng.integers(0, k)] *= rng.uniform(1.5, 3.0)
+                c[b, t, :k] = np.abs(v)
+                s[b, t, :k] = rng.uniform(2.5, 60.0, k)
+                drop = rng.random(NC) < 0.2
+                c[b, t, drop] = 0.0
+                s[b, t, drop] = 0.0
+            t0 += seg + int(rng.integers(1, 12))
+    f32 = dict(dtype=torch.float32, device=cuda)
+    return torch.as_tensor(c, **f32), torch.as_tensor(s, **f32)
+
+
+@pytest.mark.parametrize("source", ["fields", "refined16", "refined48"])
+def test_k16_kernel_matches_plain(cuda, source):
+    """V/UV equal to the twin's, f0 within 1e-5 relative; the all-zero
+    utterance (no section: FixStep3 returns its input) all zero."""
+    if source == "fields":
+        c, s = _fields(cuda)
+    else:
+        fs = 16000 if source == "refined16" else 48000
+        f = _front(cuda, fs, fs // 2)
+        c, s = hv.refine_plain(f["y"], f["cands"], f["plan"]["actual_fs"],
+                               71.0, 800.0)
+    got = hf.contour(c, s)
+    want = hf.contour_plain(c, s)
+    assert (want > 0).float().mean() > 0.05
+    assert torch.equal(got > 0, want > 0)
+    assert ((got - want).abs() <= 1e-5 * want.abs()).all()
+    assert (got[-1] == 0).all()
+
+
+@pytest.mark.parametrize("name", ["silence", "clicks", "noise"])
+def test_harvest_lane_on_hostile_inputs(cuda, name):
+    """Silence, click trains and noise through the card's Harvest lane:
+    finite, sp > 0, ap within [0, 1]."""
+    fs, n = 16000, 4800
+    x = _voices(fs, n, (name, "voice"))
+    _, f0, sp, ap = batch.batch_analyze(x, fs, algorithm="harvest")
+    for v in (f0, sp, ap):
+        assert torch.isfinite(v).all()
+    assert (sp > 0).all() and (ap >= 0).all() and (ap <= 1).all()
+    if name == "silence":
+        assert (f0[0] == 0).all()
+
+
+def test_harvest_lane_runs_the_kernels_and_matches_the_cpu_path(cuda):
+    """2 x 0.5 s at 48 kHz: K13-K16 launched; V/UV agreement >= 0.95, f0
+    median relative difference < 1e-3, sp median |dlog| < 0.1 against the
+    CPU path; bucketed_extract and batch_copy_synth take Harvest."""
+    fs, n = 48000, 24000
+    xs = _voices(fs, n, ("voice", "voice"))
+    kernels.reset_counts()
+    g = batch.batch_analyze(xs, fs, algorithm="harvest")
+    torch.cuda.synchronize()
+    assert all(kernels.launches[k] > 0 for k in HARVEST_KERNELS)
+    assert kernels.launches["fix_f0"] == 0
+    c = batch.batch_analyze(xs, fs, algorithm="harvest", device="cpu")
+    f0g, f0c = g[1].cpu(), c[1]
+    assert ((f0g > 0) == (f0c > 0)).float().mean() >= 0.95
+    both = (f0g > 0) & (f0c > 0)
+    assert ((f0g[both] - f0c[both]).abs() / f0c[both]).median() < 1e-3
+    assert (g[2].cpu().log() - c[2].log()).abs().median() < 0.1
+    out = bucketing.bucketed_extract([xs[0, :20000], xs[1]], fs,
+                                     algorithm="harvest")
+    assert all(np.isfinite(v).all() for r in out for v in r)
+    y = batch.batch_copy_synth(xs, fs, algorithm="harvest", seed=1)[4]
+    assert torch.isfinite(y).all()
+
+
+def test_harvest_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros((2, 4000), device=cuda)
+    with pytest.raises(ValueError):
+        prims.decimate(x.double(), 6)
+    with pytest.raises(ValueError):
+        prims.decimate(x, 13)
+    plan = hv.harvest_plan(4000, 16000, 71.0, 800.0)
+    with pytest.raises(ValueError):
+        hv.raw_candidates(torch.zeros((2, 3, plan["fft_size"]), device=cuda),
+                          plan, 71.0, 800.0, 251)
+    with pytest.raises(ValueError):
+        hv.refine(x[:1], torch.zeros((2, 10, 7), device=cuda), 8000.0, 71.0,
+                  800.0)
+    with pytest.raises(ValueError):
+        hf.contour(torch.zeros((2, 2, 7), device=cuda),
+                   torch.zeros((2, 2, 7), device=cuda))

@@ -216,6 +216,13 @@ def test_feature_entry_points_default_to_the_card(call):
 
 
 def test_harvest_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bucketing.bucketed_extract(_utterances([1600]), FS,
-                                   algorithm="harvest", device="cpu")
+    """Harvest was ported after DIO: bucketed_extract takes it, and an
+    unknown F0 algorithm is refused."""
+    x = _utterances([1600, 2400])
+    out = bucketing.bucketed_extract(x, FS, algorithm="harvest",
+                                     device="cpu")
+    assert [r[0].shape[0] for r in out] == [
+        cfg.samples_for_dio(FS, len(v), 5.0) for v in x]
+    assert all(np.isfinite(v).all() for r in out for v in r)
+    with pytest.raises(ValueError, match="unknown f0 algorithm"):
+        bucketing.bucketed_extract(x, FS, algorithm="yin", device="cpu")
