@@ -17,7 +17,11 @@ Drives the port's paths at full size on a corpus made from a seed:
   the headline batch through Harvest's F0 (decimation, band filter, raw
   candidates, detection, refinement, contour), CheapTrick and D4C;
 - corpus extraction with Harvest (`bucketed_extract(algorithm="harvest")`)
-  on corpus500.
+  on corpus500;
+- the batched monophone HSMM Baum-Welch EM
+  (`models.hsmm_batch.reestimate_modelset_batched`, float64): 128
+  utterances of the WORLD cmp layout (D = 237), 40 models x 5 states,
+  max_dur 60, one iteration; and bench.py's 14-dim hsmm_em recipe.
 
 Phases (any failure raises):
 
@@ -32,7 +36,8 @@ Phases (any failure raises):
    (K5, K8 and K14 also against float64 references; K9 and K11 bit for
    bit against the plain version run on the CPU, K11 also across two
    launches); time kernel, plain version, bound and, where one exists,
-   the library call;
+   the library call; print the bounds of the plain-torch stages that have
+   no kernel yet, from this run's shapes;
 4. compare the card's copy-synthesis, feature lane, synth lane and
    Harvest lane with the CPU (plain) path on a small input (the synth
    lane must fire the same pulses);
@@ -47,7 +52,14 @@ Phases (any failure raises):
    trimming;
 9. the Harvest lane's stage times and audio-seconds per second on the
    headline batch, one batch under the profiler; corpus extraction with
-   Harvest, one timed run after one warm run.
+   Harvest, one timed run after one warm run;
+10. the HSMM lane: one EM iteration counted and recorded (K17-K19), its
+   launches replayed against the twins (K18 also padded against unpadded,
+   K19 bit for bit against the CPU and across launches), the card against
+   the CPU path on a small corpus (accumulators, parameters after two
+   iterations, Viterbi alignments), then frames per second, E-step stage
+   times and one E-step under the profiler, for the lane and for bench.py's
+   recipe.
 
 Prints each measurement, the card's name and power limit, a `kernels`
 JSON line, and as the last line {"ok": true, "device": {...}}.  Exits
@@ -90,6 +102,9 @@ REPLACES = {
     "harvest_candidates": ("K14", "hts_train_world_tpu/ops/harvest.py:129"),
     "harvest_refine": ("K15", "hts_train_world_tpu/ops/harvest.py:320"),
     "harvest_contour": ("K16", "hts_train_world_tpu/ops/harvest_fix.py:121"),
+    "hsmm_loglik": ("K17", "hts_train_world_tpu/models/hsmm.py:157"),
+    "hsmm_fb": ("K18", "hts_train_world_tpu/models/hsmm.py:287"),
+    "hsmm_accumulate": ("K19", "hts_train_world_tpu/models/hsmm_batch.py:227"),
 }
 ANALYSIS = ("frame_window", "spectral_smooth", "topk_sum", "fix_f0",
             "dio_candidates")
@@ -105,7 +120,10 @@ PATHS = {
     "corpus500": ANALYSIS + ("codec_encode",),
     "harvest_lane": HARVEST,
     "corpus500_harvest": HARVEST + ("codec_encode",),
+    "hsmm_em": ("hsmm_loglik", "hsmm_fb", "hsmm_accumulate"),
 }
+# the HSMM lane: RecipeConfig's defaults (models/recipe.py:45-47)
+HSMM_MODELS, HSMM_STATES, HSMM_MAX_DUR, HSMM_UTTS = 40, 5, 60, 128
 
 
 def corpus(batch: int, n: int, seed: int = 0) -> np.ndarray:
@@ -143,6 +161,109 @@ def corpus500(seed: int = 7):
     return sigs
 
 
+def hsmm_corpus(hsmm, seed: int = 3):
+    """The HSMM lane's corpus at full width, in memory: `world_streams()`
+    (D = 237), 40 monophone models x 5 states, 128 utterances of 8-24
+    labels; per-state durations N(mu, 1) >= 1 with mu in [4, 14] per
+    (model, state); frames the state's mean + 0.3 N(0, 1); about 30 % of
+    the models unvoiced (zero lf0 and vib columns), voiced states with a
+    non-zero first column.  The model set is bootstrapped with
+    `init_modelset` from a uniform per-label split."""
+    rng = np.random.default_rng(seed)
+    sts = hsmm.world_streams()
+    D = sts[-1].sl.stop
+    M, S = HSMM_MODELS, HSMM_STATES
+    names = [f"m{i:02d}" for i in range(M)]
+    mu = rng.standard_normal((M, S, D))
+    dur = rng.uniform(4.0, 14.0, (M, S))
+    voiced = rng.random(M) >= 0.3
+    msd_cols = [(st.sl, st.msd_flag_col) for st in sts if st.msd]
+    utts, fbm = [], {n: [] for n in names}
+    for _ in range(HSMM_UTTS):
+        seq = rng.integers(0, M, int(rng.integers(8, 25)))
+        fr = []
+        for mi in seq:
+            for s in range(S):
+                d = max(1, int(rng.normal(dur[mi, s], 1.0)))
+                f = mu[mi, s] + 0.3 * rng.standard_normal((d, D))
+                for sl, col in msd_cols:
+                    if voiced[mi]:
+                        f[:, col] = np.abs(f[:, col]) + 0.5
+                    else:
+                        f[:, sl] = 0.0
+                fr.append(f)
+        fr = np.concatenate(fr)
+        labels = [names[i] for i in seq]
+        utts.append((fr, labels))
+        ends = np.linspace(0, len(fr), len(labels) + 1)[1:].astype(int)
+        starts = np.concatenate([[0], ends[:-1]])
+        for i, n in enumerate(labels):
+            fbm[n].append(fr[starts[i]:ends[i]])
+    return hsmm.init_modelset(names, fbm, sts, n_states=S), utts
+
+
+def hsmm_bench_corpus(hsmm):
+    """bench.py:333-351's hsmm_em recipe: 14-dim frames (mgc 12, lf0 2
+    MSD), 8 models x 5 states, 128 utterances of 90-130 frames and 6
+    labels, seed 3."""
+    rngh = np.random.default_rng(3)
+    streams = (hsmm.StreamDef("mgc", slice(0, 12), False, 0, 1.0),
+               hsmm.StreamDef("lf0", slice(12, 14), True, 12, 1.0))
+    names = [f"p{i}" for i in range(8)]
+    fbm = {n: [] for n in names}
+    utts = []
+    for _ in range(128):
+        seq = [names[j] for j in rngh.integers(0, 8, 6)]
+        Tn = int(rngh.integers(90, 130))
+        fr = rngh.standard_normal((Tn, 14))
+        fr[:, 12] = np.abs(fr[:, 12]) + 0.5
+        utts.append((fr, seq))
+        mid = Tn // 2
+        fbm[seq[0]].append(fr[:mid])
+        fbm[seq[1]].append(fr[mid:])
+    return hsmm.init_modelset(names, fbm, streams, n_states=5), utts
+
+
+def hsmm_tiny_corpus(hsmm, seed: int = 11):
+    """8 utterances of 60-120 frames over the tiny 10-dim streams of
+    tests/test_hsmm.py:10-15 (mgc 4 | lf0 2 MSD | bap 2 weight 0 | vib 2
+    MSD), 4 models x 3 states."""
+    rng = np.random.default_rng(seed)
+    sts = (hsmm.StreamDef("mgc", slice(0, 4), False, 0, 1.0),
+           hsmm.StreamDef("lf0", slice(4, 6), True, 4, 1.0),
+           hsmm.StreamDef("bap", slice(6, 8), False, 6, 0.0),
+           hsmm.StreamDef("vib", slice(8, 10), True, 8, 1.0))
+    names = [f"p{i}" for i in range(4)]
+    mu = 2.0 * rng.standard_normal((4, 3, 10))
+    dur = rng.uniform(5.0, 8.0, (4, 3))
+    voiced = rng.random((4, 3)) >= 0.3
+    utts, fbm = [], {n: [] for n in names}
+    while len(utts) < 8:
+        seq = rng.integers(0, 4, int(rng.integers(4, 7)))
+        fr = []
+        for mi in seq:
+            for s in range(3):
+                d = max(1, int(rng.normal(dur[mi, s], 1.0)))
+                f = mu[mi, s] + 0.3 * rng.standard_normal((d, 10))
+                if voiced[mi, s]:
+                    f[:, 4] = np.abs(f[:, 4]) + 0.5
+                    f[:, 8] = np.abs(f[:, 8]) + 0.5
+                else:
+                    f[:, 4:6] = 0.0
+                    f[:, 8:10] = 0.0
+                fr.append(f)
+        fr = np.concatenate(fr)
+        if not 60 <= len(fr) <= 120:
+            continue
+        labels = [names[i] for i in seq]
+        utts.append((fr, labels))
+        ends = np.linspace(0, len(fr), len(labels) + 1)[1:].astype(int)
+        starts = np.concatenate([[0], ends[:-1]])
+        for i, n in enumerate(labels):
+            fbm[n].append(fr[starts[i]:ends[i]])
+    return hsmm.init_modelset(names, fbm, sts, n_states=3), utts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -153,6 +274,7 @@ def main() -> int:
     from hts_train_world_tpu_torch import kernels
     from hts_train_world_tpu_torch.features import decode, encode
     from hts_train_world_tpu_torch.features import windows as win_mod
+    from hts_train_world_tpu_torch.models import hsmm, hsmm_batch
     from hts_train_world_tpu_torch.ops import codec
     from hts_train_world_tpu_torch.ops import dio as dio_mod
     from hts_train_world_tpu_torch.ops import fftmat, frames
@@ -345,6 +467,11 @@ def main() -> int:
         "harvest_candidates": (hv.raw_candidates, hv.raw_candidates_plain),
         "harvest_refine": (hv.refine, hv.refine_plain),
         "harvest_contour": (hf.contour, hf.contour_plain),
+        "hsmm_loglik": (hsmm.batch_frame_loglik,
+                        hsmm.batch_frame_loglik_plain),
+        "hsmm_fb": (hsmm.segment_fb, hsmm.segment_fb_plain),
+        "hsmm_accumulate": (hsmm_batch.segment_sum,
+                            hsmm_batch.segment_sum_plain),
     }
 
     def nbytes(*ts):
@@ -416,6 +543,33 @@ def main() -> int:
             _, B_dft = hv.refine_sizes(inp["fs8"], inp["f0_floor"])
             h = hv.pair_integers(c[ub, tt, cc], tt, inp["fs8"], B_dft)[0]
             t_o = 48.0 * float((2 * h + 1).sum()) / F32_OPS_PER_S
+        elif name == "hsmm_loglik":
+            # the weighted streams: per (b, t, k, column) a subtract, a
+            # square and a multiply-add; per stream ~8 more
+            fr = inp["frames"]
+            B_, Tb, _ = fr.shape
+            Kb = inp["rows"][0].shape[1]
+            live = [i for i, w in enumerate(inp["weights_static"])
+                    if w != 0.0]
+            cols = sum(inp["stream_slices"][i][1] - inp["stream_slices"][i][0]
+                       for i in live)
+            moved = nbytes(fr, *outs) + sum(
+                nbytes(inp["rows"][i], inp["means"][i], inp["variances"][i])
+                + (nbytes(inp["msd_w"][i]) if inp["msd_flags"][i] else 0)
+                for i in live)
+            t_o = B_ * Tb * Kb * (3.0 * cols + 8.0 * len(live)) \
+                / F64_OPS_PER_S
+        elif name == "hsmm_fb":
+            # ~20 float64 operations (three exp counted as one each) per
+            # valid (state, t0, d) term of this run's t_len / k_len
+            Dm = inp["max_dur"]
+            terms = sum(k * (Dm * (t - Dm) + Dm * (Dm + 1) // 2 if t >= Dm
+                             else t * (t + 1) // 2)
+                        for t, k in zip(inp["t_len"].tolist(),
+                                        inp["k_len"].tolist()))
+            t_o = 20.0 * terms / F64_OPS_PER_S
+        elif name == "hsmm_accumulate":
+            t_o = float(inp["vals"].numel()) / F64_OPS_PER_S
         t_b = moved / HBM_BYTES_PER_S
         return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
@@ -478,6 +632,29 @@ def main() -> int:
                 2, -1, -1)
             return lambda: torch.gather(torch.fft.rfft(rows, n=B_dft, dim=-1),
                                         2, bins)
+        if name == "hsmm_loglik":
+            # one bmm of the expanded quadratic form [x^2, x, 1] . [1/v;
+            # -2 mu/v; sum mu^2/v + sum log v] over the weighted streams
+            # (no MSD switch, no -0.5, no weights)
+            live = [i for i, w in enumerate(inp["weights_static"])
+                    if w != 0.0]
+            fr = inp["frames"]
+            xs = torch.cat([fr[..., a:e] for i, (a, e)
+                            in enumerate(inp["stream_slices"]) if i in live],
+                           -1)
+            A = torch.cat([xs * xs, xs, torch.ones_like(xs[..., :1])], -1)
+            mu = [inp["means"][i][inp["rows"][i]] for i in live]
+            iv = [1.0 / inp["variances"][i][inp["rows"][i]] for i in live]
+            c = sum((m * m * v).sum(-1) - torch.log(v).sum(-1)
+                    for m, v in zip(mu, iv))
+            W = torch.cat(iv + [-2.0 * m * v for m, v in zip(mu, iv)]
+                          + [c[..., None]], -1).transpose(1, 2).contiguous()
+            return lambda: torch.bmm(A, W)
+        if name == "hsmm_accumulate":
+            v, ids = inp["vals"], inp["ids"]
+            return lambda: torch.zeros((inp["n_rows"], v.shape[1]),
+                                       dtype=v.dtype, device=dev) \
+                .index_add_(0, ids, v)
         if name == "delta_window":
             x = inp["x"]
 
@@ -643,9 +820,59 @@ def main() -> int:
                 f"{qk[0]:.2e} / {qk[1]:.2e}, f32 twin {qp[0]:.2e} / "
                 f"{qp[1]:.2e} (kernel <= 1.5x twin)")
 
+    def amax0(t):
+        return float(t.abs().max()) if t.numel() else 0.0
+
+    def check_k18(inp, out_k, out_p):
+        """The twin's bounds, and padded against unpadded (the bounds of
+        tests/test_hsmm_batch.py:43-62) on the batch's shortest
+        utterance."""
+        (lk, gk, dk), (lp, gp, dp) = out_k, out_p
+        r_ll = float(((lk - lp).abs() / lp.abs()).max())
+        e_g = float((gk - gp).abs().max())
+        r_d = float(((dk - dp).abs() / dp.abs().clamp(min=1e-300)).max())
+        tl, kl = inp["t_len"], inp["k_len"]
+        b = int(torch.argmin(tl))
+        T_, S_ = int(tl[b]), int(kl[b])
+        l1, g1, d1 = hsmm.segment_fb(
+            inp["obs_ll"][b:b + 1, :T_, :S_].contiguous(),
+            inp["dur_mean"][b:b + 1, :S_].contiguous(),
+            inp["dur_var"][b:b + 1, :S_].contiguous(), inp["max_dur"],
+            inp["temper"], tl[b:b + 1], kl[b:b + 1])
+        pad = [abs(float(l1[0]) - float(lk[b])),
+               amax0(g1[0] - gk[b, :T_, :S_]), amax0(d1[0] - dk[b, :S_]),
+               amax0(gk[b, T_:]), amax0(dk[b, S_:])]
+        ok_pad = (pad[0] < 1e-10 and pad[1] < 1e-12 and pad[2] < 1e-10
+                  and pad[3] < 1e-12 and pad[4] < 1e-12)
+        ok = r_ll <= 1e-9 and e_g <= 1e-10 and r_d <= 1e-9 and ok_pad
+        return (ok, max(float((lk - lp).abs().max()), e_g,
+                        float((dk - dp).abs().max())),
+                f"ll rel {r_ll:.2e} <= 1e-9, gamma |err| {e_g:.2e} <= 1e-10, "
+                f"dstats rel {r_d:.2e} <= 1e-9; padded vs unpadded "
+                f"(utterance {b}: T {T_}, K {S_} in {tuple(gk.shape[1:])}): "
+                f"ll {pad[0]:.1e} < 1e-10, gamma {pad[1]:.1e} < 1e-12, "
+                f"dstats {pad[2]:.1e} < 1e-10, padding {pad[3]:.1e} / "
+                f"{pad[4]:.1e} < 1e-12")
+
     def check(name, inp, out_k, out_p):
         """(passed, max abs err against the reference, what was held and
         what was read)."""
+        if name == "hsmm_loglik":
+            k, p = out_k[0], out_p[0]
+            err = (k - p).abs()
+            worst = float((err / (1.0 + p.abs())).max())
+            return (worst <= 1e-12, float(err.max()),
+                    f"|err| <= 1e-12 (1 + |ll|): worst {worst:.2e}")
+        if name == "hsmm_fb":
+            return check_k18(inp, out_k, out_p)
+        if name == "hsmm_accumulate":
+            out_c = hsmm_batch.segment_sum_plain(**on_cpu(inp))
+            again = hsmm_batch.segment_sum(**inp)
+            same, det = bit_same(out_k[0], out_c), torch.equal(again,
+                                                               out_k[0])
+            return (same and det, max_err([(out_k[0], out_c)]),
+                    f"bit-equal to the plain version's index_add_ on the "
+                    f"CPU: {same}; two launches identical: {det}")
         if name == "harvest_decimate":
             k, p = out_k[0], out_p[0]
             err = (k - p).abs()
@@ -736,12 +963,18 @@ def main() -> int:
 
     summary = {}
     heavy = ("fix_f0", "mlpg_solve", "dio_candidates", "harvest_candidates",
-             "harvest_refine", "harvest_contour")  # slow plain twins
+             "harvest_refine", "harvest_contour", "hsmm_loglik",
+             "hsmm_fb")  # slow plain twins
     replays = ([("copy_synth", n, i) for n, i in rec_cs]
                + [("feature_lane", n, i) for n, i in rec_fl]
                + [("synth_lane", n, i) for n, i in rec_sl]
                + [("harvest_lane", n, i) for n, i in rec_hl])
-    for path, name, inp in replays:
+
+    pulse_bucket = [0]      # the synthesis paths' pulse bucket, from K10
+
+    def replay(path, name, inp):
+        """Hold one recorded launch against the plain version; time the
+        kernel, the plain version, the bound and the library call."""
         kern, plain = twins[name]
         debug = (dict(crossings=True)
                  if name in ("dio_candidates", "harvest_candidates") else {})
@@ -751,6 +984,8 @@ def main() -> int:
         out_k = out_k if isinstance(out_k, tuple) else (out_k,)
         out_p = out_p if isinstance(out_p, tuple) else (out_p,)
         ok, err, tol = check(name, inp, out_k, out_p)
+        if name == "synth_pulse_spectra":
+            pulse_bucket[:] = [out_k[0].shape[1]]
         ms = cuda_ms(lambda: kern(**inp), reps=10, warm=2)
         plain_ms = cuda_ms(lambda: plain(**inp),
                            reps=1 if name in heavy else 5)
@@ -760,7 +995,7 @@ def main() -> int:
                 else out_k[:1] if name == "harvest_candidates" else out_k)
         bms, by = bound_of(name, inp, outs)
         shape = "x".join(str(s) for s in out_k[
-            1 if name == "synth_time_base" else 0].shape)
+            1 if name in ("synth_time_base", "hsmm_fb") else 0].shape)
         print(f"{REPLACES[name][0]} {name} ({path}) out {shape}: max_abs_err "
               f"{err:.3e} ({tol}) {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bms:.4f} ms ({by})"
@@ -774,14 +1009,16 @@ def main() -> int:
                                           by={}))
         s["err"] = max(s["err"], err)
         if path != primary(name):
-            continue
+            return
         s["ms"] += ms
         s["plain_ms"] += plain_ms
         s["bound_ms"] += bms
         s["by"][by] = s["by"].get(by, 0.0) + bms
         if lib_ms is not None:
             s["lib_ms"] = (s["lib_ms"] or 0.0) + lib_ms
-        del out_k, out_p
+
+    for path, name, inp in replays:
+        replay(path, name, inp)
     del rec_cs, rec_fl, rec_sl, rec_hl, replays
     torch.cuda.empty_cache()
 
@@ -800,6 +1037,53 @@ def main() -> int:
           f"{mm_ms:.3f} ms (bound {1e3 * flops / F32_OPS_PER_S:.3f} ms for "
           f"its {flops / 1e9:.1f} GFLOP), torch.fft power {fft_ms:.3f} ms")
     del rows
+
+    # bounds of the plain-torch stages that have no kernel yet, at the
+    # shapes this run gave them: each array that enters or leaves the
+    # stage moved once (f32), the operations per element as counted here
+    def stage_bound(moved, ops32=0.0, ops64=0.0):
+        t_b, t_o = moved / HBM_BYTES_PER_S, (ops32 / F32_OPS_PER_S
+                                             + ops64 / F64_OPS_PER_S)
+        return (f"{1e3 * max(t_b, t_o):.4f} ms ("
+                f"{'bytes' if t_b >= t_o else 'operations'})")
+
+    plan_h = hv.harvest_plan(L, FS, cfg.K_FLOOR_F0, cfg.K_CEIL_F0)
+    n_ch, nf, L8 = (len(hv.channel_layout(plan_h)), plan_h["fft_size"],
+                    plan_h["y_length"])
+    T1 = cfg.samples_for_dio(FS, L, 1.0)
+    R, H, Hd = BATCH * T, half + 1, fft_d // 2 + 1
+    P = pulse_bucket[0]
+    print("plain-stage bounds (B=16 x 2.0 s @ 48 kHz): "
+          # y in, the 152 band spectra, the filtered rows out; a real FFT
+          # at 2.5 n log2 n, the complex product at 6 a bin
+          f"Harvest band filter ({BATCH}, {L8}) -> ({BATCH}, {n_ch}, {nf}) "
+          + stage_bound(4 * BATCH * L8 + 8 * n_ch * (nf // 2 + 1)
+                        + 4 * BATCH * n_ch * nf,
+                        2.5 * nf * np.log2(nf) * BATCH * (1 + n_ch)
+                        + 6.0 * BATCH * n_ch * (nf // 2 + 1))
+          # raw candidates in, the overlapped candidates out; ~8 f32
+          # operations and one f64 add (the run sums) a (frame, channel)
+          + f"; Harvest detect/overlap ({BATCH}, {n_ch}, {T1}) -> "
+          f"({BATCH}, {T1}, {plan_h['nc_pad']}) "
+          + stage_bound(4 * BATCH * n_ch * T1
+                        + 4 * BATCH * T1 * plan_h["nc_pad"],
+                        8.0 * BATCH * n_ch * T1, 1.0 * BATCH * n_ch * T1)
+          # six (B, P, H) arrays in (two min-phase spectra, the noise
+          # spectrum), four out; exp, cos, sin, sqrt and ~12 products a bin
+          + f"; synthesis mid-pass ({BATCH}, {P}, {H}) x 10 "
+          + stage_bound(10 * 4 * BATCH * P * H, 25.0 * BATCH * P * H)
+          # D4C: the two centroids' four spectra each and the smoothed
+          # power in, the static group delay out (R, Hd); CheapTrick: the
+          # power, log, cepstrum, liftered cepstrum, exp and sp (R, H)
+          + f"; D4C coarse body + CheapTrick lifter ({R}, {Hd}) x 10 + "
+          f"({R}, {H}) x 6 "
+          + stage_bound(4 * (10 * R * Hd + 6 * R * H),
+                        30.0 * R * Hd + 10.0 * R * H)
+          # two passes of six harmonic bins of four spectra a frame, f0 in
+          # and out; ~15 operations a bin
+          + f"; StoneMask IF readout ({R} frames x 2 x 6 bins x 4 spectra) "
+          + stage_bound(4 * R * 2 * 6 * 4 + 8 * R, 2 * 6 * 15.0 * R),
+          flush=True)
 
     # ---- 4. the card against the CPU (plain) path, small input ----
     xsm = corpus(2, int(FS * 0.5), seed=3)
@@ -1069,11 +1353,166 @@ def main() -> int:
           f"samples) under the profiler: wall {1e3 * wall:.1f} ms, device "
           f"busy {1e3 * busy:.1f} ms ({100 * busy / wall:.0f}%)", flush=True)
 
+    del sigs, res
+    torch.cuda.empty_cache()
+
+    # ---- 10. HSMM EM: the batched monophone HERest at full width ----
+    ms0, utts_h = hsmm_corpus(hsmm)
+    Ts = [len(f) for f, _ in utts_h]
+    Ks = [len(q) * HSMM_STATES for _, q in utts_h]
+    n_frames = sum(Ts)
+    print(f"HSMM corpus: {len(utts_h)} utterances, {n_frames} frames (T "
+          f"{min(Ts)}-{max(Ts)}), K {min(Ks)}-{max(Ks)}, D "
+          f"{utts_h[0][0].shape[1]}, {HSMM_MODELS} models x {HSMM_STATES} "
+          f"states, max_dur {HSMM_MAX_DUR}", flush=True)
+
+    def em(ms_init, utts, max_dur, max_batch, device="cuda"):
+        """One batched Baum-Welch iteration from a copy of `ms_init`."""
+        ms = hsmm.modelset_from_numpy(*ms_init.to_numpy())
+        logs = []
+        hist = hsmm_batch.reestimate_modelset_batched(
+            ms, utts, n_iters=1, max_dur=max_dur, max_batch=max_batch,
+            log=logs.append, device=device)
+        return ms, hist, logs
+
+    def em_lane(label, ms_init, utts, max_dur, max_batch):
+        """Warm run, timed run, stage times, one E-step under the
+        profiler; returns the timed run's model set."""
+        nf = sum(len(f) for f, _ in utts)
+        em(ms_init, utts, max_dur, max_batch)                     # warm
+        sync()
+        t0 = time.perf_counter()
+        ms, hist, logs = em(ms_init, utts, max_dur, max_batch)
+        sync()
+        dt = time.perf_counter() - t0
+        chained, gvar = hsmm_batch.chain_modelset(ms_init, utts)
+        tables = hsmm_batch.tables_from_modelset(ms_init)
+        M_, S_ = ms_init.dur_mean.shape
+        n_rows = {st.name: M_ * S_ for st in ms_init.streams}
+        spans, host, n_batches = {}, {}, 0
+        sync()
+        prev = torch.cuda.Event(enable_timing=True)
+        prev.record()
+        marks = []
+        t_prev = time.perf_counter()
+        for stage, res in hsmm_batch.corpus_estep_stages(
+                tables, chained, n_rows, M_ * S_, max_dur,
+                max_batch=max_batch):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            marks.append((stage, e))
+            t_now = time.perf_counter()
+            host[stage] = host.get(stage, 0.0) + 1e3 * (t_now - t_prev)
+            t_prev = t_now
+            n_batches += stage == "pad"
+        sync()
+        for stage, e in marks:
+            spans[stage] = spans.get(stage, 0.0) + prev.elapsed_time(e)
+            prev = e
+        ms_m = hsmm.modelset_from_numpy(*ms_init.to_numpy())
+        t1 = time.perf_counter()
+        hsmm_batch.mstep_modelset(ms_m, res, gvar * 0.01 + 1e-8)
+        mstep_ms = 1e3 * (time.perf_counter() - t1)
+        names_ = {"pad": "host pad + upload", "loglik": "gather + K17",
+                  "fb": "dur gather + K18", "moments": "ok mask + bmm",
+                  "accumulate": "K19", "done": "read back"}
+        wall, busy, evs = profiled(lambda: hsmm_batch.corpus_estep(
+            tables, chained, n_rows, M_ * S_, max_dur, max_batch=max_batch))
+        print(f"{label}: {nf / dt:.1f} frames/s ({1e3 * dt:.1f} ms for "
+              f"{nf} frames, one iteration timed after one warm run; "
+              f"{logs[-1]}); E-step in {n_batches} batches, stage ms (CUDA "
+              f"events): " + ", ".join(f"{names_[k]} {v:.2f}"
+                                       for k, v in spans.items())
+              + "; host clock: " + ", ".join(
+                  f"{names_[k]} {v:.2f}" for k, v in host.items())
+              + f"; host M-step {mstep_ms:.2f} ms", flush=True)
+        by_kind = {}
+        for ev in evs:
+            k = ev.key.lower()
+            g = next((n for n in PATHS["hsmm_em"] if n in k),
+                     "gemm" if "gemm" in k else "other")
+            by_kind.setdefault(g, [0.0, 0])
+            by_kind[g][0] += dev_us(ev) / 1e3
+            by_kind[g][1] += ev.count
+        print(f"{label}: one E-step under the profiler: wall "
+              f"{1e3 * wall:.1f} ms, device busy {1e3 * busy:.1f} ms "
+              f"({100 * busy / wall:.0f}%, idle {100 - 100 * busy / wall:.0f}"
+              f"%); by kind: " + ", ".join(
+                  f"{g} {v:.2f} ms in {n}" for g, (v, n) in by_kind.items())
+              + f"; n_ok {res.n_ok:.0f} of {len(utts)}, total loglik "
+              f"{res.total_ll:.6e}", flush=True)
+        return ms, res
+
+    em(ms0, utts_h, HSMM_MAX_DUR, 32)                             # warm
+    (ms1, hist, logs), counts_hm, rec_hm = counted(
+        "hsmm_em", lambda: em(ms0, utts_h, HSMM_MAX_DUR, 32), record=True)
+    bad = [n for n, v in list(ms1.means.items()) + list(
+        ms1.variances.items()) + list(ms1.msd_weights.items())
+        + [("dur_mean", ms1.dur_mean), ("dur_var", ms1.dur_var)]
+        if not np.isfinite(v).all()]
+    print(f"HSMM lane: {logs[-1]}; non-finite parameters: {bad or 'none'}",
+          flush=True)
+    if bad or not np.isfinite(hist[-1]) or hist[-1] <= hsmm.LOG_ZERO / 2 \
+            or f"({HSMM_UTTS} utts)" not in logs[-1]:
+        raise RuntimeError("HSMM lane: non-finite parameters, infeasible "
+                           "log-likelihood or dropped utterances")
+    for name, inp in rec_hm:
+        replay("hsmm_em", name, inp)
+    del rec_hm
+    torch.cuda.empty_cache()
+
+    # the card against the CPU path on the tiny streams
+    ms_t, utts_t = hsmm_tiny_corpus(hsmm)
+    chained_t, _ = hsmm_batch.chain_modelset(ms_t, utts_t)
+    M_, S_ = ms_t.dur_mean.shape
+    n_rows_t = {st.name: M_ * S_ for st in ms_t.streams}
+    tab_t = hsmm_batch.tables_from_modelset(ms_t)
+    acc_g, acc_c = (hsmm_batch.corpus_estep(tab_t, chained_t, n_rows_t,
+                                            M_ * S_, 40, device=d)
+                    for d in ("cuda", "cpu"))
+    worst = max(
+        [float(np.abs(g[k] - c[k]).max() / max(np.abs(c[k]).max(), 1e-300))
+         for g, c in zip(acc_g.streams, acc_c.streams) for k in c]
+        + [float(np.abs(acc_g.dur - acc_c.dur).max()
+                 / np.abs(acc_c.dur).max()),
+           abs(acc_g.total_ll - acc_c.total_ll) / abs(acc_c.total_ll)])
+    got, want = (hsmm.modelset_from_numpy(*ms_t.to_numpy())
+                 for _ in range(2))
+    for d, ms_d in (("cuda", got), ("cpu", want)):
+        hsmm_batch.reestimate_modelset_batched(ms_d, utts_t, n_iters=2,
+                                               log=lambda m: None, device=d)
+    a_g, a_c = got.to_numpy(), want.to_numpy()
+    d_par = max(float(np.abs(a_g[i][k] - a_c[i][k]).max())
+                for i in (1, 2, 3) for k in a_c[i])
+    d_par = max(d_par, float(np.abs(a_g[4] - a_c[4]).max()),
+                float(np.abs(a_g[5] - a_c[5]).max()))
+    ends_same = all(np.array_equal(
+        hsmm.align_utterance(got, f, q)[1],
+        hsmm.align_utterance(got, f, q, device="cpu")[1]) for f, q in utts_t)
+    print(f"HSMM, card vs CPU path (8 utterances, T "
+          f"{min(len(f) for f, _ in utts_t)}-"
+          f"{max(len(f) for f, _ in utts_t)}, 10-dim streams): E-step "
+          f"accumulators worst max|d| / max|CPU| {worst:.2e} (<= 1e-9), "
+          f"n_ok {acc_g.n_ok:.0f} / {acc_c.n_ok:.0f}; parameters after 2 "
+          f"iterations max |d| {d_par:.2e} (< 1e-8); align_utterance ends "
+          f"equal: {ends_same}", flush=True)
+    if not (worst <= 1e-9 and d_par < 1e-8 and ends_same
+            and acc_g.n_ok == acc_c.n_ok):
+        raise RuntimeError("the card's HSMM EM disagrees with the CPU path")
+
+    # stage times, frames/s, device busy share: the lane and bench's recipe
+    em_lane(f"HSMM lane (D 237, {HSMM_UTTS} utts, max_batch 32)", ms0,
+            utts_h, HSMM_MAX_DUR, 32)
+    ms_b, utts_b = hsmm_bench_corpus(hsmm)
+    em_lane("HSMM bench.py recipe (D 14, 128 utts, max_dur 40, max_batch "
+            "128)", ms_b, utts_b, 40, 128)
+
     print(smi)
     src = "hts_train_world_tpu_torch/csrc/"
     by_path = {"copy_synth": counts_cs, "feature_lane": counts_fl,
                "synth_lane": counts_sl, "corpus500": counts_cp,
-               "harvest_lane": counts_hl, "corpus500_harvest": counts_ch}
+               "harvest_lane": counts_hl, "corpus500_harvest": counts_ch,
+               "hsmm_em": counts_hm}
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": src + kernels.KERNELS[name][0],

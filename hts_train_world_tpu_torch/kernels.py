@@ -35,6 +35,7 @@ NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_D = ctypes.c_double
 
 # kernel name -> (source file, C launcher, argtypes)
 KERNELS = {
@@ -80,6 +81,13 @@ KERNELS = {
     "harvest_contour": ("harvest_contour.cu", "harvest_contour_launch",
                         [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                          _P, _P, _P]),
+    "hsmm_loglik": ("hsmm_loglik.cu", "hsmm_loglik_launch",
+                    [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
+    "hsmm_fb": ("hsmm_fb.cu", "hsmm_fb_launch",
+                [_P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _P, _P, _P, _P, _P,
+                 _P]),
+    "hsmm_accumulate": ("hsmm_accumulate.cu", "hsmm_accumulate_launch",
+                        [_P, _P, _I, _I, _I, _P]),
 }
 
 launches: collections.Counter = collections.Counter()

@@ -1,0 +1,398 @@
+"""Batched HSMM EM — the corpus-scale HERest E-step (Training.pl:433-446)
+as a handful of launches per bucket batch instead of a per-utterance loop.
+
+Counterpart of the monophone half of
+`hts_train_world_tpu/models/hsmm_batch.py`.  Every trainable pdf row (a
+(model, state)) lives in one global table per stream; each utterance is a
+chain of K states carrying row ids into those tables.  Per padded batch:
+
+  K17 (gathered MSD log-likelihoods) -> duration gather ->
+  K18 (segmental forward-backward, true t_len/k_len) -> `ok` mask ->
+  per stream gamma^T @ frames and gamma^T @ frames^2 (`torch.bmm`) ->
+  K19 (segment sums into the row tables, in a fixed order)
+
+Utterances are grouped on the JAX package's bucket grid (T aligned to 16,
+K to 4, growth 1.26), so groups, batches and every summation order over
+them match its.  The accumulators stay on the device until the E-step
+ends; the host reads them once.  All float64.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, Sequence
+
+import numpy as np
+import torch
+
+from hts_train_world_tpu_torch import device as device_mod
+from hts_train_world_tpu_torch import kernels
+from hts_train_world_tpu_torch.models import hsmm
+
+LOG_ZERO = hsmm.LOG_ZERO
+
+
+# ---------------------------------------------------------------------------
+# global row tables
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class RowTables:
+    """Global pdf tables: per stream (R_s, D_s) mean/var (+ (R_s,) msd
+    weight), plus flat (R_d,) duration mean/var."""
+    means: Dict[str, np.ndarray]
+    vars: Dict[str, np.ndarray]
+    msd_w: Dict[str, np.ndarray]
+    dur_mean: np.ndarray
+    dur_var: np.ndarray
+    streams: Sequence[hsmm.StreamDef]
+
+
+def tables_from_modelset(ms: hsmm.ModelSet) -> RowTables:
+    """Row (mi, s) -> mi*S + s."""
+    M, S = ms.dur_mean.shape
+    return RowTables(
+        {st.name: ms.means[st.name].reshape(M * S, -1) for st in ms.streams},
+        {st.name: ms.variances[st.name].reshape(M * S, -1)
+         for st in ms.streams},
+        {st.name: ms.msd_weights[st.name].reshape(M * S)
+         for st in ms.streams if st.msd},
+        ms.dur_mean.reshape(M * S), ms.dur_var.reshape(M * S), ms.streams)
+
+
+def chain_rows_modelset(ms: hsmm.ModelSet, label_seq) -> np.ndarray:
+    """(K,) row ids for an utterance chain under the monophone table."""
+    S = ms.n_states
+    idxs = np.asarray([ms.index(n) for n in label_seq])
+    return (idxs[:, None] * S + np.arange(S)[None, :]).reshape(-1)
+
+
+# ---------------------------------------------------------------------------
+# bucketed batch assembly
+# ---------------------------------------------------------------------------
+
+
+def _bucket(n: int, growth: float = 1.26, align: int = 8) -> int:
+    if n <= align:
+        return align
+    steps = math.ceil(math.log(n / align) / math.log(growth))
+    b = align * growth ** steps
+    return int(math.ceil(b / align) * align)
+
+
+@dataclasses.dataclass
+class ChainedUtterance:
+    frames: np.ndarray                 # (T, D)
+    rows: Dict[str, np.ndarray]        # per stream (K,)
+    dur_rows: np.ndarray               # (K,)
+
+
+def _pad_group(group: List[ChainedUtterance], Tb: int, Kb: int, D: int,
+               stream_names, batch_pad: int = 1):
+    """Pad a same-bucket group to (B, Tb, D) / (B, Kb) arrays; weight 0
+    marks batch-padding dummies (B rounded up to batch_pad)."""
+    B = len(group)
+    Bp = int(math.ceil(B / batch_pad) * batch_pad)
+    frames = np.zeros((Bp, Tb, D))
+    rows = {n: np.zeros((Bp, Kb), np.int64) for n in stream_names}
+    dur_rows = np.zeros((Bp, Kb), np.int64)
+    t_len = np.ones(Bp, np.int32)
+    k_len = np.ones(Bp, np.int32)
+    w = np.zeros(Bp)
+    for i, u in enumerate(group):
+        T, K = len(u.frames), len(u.dur_rows)
+        frames[i, :T] = u.frames
+        for n in stream_names:
+            rows[n][i, :K] = u.rows[n]
+        dur_rows[i, :K] = u.dur_rows
+        t_len[i] = T
+        k_len[i] = K
+        w[i] = 1.0
+    return frames, rows, dur_rows, t_len, k_len, w
+
+
+def _groups(utts, growth: float):
+    """{(Tb, Kb): [utterance, ...]} on the JAX package's bucket grid."""
+    groups: Dict = {}
+    for u in utts:
+        key = (_bucket(len(u.frames), growth, 16),
+               _bucket(len(u.dur_rows), growth, 4))
+        groups.setdefault(key, []).append(u)
+    return groups
+
+
+# ---------------------------------------------------------------------------
+# segment sums into the row tables: K19
+# ---------------------------------------------------------------------------
+
+
+def segment_sum_plain(vals, ids, n_rows: int):
+    """The plain twin of K19: `index_add_`, which on the CPU adds the rows
+    of `vals` (N, C) in ascending order of N.  (On the card its float64
+    atomics add in another order on every run; it is K19's yardstick.)"""
+    out = torch.zeros((n_rows, vals.shape[1]), dtype=vals.dtype,
+                      device=vals.device)
+    return out.index_add_(0, ids, vals)
+
+
+def segment_sum(vals, ids, n_rows: int):
+    """K19: out[r] = the sum of vals[i] (N, C) over i with ids[i] == r,
+    added in ascending i from 0.0 — the CPU's `index_add_` order, so the
+    card's sums equal the CPU's bit for bit and do not vary between runs.
+    ids (N,) int64 in [0, n_rows); float64."""
+    if not vals.is_cuda:
+        return segment_sum_plain(vals, ids, n_rows)
+    if (vals.dtype != torch.float64 or vals.dim() != 2
+            or ids.dtype != torch.long or ids.shape != (vals.shape[0],)
+            or n_rows < 1):
+        raise ValueError("segment_sum: float64 vals (N, C), int64 ids (N,), "
+                         "n_rows >= 1")
+    vals, ids = vals.contiguous(), ids.contiguous()
+    kernels.check_cuda("segment_sum", vals, ids)
+    N, C = vals.shape
+    out = torch.empty((n_rows, C), dtype=vals.dtype, device=vals.device)
+    kernels.launch("hsmm_accumulate", [
+        vals.data_ptr(), ids.data_ptr(), N, C, n_rows, out.data_ptr()],
+        dict(vals=vals, ids=ids, n_rows=n_rows))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the bucketed E-step
+# ---------------------------------------------------------------------------
+
+
+def _bucket_estep_stages(frames, rows, dur_rows, t_len, k_len, w,
+                         means, vars_, msd_w, dur_mean, dur_var,
+                         sls, flags, wts, max_dur: int, n_rows,
+                         n_dur_rows: int, temper: float = 1.0):
+    """One padded batch -> accumulators, yielding after each stage:
+    ("loglik", None), ("fb", None), ("moments", None) and
+    ("accumulate", (total_ll, n_ok, per-stream dicts, dur (R_d, 3))), all
+    tensors on the batch's device.
+
+    frames (B,T,D); rows: tuple per stream (B,K); dur_rows (B,K);
+    t_len/k_len (B,) int64; w (B,).  means/vars_/msd_w: tuples of
+    (R_s, D_s)/(R_s,)."""
+    obs_ll = hsmm.batch_frame_loglik(frames, rows, means, vars_, msd_w,
+                                     sls, flags, wts)
+    yield "loglik", None
+    ll, gamma, dstats = hsmm.segment_fb(obs_ll, dur_mean[dur_rows],
+                                        dur_var[dur_rows], max_dur, temper,
+                                        t_len, k_len)
+    yield "fb", None
+
+    # infeasible utterances (chain longer than frames / durations beyond
+    # max_dur): posterior undefined -> drop, like the loop version
+    ok = w * (ll > LOG_ZERO / 2)
+    total_ll = torch.sum(torch.where(ok > 0, ll * w, 0.0))
+    n_ok = torch.sum(ok)
+    gamma = gamma * ok[:, None, None]
+    dstats = dstats * ok[:, None, None]
+
+    stats = []
+    x2 = frames * frames
+    for i, (a, b) in enumerate(sls):
+        g = gamma
+        if flags[i]:
+            pm = (frames[:, :, a] != 0.0).to(frames.dtype)     # (B,T)
+            g = gamma * pm[:, :, None]
+        gt = g.transpose(1, 2)
+        occ_k = g.sum(1)                                       # (B, K)
+        x_k = torch.bmm(gt, frames[:, :, a:b])
+        x2_k = torch.bmm(gt, x2[:, :, a:b])
+        cols = [occ_k[..., None], x_k, x2_k]
+        if flags[i]:
+            cols += [occ_k[..., None], gamma.sum(1)[..., None]]  # p_occ/tot
+        stats.append(torch.cat(cols, -1))
+    yield "moments", None
+
+    out = []
+    for i, ((a, b), st) in enumerate(zip(sls, stats)):
+        acc = segment_sum(st.reshape(-1, st.shape[-1]), rows[i].reshape(-1),
+                          n_rows[i])
+        d = b - a
+        parts = {"occ": acc[:, 0], "x": acc[:, 1:1 + d],
+                 "x2": acc[:, 1 + d:1 + 2 * d]}
+        if flags[i]:
+            parts["p_occ"] = acc[:, 1 + 2 * d]
+            parts["p_tot"] = acc[:, 2 + 2 * d]
+        out.append(parts)
+    dur_acc = segment_sum(dstats.reshape(-1, 3), dur_rows.reshape(-1),
+                          n_dur_rows)
+    yield "accumulate", (total_ll, n_ok, out, dur_acc)
+
+
+def _bucket_estep(*args, **kw):
+    """`_bucket_estep_stages` run to its end: (total_ll, n_ok, per-stream
+    accumulator dicts, dur (R_d, 3))."""
+    for _, res in _bucket_estep_stages(*args, **kw):
+        pass
+    return res
+
+
+@dataclasses.dataclass
+class EStepAccumulators:
+    total_ll: float
+    n_ok: float
+    streams: List[dict]        # per stream: occ/x/x2 (+ p_occ/p_tot)
+    dur: np.ndarray            # (R_d, 3)
+
+
+def corpus_estep_stages(tables: RowTables,
+                        utts: Sequence[ChainedUtterance],
+                        n_rows: Dict[str, int], n_dur_rows: int,
+                        max_dur: int = 40, temper: float = 1.0,
+                        growth: float = 1.26, max_batch: int = 32,
+                        device="cuda"):
+    """`corpus_estep`, yielding (stage, value) as it goes: ("pad", None)
+    after each batch is padded and copied to the device, each batch's
+    `_bucket_estep_stages`, and last ("done", EStepAccumulators)."""
+    dev = device_mod.resolve(device)
+    sts = tables.streams
+    names = [st.name for st in sts]
+    sls, flags, wts = hsmm.stream_args(sts)
+    nr = tuple(n_rows[n] for n in names)
+    D = utts[0].frames.shape[1]
+    f64 = torch.float64
+
+    def t(a, dtype=f64):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=dev)
+    m_t = tuple(t(tables.means[n]) for n in names)
+    v_t = tuple(t(tables.vars[n]) for n in names)
+    w_t = tuple(t(tables.msd_w[n]) if f else torch.zeros(1, dtype=f64,
+                                                         device=dev)
+                for n, f in zip(names, flags))
+    dm_t, dv_t = t(tables.dur_mean), t(tables.dur_var)
+
+    acc = None
+    for (Tb, Kb), group in sorted(_groups(utts, growth).items()):
+        for at in range(0, len(group), max_batch):
+            frames, rows, dur_rows, t_len, k_len, w = _pad_group(
+                group[at:at + max_batch], Tb, Kb, D, names)
+            args = (t(frames), tuple(t(rows[n], torch.long) for n in names),
+                    t(dur_rows, torch.long), t(t_len, torch.long),
+                    t(k_len, torch.long), t(w))
+            yield "pad", None
+            for stage, res in _bucket_estep_stages(
+                    *args, m_t, v_t, w_t, dm_t, dv_t, sls, flags, wts,
+                    max_dur, nr, n_dur_rows, temper):
+                yield stage, None
+            if acc is None:
+                acc = res
+            else:
+                ll, ok, accs, dur = res
+                acc = (acc[0] + ll, acc[1] + ok,
+                       [{k: a[k] + s[k] for k in a}
+                        for a, s in zip(acc[2], accs)], acc[3] + dur)
+    total_ll, n_ok, accs, dur = acc
+    yield "done", EStepAccumulators(
+        float(total_ll), float(n_ok),
+        [{k: v.cpu().numpy() for k, v in a.items()} for a in accs],
+        dur.cpu().numpy())
+
+
+def corpus_estep(tables: RowTables, utts: Sequence[ChainedUtterance],
+                 n_rows: Dict[str, int], n_dur_rows: int, max_dur: int = 40,
+                 temper: float = 1.0, growth: float = 1.26,
+                 max_batch: int = 32, device="cuda") -> EStepAccumulators:
+    """Full-corpus soft E-step: bucket -> pad -> _bucket_estep -> merge,
+    the accumulators summed on the device and read once at the end."""
+    for _, res in corpus_estep_stages(tables, utts, n_rows, n_dur_rows,
+                                      max_dur, temper, growth, max_batch,
+                                      device):
+        pass
+    return res
+
+
+# ---------------------------------------------------------------------------
+# M-step (host numpy)
+# ---------------------------------------------------------------------------
+
+
+def mstep_modelset(ms: hsmm.ModelSet, acc: EStepAccumulators, floor,
+                   min_occ: float = 1e-6):
+    """Write the batched accumulators back into the (M, S, ...) model
+    arrays — the same update _soft_reestimate_iter applies from dicts."""
+    M, S = ms.dur_mean.shape
+    mass = acc.dur[:, 0]
+    upd = mass > min_occ
+    dm = np.where(upd, acc.dur[:, 1] / np.maximum(mass, 1e-30),
+                  ms.dur_mean.reshape(-1))
+    dv = np.where(upd,
+                  np.maximum(acc.dur[:, 2] / np.maximum(mass, 1e-30)
+                             - dm * dm, 0.0) + 1.0,
+                  ms.dur_var.reshape(-1))
+    ms.dur_mean[:] = dm.reshape(M, S)
+    ms.dur_var[:] = dv.reshape(M, S)
+    for i, st in enumerate(ms.streams):
+        a = acc.streams[i]
+        if st.msd:
+            tot = a["p_tot"]
+            upd_w = tot > min_occ
+            w = np.clip(a["p_occ"] / np.maximum(tot, 1e-30), 1e-3, 1 - 1e-3)
+            flat_w = ms.msd_weights[st.name].reshape(-1)
+            ms.msd_weights[st.name][:] = np.where(
+                upd_w, w, flat_w).reshape(M, S)
+            occ = a["occ"]
+            upd_g = occ > 2.0
+        else:
+            occ = a["occ"]
+            upd_g = occ > min_occ
+        den = np.maximum(occ, 1e-30)[:, None]
+        mu = a["x"] / den
+        va = np.maximum(a["x2"] / den - mu * mu, floor[st.sl][None])
+        mflat = ms.means[st.name].reshape(M * S, -1)
+        vflat = ms.variances[st.name].reshape(M * S, -1)
+        ms.means[st.name][:] = np.where(
+            upd_g[:, None], mu, mflat).reshape(ms.means[st.name].shape)
+        ms.variances[st.name][:] = np.where(
+            upd_g[:, None], va, vflat).reshape(ms.variances[st.name].shape)
+    return ms
+
+
+# ---------------------------------------------------------------------------
+# the EM loop
+# ---------------------------------------------------------------------------
+
+
+def chain_modelset(ms: hsmm.ModelSet, utterances):
+    """(ChainedUtterance list, variance floor) for a monophone corpus of
+    (frames (T, D), label_seq) pairs."""
+    all_frames = np.concatenate([u[0] for u in utterances])
+    _, gvar = hsmm.global_stats(all_frames, ms.streams)
+    chained = []
+    for f, seq in utterances:
+        r = chain_rows_modelset(ms, seq)   # same rows for every stream
+        chained.append(ChainedUtterance(
+            np.asarray(f, float), {st.name: r for st in ms.streams}, r))
+    return chained, gvar
+
+
+def reestimate_modelset_batched(ms: hsmm.ModelSet, utterances,
+                                n_iters: int = 3,
+                                var_floor_scale: float = 0.01,
+                                max_dur: int = 40, temper: float = 1.0,
+                                max_batch: int = 32, log=print,
+                                device="cuda"):
+    """Batched HERest for the monophone modelset: device E-step + table
+    M-step.  Same accumulators as
+    hsmm.embedded_reestimate(mode="baum_welch"), corpus-scalable.
+    Returns the total log-likelihood of each iteration."""
+    device_mod.resolve(device)
+    chained, gvar = chain_modelset(ms, utterances)
+    floor = gvar * var_floor_scale + 1e-8
+    M, S = ms.dur_mean.shape
+    n_rows = {st.name: M * S for st in ms.streams}
+    history = []
+    for it in range(n_iters):
+        tables = tables_from_modelset(ms)
+        acc = corpus_estep(tables, chained, n_rows, M * S, max_dur,
+                           temper, max_batch=max_batch, device=device)
+        mstep_modelset(ms, acc, floor)
+        log(f"batched BW iter {it}: total loglik {acc.total_ll:.1f} "
+            f"({acc.n_ok:.0f} utts)")
+        history.append(acc.total_ll)
+    return history

@@ -9,9 +9,11 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from hts_train_world_tpu_torch import config as cfg
 from hts_train_world_tpu_torch import kernels
 from hts_train_world_tpu_torch.features import decode, encode, windows
+from hts_train_world_tpu_torch.models import hsmm, hsmm_batch
 from hts_train_world_tpu_torch.ops import dio, frames, mlpg, prims
 from hts_train_world_tpu_torch.ops import harvest as hv
 from hts_train_world_tpu_torch.ops import harvest_fix as hf
@@ -722,3 +724,174 @@ def test_harvest_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         hf.contour(torch.zeros((2, 2, 7), device=cuda),
                    torch.zeros((2, 2, 7), device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# HSMM EM (K17-K19)
+# ---------------------------------------------------------------------------
+
+
+def _estep_batch(cuda, utts, ms):
+    """One padded batch of the corpus on the card, as corpus_estep pads
+    it, with the gathered inputs of K17 and K18."""
+    chained, _ = hsmm_batch.chain_modelset(ms, utts)
+    tables = hsmm_batch.tables_from_modelset(ms)
+    names = [st.name for st in ms.streams]
+    Tb = max(len(u.frames) for u in chained)
+    Kb = max(len(u.dur_rows) for u in chained)
+    fr, rows, dr, tl, kl, _ = hsmm_batch._pad_group(chained, Tb, Kb, 10,
+                                                    names)
+
+    def t(a, dt=torch.float64):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                               device=cuda)
+    means = tuple(t(tables.means[n]) for n in names)
+    vars_ = tuple(t(tables.vars[n]) for n in names)
+    msd_w = tuple(t(tables.msd_w[n]) if st.msd else t(np.zeros(1))
+                  for n, st in zip(names, ms.streams))
+    dr = t(dr, torch.long)
+    return dict(frames=t(fr), rows=tuple(t(rows[n], torch.long)
+                                         for n in names),
+                means=means, variances=vars_, msd_w=msd_w,
+                args=hsmm.stream_args(ms.streams),
+                dm=t(tables.dur_mean)[dr], dv=t(tables.dur_var)[dr],
+                t_len=t(tl, torch.long), k_len=t(kl, torch.long))
+
+
+def test_k17_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(17)
+    sts = hsmm.world_streams()
+    B, Tb, Kb, R, D = 3, 37, 21, 30, 237
+    fr = rng.standard_normal((B, Tb, D))
+    fr[:, ::3, 150:156] = 0.0            # unvoiced frames of lf0, vib
+    fr[:, 1::4, 231:237] = 0.0
+    t = lambda a, dt=torch.float64: torch.as_tensor(a, dtype=dt,
+                                                    device=cuda)
+    means = tuple(t(rng.standard_normal((R, st.sl.stop - st.sl.start)))
+                  for st in sts)
+    vars_ = tuple(t(rng.uniform(0.05, 3.0, (R, st.sl.stop - st.sl.start)))
+                  for st in sts)
+    msd_w = tuple(t(rng.uniform(0.0, 1.0, R)) for _ in sts)
+    rows = tuple(t(rng.integers(0, R, (B, Kb)), torch.long) for _ in sts)
+    args = hsmm.stream_args(sts)
+    kernels.reset_counts()
+    got = hsmm.batch_frame_loglik(t(fr), rows, means, vars_, msd_w, *args)
+    assert kernels.launches["hsmm_loglik"] == 1
+    want = hsmm.batch_frame_loglik_plain(t(fr), rows, means, vars_, msd_w,
+                                         *args)
+    assert ((got - want).abs() <= 1e-12 * (1 + want.abs())).all()
+
+
+@pytest.mark.parametrize("temper", [0.3, 1.0])
+def test_k18_kernel_matches_plain(cuda, temper):
+    ms, utts = chip_smoke.hsmm_tiny_corpus(hsmm, seed=18)
+    e = _estep_batch(cuda, utts, ms)
+    obs = hsmm.batch_frame_loglik(e["frames"], e["rows"], e["means"],
+                                  e["variances"], e["msd_w"], *e["args"])
+    ins = (obs, e["dm"], e["dv"], 20, temper, e["t_len"], e["k_len"])
+    kernels.reset_counts()
+    ll, g, d = hsmm.segment_fb(*ins)
+    assert kernels.launches["hsmm_fb"] == 1
+    ll0, g0, d0 = hsmm.segment_fb_plain(*ins)
+    assert ((ll - ll0).abs() <= 1e-9 * ll0.abs()).all()
+    assert (g - g0).abs().max() <= 1e-10
+    assert ((d - d0).abs() <= 1e-9 * d0.abs()).all()
+
+
+def test_k18_padded_equals_unpadded(cuda):
+    rng = np.random.default_rng(0)
+    T, S = 37, 6
+    obs = torch.as_tensor(rng.standard_normal((T, S)) * 2.0, device=cuda)
+    dm = torch.as_tensor(rng.uniform(3, 8, S), device=cuda)
+    dv = torch.as_tensor(rng.uniform(1, 4, S), device=cuda)
+    ll0, g0, d0 = hsmm.forward_backward_segment(obs, dm, dv, 20)
+    obsp = torch.as_tensor(rng.standard_normal((T + 13, S + 3)),
+                           device=cuda)
+    obsp[:T, :S] = obs
+    dmp = torch.cat([dm, torch.full((3,), 5.0, device=cuda,
+                                    dtype=torch.float64)])
+    dvp = torch.cat([dv, torch.ones(3, device=cuda, dtype=torch.float64)])
+    ll1, g1, d1 = hsmm.forward_backward_segment(obsp, dmp, dvp, 20,
+                                                t_len=T, k_len=S)
+    assert abs(float(ll0) - float(ll1)) < 1e-10
+    assert (g0 - g1[:T, :S]).abs().max() < 1e-12
+    assert (d0 - d1[:S]).abs().max() < 1e-10
+    assert g1[T:, :].abs().max() < 1e-12
+    assert d1[S:].abs().max() < 1e-12
+
+
+def test_k18_infeasible_chain(cuda):
+    """A chain longer than its frames has no path: both give LOG_ZERO-scale
+    evidence and the E-step drops it."""
+    rng = np.random.default_rng(1)
+    obs = torch.as_tensor(rng.standard_normal((1, 5, 8)), device=cuda)
+    dm = torch.full((1, 8), 3.0, dtype=torch.float64, device=cuda)
+    dv = torch.ones((1, 8), dtype=torch.float64, device=cuda)
+    n = torch.tensor([5], device=cuda)
+    k = torch.tensor([8], device=cuda)
+    ll = hsmm.segment_fb(obs, dm, dv, 10, 1.0, n, k)[0]
+    ll0 = hsmm.segment_fb_plain(obs, dm, dv, 10, 1.0, n, k)[0]
+    assert float(ll) <= hsmm.LOG_ZERO / 2 and float(ll0) <= hsmm.LOG_ZERO / 2
+
+
+def test_k19_bit_equal_to_cpu_and_deterministic(cuda):
+    rng = np.random.default_rng(19)
+    N, C, R = 3000, 301, 57
+    vals = torch.as_tensor(rng.standard_normal((N, C)) * 10.0 ** rng.uniform(
+        -3, 3, (N, 1)), device=cuda)
+    ids = torch.as_tensor(rng.integers(0, R, N), device=cuda)
+    kernels.reset_counts()
+    a = hsmm_batch.segment_sum(vals, ids, R)
+    b = hsmm_batch.segment_sum(vals, ids, R)
+    assert kernels.launches["hsmm_accumulate"] == 2
+    c = hsmm_batch.segment_sum_plain(vals.cpu(), ids.cpu(), R)
+    assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+
+
+def test_hsmm_em_matches_the_cpu_path(cuda):
+    ms, utts = chip_smoke.hsmm_tiny_corpus(hsmm, seed=5)
+    names = [st.name for st in ms.streams]
+    got, want = (hsmm.modelset_from_numpy(*ms.to_numpy()) for _ in range(2))
+    kernels.reset_counts()
+    hsmm_batch.reestimate_modelset_batched(got, utts, n_iters=2,
+                                           log=lambda m: None)
+    assert all(kernels.launches[k] > 0 for k in
+               ("hsmm_loglik", "hsmm_fb", "hsmm_accumulate"))
+    hsmm_batch.reestimate_modelset_batched(want, utts, n_iters=2,
+                                           log=lambda m: None, device="cpu")
+    for n in names:
+        assert np.abs(got.means[n] - want.means[n]).max() < 1e-8
+        assert np.abs(got.variances[n] - want.variances[n]).max() < 1e-8
+    for n in got.msd_weights:
+        assert np.abs(got.msd_weights[n] - want.msd_weights[n]).max() < 1e-8
+    assert np.abs(got.dur_mean - want.dur_mean).max() < 1e-8
+    assert np.abs(got.dur_var - want.dur_var).max() < 1e-8
+    for fr, seq in utts[:3]:
+        lg, eg = hsmm.align_utterance(got, fr, seq)
+        lc, ec = hsmm.align_utterance(got, fr, seq, device="cpu")
+        assert np.array_equal(eg, ec) and abs(lg - lc) <= 1e-9 * abs(lc)
+
+
+def test_hsmm_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros((2, 5, 10), dtype=torch.float64, device=cuda)
+    sts = chip_smoke.hsmm_tiny_corpus(hsmm)[0].streams
+    tabs = tuple(torch.ones((4, st.sl.stop - st.sl.start),
+                            dtype=torch.float64, device=cuda) for st in sts)
+    w = tuple(torch.full((4,), 0.5, dtype=torch.float64, device=cuda)
+              for _ in sts)
+    rows = tuple(torch.zeros((2, 3), dtype=torch.long, device=cuda)
+                 for _ in sts)
+    args = hsmm.stream_args(sts)
+    with pytest.raises(ValueError):
+        hsmm.batch_frame_loglik(x.float(), rows, tabs, tabs, w, *args)
+    with pytest.raises(ValueError):
+        hsmm.batch_frame_loglik(x, tuple(r.int() for r in rows), tabs, tabs,
+                                w, *args)
+    dm = torch.ones((2, 3), dtype=torch.float64, device=cuda)
+    n = torch.tensor([5, 5], device=cuda)
+    with pytest.raises(ValueError):
+        hsmm.segment_fb(x[..., :3].float(), dm, dm, 4, 1.0, n, n)
+    with pytest.raises(ValueError):
+        hsmm.segment_fb(x[..., :3], dm, dm, 4, 1.0, n.int(), n)
+    with pytest.raises(ValueError):
+        hsmm_batch.segment_sum(x[0].float(), n, 3)
