@@ -21,7 +21,12 @@ Drives the port's paths at full size on a corpus made from a seed:
 - the batched monophone HSMM Baum-Welch EM
   (`models.hsmm_batch.reestimate_modelset_batched`, float64): 128
   utterances of the WORLD cmp layout (D = 237), 40 models x 5 states,
-  max_dur 60, one iteration; and bench.py's 14-dim hsmm_em recipe.
+  max_dur 60, one iteration; and bench.py's 14-dim hsmm_em recipe;
+- the tied-model voice recipe (`models.recipe.train_voice` at
+  `RecipeConfig()`'s defaults: IN_RE, ERST0, CXCL, ERST2, UNTIE/CXCL2,
+  ERST4, FALGN, MCDGV; then `recipe.export`): 128 utterances of 16 phrase
+  templates over the same 40 models at D = 237, full contexts with notes
+  and positions, 143 questions.
 
 Phases (any failure raises):
 
@@ -59,7 +64,18 @@ Phases (any failure raises):
    the CPU path on a small corpus (accumulators, parameters after two
    iterations, Viterbi alignments), then frames per second, E-step stage
    times and one E-step under the profiler, for the lane and for bench.py's
-   recipe.
+   recipe;
+11. the recipe lane: one `train_voice` counted (K17-K20) with its stage
+   seconds (the host tree search apart from the card's E-steps), ERST2's
+   frames per second, FALGN's utterances per second, leaves and untied
+   rows, the exported voice's header, one tied BW iteration under the
+   profiler; its K20 launches (FALGN's padded batches, each also against
+   its shortest utterance alone) and its K19 launches on the untied
+   clone's tables replayed against the twins, K18 and K20 on a 9000-frame
+   utterance, K17 with a NaN in bap; and the card against the CPU path on
+   tests/test_recipe.py's corpus (the same trees as partitions, where two
+   trees name a split by different questions their gains within rounding
+   of each other, parameters, alignments and GV trees).
 
 Prints each measurement, the card's name and power limit, a `kernels`
 JSON line, and as the last line {"ok": true, "device": {...}}.  Exits
@@ -70,10 +86,14 @@ non-zero, printing no result, when no CUDA device is present.
 from __future__ import annotations
 
 import contextlib
+import copy
+import cProfile
 import json
 import os
+import pstats
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -105,6 +125,7 @@ REPLACES = {
     "hsmm_loglik": ("K17", "hts_train_world_tpu/models/hsmm.py:157"),
     "hsmm_fb": ("K18", "hts_train_world_tpu/models/hsmm.py:287"),
     "hsmm_accumulate": ("K19", "hts_train_world_tpu/models/hsmm_batch.py:227"),
+    "hsmm_viterbi": ("K20", "hts_train_world_tpu/models/hsmm.py:183"),
 }
 ANALYSIS = ("frame_window", "spectral_smooth", "topk_sum", "fix_f0",
             "dio_candidates")
@@ -121,9 +142,12 @@ PATHS = {
     "harvest_lane": HARVEST,
     "corpus500_harvest": HARVEST + ("codec_encode",),
     "hsmm_em": ("hsmm_loglik", "hsmm_fb", "hsmm_accumulate"),
+    "recipe": ("hsmm_loglik", "hsmm_fb", "hsmm_accumulate", "hsmm_viterbi"),
 }
 # the HSMM lane: RecipeConfig's defaults (models/recipe.py:45-47)
 HSMM_MODELS, HSMM_STATES, HSMM_MAX_DUR, HSMM_UTTS = 40, 5, 60, 128
+# the recipe lane: train_voice at RecipeConfig's defaults
+RECIPE_SEED, RECIPE_TEMPLATES, RECIPE_UTTS = 5, 16, 128
 
 
 def corpus(batch: int, n: int, seed: int = 0) -> np.ndarray:
@@ -264,6 +288,404 @@ def hsmm_tiny_corpus(hsmm, seed: int = 11):
     return hsmm.init_modelset(names, fbm, sts, n_states=3), utts
 
 
+def recipe_corpus(hsmm, seed: int = RECIPE_SEED,
+                  n_templates: int = RECIPE_TEMPLATES):
+    """The recipe lane's corpus at full width, in memory: `world_streams()`
+    (D = 237) and the HSMM lane's frame recipe over 40 models x 5 states
+    (model 0 "sil", unvoiced; ~30 % of the others unvoiced; per-state
+    durations N(mu, 1) >= 1, mu in [4, 14]; frames the state mean + 0.3
+    N(0, 1)), with a note offset of 0.2 per semitone on the voiced lf0
+    flag column so that the note questions carry signal.  `n_templates`
+    phrase templates of 8-24 labels between a leading and a trailing "sil",
+    each label with a note 0-11 and its position; 128 utterances, the
+    templates in turn, each with fresh durations and frames.  Labels are
+    full contexts {L}^{L}-{C}+{R}={R}@{pos}_x/E:{note}] ("x" past the
+    ends).  Returns (corpus, model names)."""
+    rng = np.random.default_rng(seed)
+    sts = hsmm.world_streams()
+    D = sts[-1].sl.stop
+    M, S = HSMM_MODELS, HSMM_STATES
+    names = ["sil"] + [f"m{i:02d}" for i in range(1, M)]
+    mu = rng.standard_normal((M, S, D))
+    dur = rng.uniform(4.0, 14.0, (M, S))
+    voiced = rng.random(M) >= 0.3
+    voiced[0] = False
+    msd_cols = [(st.sl, st.msd_flag_col) for st in sts if st.msd]
+    lf0_col = next(st.msd_flag_col for st in sts if st.name == "lf0")
+    templates = []
+    for _ in range(n_templates):
+        n = int(rng.integers(8, 25))
+        seq = [0] + [int(i) for i in rng.integers(1, M, n)] + [0]
+        notes = [int(v) for v in rng.integers(0, 12, len(seq))]
+        ph = ["x"] + [names[i] for i in seq] + ["x"]
+        ctx = [f"{ph[i]}^{ph[i]}-{ph[i + 1]}+{ph[i + 2]}={ph[i + 2]}@"
+               f"{i + 1}_x/E:{notes[i]}]" for i in range(len(seq))]
+        templates.append((seq, notes, ctx))
+    utts = []
+    for u in range(RECIPE_UTTS):
+        seq, notes, ctx = templates[u % n_templates]
+        fr = []
+        for mi, note in zip(seq, notes):
+            for s in range(S):
+                d = max(1, int(rng.normal(dur[mi, s], 1.0)))
+                f = mu[mi, s] + 0.3 * rng.standard_normal((d, D))
+                for sl, col in msd_cols:
+                    if voiced[mi]:
+                        f[:, col] = np.abs(f[:, col]) + 0.5
+                    else:
+                        f[:, sl] = 0.0
+                if voiced[mi]:
+                    f[:, lf0_col] += 0.2 * note
+                fr.append(f)
+        utts.append((np.concatenate(fr), list(ctx)))
+    return utts, names
+
+
+def recipe_questions(names):
+    """The lane's question config (qconf format): L-, C- and R-Phone_* for
+    every model and C-Note over 0-11, 3 x 40 + 23 = 143 questions."""
+    return "\n".join(
+        [f"L-Phone_{p} {{*^{p}-*}}" for p in names]
+        + [f"C-Phone_{p} {{*-{p}+*}}" for p in names]
+        + [f"R-Phone_{p} {{*+{p}=*}}" for p in names]
+        + ["C-Note {*/E:%d]*} MIN=0 MAX=11"])
+
+
+TINY_QUESTIONS = """C-Phone_a {*-a+*}
+C-Phone_b {*-b+*}
+C-Phone_c {*-c+*}
+C-Note {*/E:%d]*} MIN=0 MAX=7"""
+TINY_RECIPE = dict(n_states=3, n_iters=2, max_dur=40, mdl_factor=0.5,
+                   min_occupancy=0.5)
+
+
+def tiny_streams(hsmm):
+    """tests/test_hsmm.py's tiny 10-dim streams: mgc 4 | lf0 2 MSD | bap 2
+    weight 0 | vib 2 MSD."""
+    return (hsmm.StreamDef("mgc", slice(0, 4), False, 0, 1.0),
+            hsmm.StreamDef("lf0", slice(4, 6), True, 4, 1.0),
+            hsmm.StreamDef("bap", slice(6, 8), False, 6, 0.0),
+            hsmm.StreamDef("vib", slice(8, 10), True, 8, 1.0))
+
+
+def tree_partition(tree, ctxs):
+    """A tree as the partition it makes of `ctxs`: a leaf is the set of its
+    contexts, a split the unordered pair of its children.  Two questions
+    that split a node's contexts alike (two contexts that differ only in
+    the note: C-Note==3, ==4 and <=3) have equal gains in exact arithmetic,
+    and the last bits of the statistics pick one (`split_margins` measures
+    by how much).  The partition is the model on these contexts; an unseen
+    context (note 5) can take the other branch under the other question,
+    so two such trees export voices that differ there."""
+    def walk(n, cs):
+        if n.question is None:
+            return ("leaf", frozenset(cs))
+        yes = [c for c in cs if n.question.matches(c)]
+        no = [c for c in cs if not n.question.matches(c)]
+        return ("split", frozenset([walk(n.yes, yes), walk(n.no, no)]))
+    return walk(tree.root, list(ctxs))
+
+
+ROUNDING_GAP = 1.0     # |gain difference| / `SplitGains.rounding`
+
+
+@contextlib.contextmanager
+def recording_trees(clustering):
+    """While open, every tree that `clustering.cluster_states` returns is
+    kept with the arguments that built it: {id(tree): (tree, args, kw)}
+    (the module's other functions call it through the module, so this
+    sees the recipe's trees)."""
+    built, inner = {}, clustering.cluster_states
+
+    def cluster_states(*args, **kw):
+        tree = inner(*args, **kw)
+        built[id(tree)] = (tree, args, kw)
+        return tree
+    clustering.cluster_states = cluster_states
+    try:
+        yield built
+    finally:
+        clustering.cluster_states = inner
+
+
+def _tree_args(stats_by_context, questions, mdl_factor=1.0,
+               min_occupancy=1.0, var_floor=1e-8, msd_by_context=None,
+               dim=0):
+    return stats_by_context, var_floor, msd_by_context, dim
+
+
+class SplitGains:
+    """The gains `cluster_states` computes at a tree's nodes, in its own
+    arithmetic and order (the root sums its contexts; a node's yes-branch
+    sums its yes-contexts in node order, its no-branch is the node minus
+    the yes-branch), from the statistics that built the tree."""
+
+    def __init__(self, clustering, args, kw):
+        stats, self.floor, msd, dim = _tree_args(*args, **kw)
+        S = self.S = clustering.SuffStats
+        self.cl = clustering
+
+        def conv(d):
+            return {c: S(float(v.gamma), np.asarray(v.s1, float),
+                         np.asarray(v.s2, float)) for c, v in d.items()}
+        self.st = conv(stats)
+        self.msd = conv(msd) if msd is not None else None
+        ctxs = (sorted(set(self.st) | set(self.msd)) if msd is not None
+                else list(self.st))
+        some = next(iter(self.st.values()), None)
+        D = len(some.s1) if some is not None else max(dim, 1)
+        self.zero = S(0.0, np.zeros(D), np.zeros(D))
+        self.mzero = S(0.0, np.zeros(1), np.zeros(1))
+        total, mtotal = self.zero, self.mzero
+        for c in ctxs:
+            total = total + self.g(c)
+            mtotal = mtotal + self.m(c)
+        self.root = (ctxs, total, mtotal)
+
+    def g(self, c):
+        return self.st.get(c, self.zero)
+
+    def m(self, c):
+        return self.mzero if self.msd is None else self.msd.get(c,
+                                                                self.mzero)
+
+    def ll(self, s, m):
+        v = self.cl._loglik(s, self.floor)
+        if self.msd is not None:
+            v += self.cl._bern_loglik(m)
+        return v
+
+    def rounding(self, node, parts):
+        """An estimate of the rounding in a gain at `node` whose terms are
+        `parts` ((stats, mstats) of the yes-branch, the no-branch and the
+        node): a term's log-likelihood moves by 0.5 / var per unit of its
+        second-moment sum and by |mean| / var per unit of its first, and
+        each sum carries an error of eps x the node's sums, which the
+        no-branch's subtraction and the variance's s2 / n - mean^2 leave
+        in place (the Bernoulli terms' share is below it and not counted)."""
+        _, stats, _ = node
+        eps = float(np.finfo(np.float64).eps)
+        s1, s2 = np.abs(stats.s1), np.abs(stats.s2)
+        err = 0.0
+        for st, _ in parts:
+            if st.gamma <= 0:
+                continue
+            v = st.var(self.floor)
+            err += float(np.sum((0.5 * s2 + np.abs(st.mean) * s1) / v))
+        return eps * err
+
+    def split(self, node, q):
+        """(gain, the rounding estimate of `rounding`, yes node, no
+        node)."""
+        ctxs, stats, mstats = node
+        yes = [c for c in ctxs if q.matches(c)]
+        sy, my = self.zero, self.mzero
+        for c in yes:
+            sy = sy + self.g(c)
+            my = my + self.m(c)
+        S = self.S
+        sn = S(stats.gamma - sy.gamma, stats.s1 - sy.s1, stats.s2 - sy.s2)
+        mn = S(mstats.gamma - my.gamma, mstats.s1 - my.s1,
+               mstats.s2 - my.s2)
+        base, ly, ln = self.ll(stats, mstats), self.ll(sy, my), self.ll(sn,
+                                                                        mn)
+        yes_set = set(yes)
+        return (ly + ln - base,
+                self.rounding(node, ((sy, my), (sn, mn), (stats, mstats))),
+                (yes, sy, my), ([c for c in ctxs if c not in yes_set], sn,
+                                mn))
+
+
+def split_margins(clustering, x, built_x, y, built_y):
+    """Where trees x and y make the same partition but name a split by
+    different questions: each such node's gains of both questions, under
+    x's statistics and under y's, as `cluster_states` computes them;
+    `gap`, the larger |gain difference| over the two gains' rounding
+    estimates (`SplitGains.rounding`), and `gap_of_gain`, over the gain.
+    Questions that split a node alike have equal gains in exact
+    arithmetic, so their difference is rounding and `gap` <= 1; a node
+    whose splits differ gets gap inf."""
+    gx = SplitGains(clustering, *built_x[id(x)][1:])
+    gy = SplitGains(clustering, *built_y[id(y)][1:])
+    out = []
+
+    def walk(nx, ny, cx, cy):
+        if nx.question is None or ny.question is None:
+            if (nx.question is None) != (ny.question is None):
+                out.append(dict(node=len(cx[0]), gap=float("inf")))
+            return
+        qx, qy = nx.question, ny.question
+        g_xx, e_xx, yes_x, no_x = gx.split(cx, qx)
+        g_yy, e_yy, yes_y, no_y = gy.split(cy, qy)
+        if qx.name != qy.name:
+            (g_xy, e_xy), (g_yx, e_yx) = (gx.split(cx, qy)[:2],
+                                          gy.split(cy, qx)[:2])
+            out.append(dict(
+                node=len(cx[0]), questions=(qx.name, qy.name),
+                gains_x=(g_xx, g_xy), gains_y=(g_yx, g_yy),
+                gap=max(abs(g_xx - g_xy) / (e_xx + e_xy),
+                        abs(g_yx - g_yy) / (e_yx + e_yy)),
+                gap_of_gain=max(abs(g_xx - g_xy), abs(g_yx - g_yy))
+                / max(abs(g_xx), abs(g_yy))))
+        if set(yes_x[0]) == set(yes_y[0]):
+            walk(nx.yes, ny.yes, yes_x, yes_y)
+            walk(nx.no, ny.no, no_x, no_y)
+        elif set(yes_x[0]) == set(no_y[0]):
+            walk(nx.yes, ny.no, yes_x, no_y)
+            walk(nx.no, ny.yes, no_x, yes_y)
+        else:
+            out.append(dict(node=len(cx[0]), questions=(qx.name, qy.name),
+                            gap=float("inf")))
+    walk(x.root, y.root, gx.root, gy.root)
+    return out
+
+
+def compare_voices(a, b, corpus, clustering, built_a, built_b):
+    """Two RecipeStates of one corpus: (passed, text).  Every tree (stream,
+    duration, GV) makes the same partition of its contexts, and where two
+    trees name a split by different questions, the questions' gains differ
+    by rounding alone (`split_margins` on the statistics that built each
+    tree, from `recording_trees`: gap <= ROUNDING_GAP); per context and
+    state the parameters agree within 1e-8 of max(1, |value|) (an MSD
+    stream's voiced-space Gaussian only where its weight is above the 1e-3
+    floor: below it no voiced frame was fitted and its statistics are a
+    subtraction residual), msd weights within 1e-8; alignments equal."""
+    ctxs = sorted({c for _, seq in corpus for c in seq})
+    firsts = sorted({seq[0] for _, seq in corpus})
+    ma, mb = a.clustered, b.clustered
+    pairs = [(ma.trees[st.name][s], mb.trees[st.name][s], ctxs)
+             for st in ma.streams for s in range(ma.n_states)]
+    pairs.append((ma.dur_tree, mb.dur_tree, ctxs))
+    pairs += [(a.gv.trees[n], b.gv.trees[n], firsts) for n in a.gv.trees]
+    same_trees = a.gv.trees.keys() == b.gv.trees.keys() and all(
+        tree_partition(x, c) == tree_partition(y, c) for x, y, c in pairs)
+    named = sum(x.to_plain()[0] != y.to_plain()[0] for x, y, _ in pairs)
+    margins = [m for x, y, _ in pairs if x.to_plain()[0] != y.to_plain()[0]
+               for m in split_margins(clustering, x, built_a, y, built_b)]
+    gap = max((m["gap"] for m in margins), default=0.0)
+    leaves = sum(x.n_leaves for x, _, _ in pairs)
+    d_par = d_w = 0.0
+    for c in ctxs:
+        for s in range(ma.n_states):
+            pa, pb = ma.state_params(c, s), mb.state_params(c, s)
+            for n in pa:
+                d_w = max(d_w, abs(float(pa[n][2]) - float(pb[n][2])))
+                if float(pa[n][2]) <= 1e-3:
+                    continue
+                for x, y in zip(pa[n][:2], pb[n][:2]):
+                    d_par = max(d_par, float(np.abs(x - y).max()
+                                             / max(1.0, np.abs(x).max())))
+        for x, y in zip(ma.durations(c), mb.durations(c)):
+            d_par = max(d_par, float(np.abs(x - y).max()
+                                     / max(1.0, np.abs(x).max())))
+    for c in firsts:
+        for n in a.gv.trees:
+            for x, y in zip(a.gv.params(n, c), b.gv.params(n, c)):
+                if x.size:
+                    d_par = max(d_par, float(np.abs(x - y).max()
+                                             / max(1.0, np.abs(x).max())))
+    same_align = a.alignments.keys() == b.alignments.keys() and all(
+        np.array_equal(a.alignments[k], b.alignments[k])
+        for k in a.alignments)
+    ok = (same_trees and gap <= ROUNDING_GAP and d_par <= 1e-8
+          and d_w <= 1e-8 and same_align)
+    flips = "; ".join(
+        f"{m['questions'][0]} / {m['questions'][1]} at {m['node']} contexts:"
+        f" gains {m['gains_x'][0]!r}, {m['gains_x'][1]!r} (first's stats) "
+        f"and {m['gains_y'][0]!r}, {m['gains_y'][1]!r} (second's), gap "
+        f"{m['gap']:.2e} of the rounding estimate, "
+        f"{m['gap_of_gain']:.2e} of the gain"
+        if "gains_x" in m else f"a split at {m['node']} contexts differs"
+        for m in margins)
+    return ok, (f"trees (stream, duration, GV) make the same partitions: "
+                f"{same_trees} ({len(pairs)} trees, {leaves} leaves; "
+                f"{named} name a split by another question: {len(margins)} "
+                f"nodes, largest gap {gap:.2e} of the rounding estimate "
+                f"(<= {ROUNDING_GAP})"
+                f"{': ' + flips if flips else ''}); parameters max |d| / "
+                f"max(1, |value|) "
+                f"{d_par:.2e} (<= 1e-8), msd weights {d_w:.2e} (<= 1e-8); "
+                f"alignments equal: {same_align} ({len(a.alignments)} "
+                f"utterances)")
+
+
+def k18_long_inputs(dev, T: int = 9000, K: int = 200, seed: int = 18):
+    """One utterance past the shared-memory rows of K18 and K20 (3 (T+1) +
+    max_dur > 25600 doubles): obs_ll (1, T, K) of -3 |N(0, 1)| - 1 per
+    frame, duration means 35-55 (so that K states of at most max_dur 60
+    frames can cover T: a feasible chain), max_dur 60 (the recipe's)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    t = lambda a, dt=torch.float64: torch.as_tensor(a, dtype=dt, device=dev)
+    obs = -3.0 * np.abs(rng.standard_normal((1, T, K))) - 1.0
+    return dict(obs_ll=t(obs), dur_mean=t(rng.uniform(35, 55, (1, K))),
+                dur_var=t(rng.uniform(20, 80, (1, K))), max_dur=60,
+                t_len=t([T], torch.long), k_len=t([K], torch.long))
+
+
+def nan_bap_inputs(hsmm, dev, seed: int = 17):
+    """K17's inputs at the WORLD width with a NaN in one frame's bap
+    columns (the weight-0 stream): that frame's log-likelihoods must come
+    out NaN, as in the JAX package."""
+    import torch
+    rng = np.random.default_rng(seed)
+    sts = hsmm.world_streams()
+    B, Tb, Kb, R, D = 2, 24, 9, 12, 237
+    fr = rng.standard_normal((B, Tb, D))
+    fr[:, ::3, 150:156] = 0.0
+    bap = next(st for st in sts if st.name == "bap")
+    fr[1, 5, bap.sl.start + 7] = np.nan
+    t = lambda a, dt=torch.float64: torch.as_tensor(a, dtype=dt, device=dev)
+    sls, flags, wts = hsmm.stream_args(sts)
+    return dict(
+        frames=t(fr),
+        rows=tuple(t(rng.integers(0, R, (B, Kb)), torch.long) for _ in sts),
+        means=tuple(t(rng.standard_normal((R, b - a))) for a, b in sls),
+        variances=tuple(t(rng.uniform(0.05, 3.0, (R, b - a)))
+                        for a, b in sls),
+        msd_w=tuple(t(rng.uniform(0.0, 1.0, R)) for _ in sts),
+        stream_slices=sls, msd_flags=flags, weights_static=wts)
+
+
+def recipe_tiny_corpus(seed: int = 2):
+    """tests/test_recipe.py's corpus in numpy alone (the generator of
+    tests/test_hsmm.py:18-47): phones a, b, c over the tiny 10-dim streams,
+    3 states each with means 3 N(0, 1) and durations 3-8 frames from seed
+    0, b unvoiced and c's middle state unvoiced; six utterances of four
+    labels x^x-{p}+x=x/E:{3 + i % 2}] from `seed`, and each utterance's
+    phone end frames as bootstrap spans."""
+    rng0 = np.random.default_rng(0)
+    means = {i: rng0.standard_normal((3, 10)) * 3.0 for i in range(3)}
+    durs = {i: rng0.integers(3, 9, 3).astype(float) for i in range(3)}
+    voiced = {0: [True, True, True], 1: [False, False, False],
+              2: [True, False, True]}
+    names = ["a", "b", "c"]
+    rng = np.random.default_rng(seed)
+    utts, spans = [], {}
+    for ui in range(6):
+        seq = [names[i] for i in rng.integers(0, 3, 4)]
+        fr, bounds, t = [], [], 0
+        for name in seq:
+            mi = names.index(name)
+            for s in range(3):
+                d = max(1, int(rng.normal(durs[mi][s], 1)))
+                f = means[mi][s][None] + 0.3 * rng.standard_normal((d, 10))
+                if voiced[mi][s]:
+                    f[:, 4] = np.abs(f[:, 4]) + 0.5
+                    f[:, 8] = np.abs(f[:, 8]) + 0.5
+                else:
+                    f[:, 4:6] = 0.0
+                    f[:, 8:10] = 0.0
+                fr.append(f)
+                t += d
+                bounds.append(t)
+        utts.append((np.concatenate(fr),
+                     [f"x^x-{p}+x=x/E:{3 + i % 2}]" for i, p in
+                      enumerate(seq)]))
+        spans[ui] = np.asarray(bounds)[2::3]
+    return utts, spans
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -274,7 +696,10 @@ def main() -> int:
     from hts_train_world_tpu_torch import kernels
     from hts_train_world_tpu_torch.features import decode, encode
     from hts_train_world_tpu_torch.features import windows as win_mod
-    from hts_train_world_tpu_torch.models import hsmm, hsmm_batch
+    from hts_train_world_tpu_torch.features import qconf
+    from hts_train_world_tpu_torch.models import clustering, hsmm, hsmm_batch
+    from hts_train_world_tpu_torch.models import context_clustered, recipe
+    from hts_train_world_tpu_torch.models import voice
     from hts_train_world_tpu_torch.ops import codec
     from hts_train_world_tpu_torch.ops import dio as dio_mod
     from hts_train_world_tpu_torch.ops import fftmat, frames
@@ -472,6 +897,8 @@ def main() -> int:
         "hsmm_fb": (hsmm.segment_fb, hsmm.segment_fb_plain),
         "hsmm_accumulate": (hsmm_batch.segment_sum,
                             hsmm_batch.segment_sum_plain),
+        "hsmm_viterbi": (hsmm.viterbi_segment_batch,
+                         hsmm.viterbi_segment_batch_plain),
     }
 
     def nbytes(*ts):
@@ -544,21 +971,18 @@ def main() -> int:
             h = hv.pair_integers(c[ub, tt, cc], tt, inp["fs8"], B_dft)[0]
             t_o = 48.0 * float((2 * h + 1).sum()) / F32_OPS_PER_S
         elif name == "hsmm_loglik":
-            # the weighted streams: per (b, t, k, column) a subtract, a
-            # square and a multiply-add; per stream ~8 more
+            # every stream (bap's weight 0 too): per (b, t, k, column) a
+            # subtract, a square and a multiply-add; per stream ~8 more
             fr = inp["frames"]
             B_, Tb, _ = fr.shape
             Kb = inp["rows"][0].shape[1]
-            live = [i for i, w in enumerate(inp["weights_static"])
-                    if w != 0.0]
-            cols = sum(inp["stream_slices"][i][1] - inp["stream_slices"][i][0]
-                       for i in live)
+            n_s = len(inp["stream_slices"])
+            cols = sum(b - a for a, b in inp["stream_slices"])
             moved = nbytes(fr, *outs) + sum(
                 nbytes(inp["rows"][i], inp["means"][i], inp["variances"][i])
                 + (nbytes(inp["msd_w"][i]) if inp["msd_flags"][i] else 0)
-                for i in live)
-            t_o = B_ * Tb * Kb * (3.0 * cols + 8.0 * len(live)) \
-                / F64_OPS_PER_S
+                for i in range(n_s))
+            t_o = B_ * Tb * Kb * (3.0 * cols + 8.0 * n_s) / F64_OPS_PER_S
         elif name == "hsmm_fb":
             # ~20 float64 operations (three exp counted as one each) per
             # valid (state, t0, d) term of this run's t_len / k_len
@@ -570,6 +994,12 @@ def main() -> int:
             t_o = 20.0 * terms / F64_OPS_PER_S
         elif name == "hsmm_accumulate":
             t_o = float(inp["vals"].numel()) / F64_OPS_PER_S
+        elif name == "hsmm_viterbi":
+            # ~4 float64 operations per (state, t, d) term of this run's
+            # t_len / k_len
+            terms = sum(k * (t + 1) * inp["max_dur"] for t, k in zip(
+                inp["t_len"].tolist(), inp["k_len"].tolist()))
+            t_o = 4.0 * terms / F64_OPS_PER_S
         t_b = moved / HBM_BYTES_PER_S
         return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
@@ -634,10 +1064,9 @@ def main() -> int:
                                         2, bins)
         if name == "hsmm_loglik":
             # one bmm of the expanded quadratic form [x^2, x, 1] . [1/v;
-            # -2 mu/v; sum mu^2/v + sum log v] over the weighted streams
-            # (no MSD switch, no -0.5, no weights)
-            live = [i for i, w in enumerate(inp["weights_static"])
-                    if w != 0.0]
+            # -2 mu/v; sum mu^2/v + sum log v] over every stream (no MSD
+            # switch, no -0.5, no weights)
+            live = range(len(inp["stream_slices"]))
             fr = inp["frames"]
             xs = torch.cat([fr[..., a:e] for i, (a, e)
                             in enumerate(inp["stream_slices"]) if i in live],
@@ -650,6 +1079,14 @@ def main() -> int:
             W = torch.cat(iv + [-2.0 * m * v for m, v in zip(mu, iv)]
                           + [c[..., None]], -1).transpose(1, 2).contiguous()
             return lambda: torch.bmm(A, W)
+        if name == "hsmm_viterbi":
+            # the twin's per-state max/argmax over the (T+1, max_dur)
+            # candidates, as one torch.max over every state's slab of every
+            # utterance of the batch (the slabs made here, not timed)
+            n = int((inp["k_len"] * (inp["t_len"] + 1)).sum())
+            cand = torch.randn((n, inp["max_dur"]), dtype=torch.float64,
+                               device=dev)
+            return lambda: torch.max(cand, dim=1)
         if name == "hsmm_accumulate":
             v, ids = inp["vals"], inp["ids"]
             return lambda: torch.zeros((inp["n_rows"], v.shape[1]),
@@ -854,15 +1291,55 @@ def main() -> int:
                 f"dstats {pad[2]:.1e} < 1e-10, padding {pad[3]:.1e} / "
                 f"{pad[4]:.1e} < 1e-12")
 
+    def check_k20(inp, out_k, out_p):
+        """Against the twin on the CPU (its prefix sums in the kernel's
+        sequential order; the card twin's torch.cumsum adds in another,
+        which the ~1e11 prefix sums behind a variance-floored leaf feel):
+        ends equal, best_ll within 1e-9 relative; padded against unpadded
+        bit for bit on the batch's shortest utterance."""
+        (lk, ek), (lp, ep) = out_k, out_p
+        lc, ec = hsmm.viterbi_segment_batch_plain(**on_cpu(inp))
+        same = torch.equal(ek.cpu(), ec)
+        r_ll = float(((lk.cpu() - lc).abs() / lc.abs()).max())
+        tl, kl = inp["t_len"], inp["k_len"]
+        b = int(torch.argmin(tl))
+        T_, S_ = int(tl[b]), int(kl[b])
+        l1, e1 = hsmm.viterbi_segment(
+            inp["obs_ll"][b, :T_, :S_].contiguous(),
+            inp["dur_mean"][b, :S_].contiguous(),
+            inp["dur_var"][b, :S_].contiguous(), inp["max_dur"])
+        pad = bool(float(l1) == float(lk[b])
+                   and torch.equal(e1, ek[b, :S_])
+                   and not bool(ek[b, S_:].any()))
+        card = (torch.equal(ek, ep),
+                float(((lk - lp).abs() / lp.abs()).max()))
+        return (same and r_ll <= 1e-9 and pad, float((lk.cpu() - lc).abs()
+                                                     .max()),
+                f"vs the CPU twin: ends equal {same}, best_ll rel "
+                f"{r_ll:.2e} <= 1e-9; padded vs unpadded (utterance {b}: T "
+                f"{T_}, K {S_} in {tuple(inp['obs_ll'].shape[1:])}) bit-"
+                f"equal: {pad}; vs the card twin: ends equal {card[0]}, "
+                f"best_ll rel {card[1]:.2e}")
+
     def check(name, inp, out_k, out_p):
         """(passed, max abs err against the reference, what was held and
         what was read)."""
         if name == "hsmm_loglik":
+            # non-finite frames (a NaN in bap, weight 0) are NaN in both
             k, p = out_k[0], out_p[0]
-            err = (k - p).abs()
-            worst = float((err / (1.0 + p.abs())).max())
-            return (worst <= 1e-12, float(err.max()),
-                    f"|err| <= 1e-12 (1 + |ll|): worst {worst:.2e}")
+            fin = torch.isfinite(p)
+            same_nan = torch.equal(torch.isnan(k), torch.isnan(p))
+            bad = ~torch.isfinite(inp["frames"]).all(-1)       # (B, T)
+            nan_rows = bool(torch.isnan(k[bad]).all()) if bad.any() else True
+            err = (k - p).abs()[fin]
+            worst = float((err / (1.0 + p.abs()[fin])).max())
+            return (worst <= 1e-12 and same_nan and nan_rows,
+                    float(err.max()),
+                    f"|err| <= 1e-12 (1 + |ll|): worst {worst:.2e}; NaN "
+                    f"where the twin's: {same_nan}; {int(bad.sum())} "
+                    f"frames with a non-finite column all NaN: {nan_rows}")
+        if name == "hsmm_viterbi":
+            return check_k20(inp, out_k, out_p)
         if name == "hsmm_fb":
             return check_k18(inp, out_k, out_p)
         if name == "hsmm_accumulate":
@@ -964,7 +1441,7 @@ def main() -> int:
     summary = {}
     heavy = ("fix_f0", "mlpg_solve", "dio_candidates", "harvest_candidates",
              "harvest_refine", "harvest_contour", "hsmm_loglik",
-             "hsmm_fb")  # slow plain twins
+             "hsmm_fb", "hsmm_viterbi")  # slow plain twins
     replays = ([("copy_synth", n, i) for n, i in rec_cs]
                + [("feature_lane", n, i) for n, i in rec_fl]
                + [("synth_lane", n, i) for n, i in rec_sl]
@@ -1052,6 +1529,7 @@ def main() -> int:
                     plan_h["y_length"])
     T1 = cfg.samples_for_dio(FS, L, 1.0)
     R, H, Hd = BATCH * T, half + 1, fft_d // 2 + 1
+    n_ap = cfg.number_of_aperiodicities(FS)
     P = pulse_bucket[0]
     print("plain-stage bounds (B=16 x 2.0 s @ 48 kHz): "
           # y in, the 152 band spectra, the filtered rows out; a real FFT
@@ -1082,7 +1560,12 @@ def main() -> int:
           # two passes of six harmonic bins of four spectra a frame, f0 in
           # and out; ~15 operations a bin
           + f"; StoneMask IF readout ({R} frames x 2 x 6 bins x 4 spectra) "
-          + stage_bound(4 * R * 2 * 6 * 4 + 8 * R, 2 * 6 * 15.0 * R),
+          + stage_bound(4 * R * 2 * 6 * 4 + 8 * R, 2 * 6 * 15.0 * R)
+          # WORLD's coarse-band bap decode (ops/codec.py:150-165): the
+          # n_ap bands in, the (R, H) aperiodicity out; a gather-lerp and
+          # 10 ** (x / 20) (~15 operations) a bin
+          + f"; coarse-band bap decode ({R}, {n_ap}) -> ({R}, {H}) "
+          + stage_bound(4 * R * n_ap + 4 * R * H, 15.0 * R * H),
           flush=True)
 
     # ---- 4. the card against the CPU (plain) path, small input ----
@@ -1507,12 +1990,174 @@ def main() -> int:
     em_lane("HSMM bench.py recipe (D 14, 128 utts, max_dur 40, max_batch "
             "128)", ms_b, utts_b, 40, 128)
 
+    # ---- 11. the tied-model voice recipe (train_voice) at full width ----
+    utts_r, names_r = recipe_corpus(hsmm)
+    questions_r = clustering.questions_from_config(
+        qconf.parse_config(recipe_questions(names_r)))
+    ctxs_r = sorted({c for _, seq in utts_r for c in seq})
+    Ts = [len(f) for f, _ in utts_r]
+    n_frames_r = sum(Ts)
+    print(f"recipe corpus: {len(utts_r)} utterances from {RECIPE_TEMPLATES} "
+          f"templates, {n_frames_r} frames (T {min(Ts)}-{max(Ts)}), "
+          f"{min(len(q) for _, q in utts_r)}-{max(len(q) for _, q in utts_r)}"
+          f" labels, {len(ctxs_r)} distinct contexts, {len(questions_r)} "
+          f"questions, D {utts_r[0][0].shape[1]}; RecipeConfig() defaults",
+          flush=True)
+
+    class Keep(list):
+        """The recipe's launches worth replaying: every K20 launch and the
+        K19 launches on the untied clone's tables (>= 1000 rows)."""
+        def append(self, item):
+            name, inp = item
+            if name == "hsmm_viterbi" or (name == "hsmm_accumulate"
+                                          and inp["n_rows"] >= 1000
+                                          and len(self) < 400):
+                super().append(item)
+
+    logs_r = []
+    sync()
+    kernels.reset_counts()
+    kernels.record = Keep()
+    t0 = time.perf_counter()
+    st_r = recipe.train_voice(utts_r, questions_r, recipe.RecipeConfig(),
+                              log=logs_r.append)
+    sync()
+    wall_r = time.perf_counter() - t0
+    counts_rc = dict(kernels.launches)
+    rec_rc, kernels.record = kernels.record, None
+    print("launches on recipe:", counts_rc, flush=True)
+    missing = [k for k in PATHS["recipe"] if counts_rc.get(k, 0) == 0]
+    if missing:
+        raise RuntimeError(f"kernels not launched on recipe: {missing}")
+    secs = st_r.stage_seconds
+    trees_s = secs["CXCL trees"] + secs["CXCL2 trees"] + secs["MCDGV"]
+    print(f"recipe: {wall_r:.2f} s wall; stage seconds: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in secs.items())
+        + f"; host tree search (CXCL, CXCL2, MCDGV) {trees_s:.2f} s = "
+        f"{100 * trees_s / wall_r:.1f}% of the run", flush=True)
+    cm = st_r.clustered
+    n_aligned = len(st_r.alignments)
+    erst2_fps = n_frames_r / secs["ERST2"]
+    print(f"recipe: ERST2 (one tied BW iteration) {erst2_fps:.1f} frames/s; "
+          f"FALGN {len(utts_r) / secs['FALGN']:.1f} "
+          f"utterances/s; aligned {n_aligned} of {len(utts_r)}; untied rows "
+          f"per stream {len(ctxs_r) * cm.n_states} ({len(ctxs_r)} contexts x "
+          f"{cm.n_states}); leaves per stream and state: " + "; ".join(
+              f"{st.name} {[t.n_leaves for t in cm.trees[st.name]]}"
+              for st in cm.streams)
+          + f"; duration {cm.dur_tree.n_leaves}; GV " + ", ".join(
+              f"{n} {t.n_leaves}" for n, t in st_r.gv.trees.items())
+          + "; " + "; ".join(m for m in logs_r if "BW iter" in m),
+          flush=True)
+    bad = [f"{st.name}/{s}" for st in cm.streams for s in range(cm.n_states)
+           for m, v in cm.trees[st.name][s].leaf_params
+           if not (np.isfinite(m).all() and np.isfinite(v).all()
+                   and (v > 0).all())]
+    ends_ok = all(e[-1] == len(utts_r[u][0]) and (np.diff(e) >= 1).all()
+                  and e[0] >= 1 for u, e in st_r.alignments.items())
+    with tempfile.TemporaryDirectory() as tmp:
+        path_v = os.path.join(tmp, "lane.htsvoice")
+        recipe.export(st_r, path_v, 48000, 240, recipe.RecipeConfig())
+        hdr = voice.read_htsvoice_header(path_v)
+        size_v = os.path.getsize(path_v)
+    print(f"recipe: exported {size_v} bytes; header NUM_STATES "
+          f"{hdr['NUM_STATES']}, STREAM_TYPE {hdr['STREAM_TYPE']}, USE_GV "
+          + ",".join(hdr[f"USE_GV[{t}]"] for t in
+                     hdr["STREAM_TYPE"].split(","))
+          + f"; non-finite or non-positive leaves: {bad or 'none'}; "
+          f"alignments monotone and ending at T: {ends_ok}", flush=True)
+    if (bad or not ends_ok or n_aligned != len(utts_r)
+            or hdr["NUM_STATES"] != "5" or hdr["STREAM_TYPE"]
+            != "MGC,LF0,BAP,VIB" or "GV_PDF[MGC]" not in hdr):
+        raise RuntimeError("recipe lane: bad leaves, alignments or voice")
+
+    # where the host tree search's time goes: one mgc tree (state 0) from
+    # hard counts under the final model's alignments, under cProfile
+    stats_h = context_clustered.collect_context_stats_tied(cm, utts_r,
+                                                           HSMM_MAX_DUR)
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    tree_h = clustering.cluster_states(stats_h[0]["mgc"][0], questions_r)
+    prof.disable()
+    dt = time.perf_counter() - t0
+    own = pstats.Stats(prof).stats            # (file, line, fn) -> times
+    total = sum(v[2] for v in own.values())
+    top = sorted(own.items(), key=lambda kv: kv[1][2], reverse=True)[:4]
+    print(f"recipe: one mgc tree ({len(stats_h[0]['mgc'][0])} contexts, "
+          f"{tree_h.n_leaves} leaves) under cProfile: {dt:.2f} s; own time "
+          + ", ".join(f"{os.path.basename(k[0])}:{k[1]}({k[2]}) "
+                      f"{100 * v[2] / total:.0f}%" for k, v in top),
+          flush=True)
+    del stats_h, prof, own
+
+    # a tied BW iteration (ERST2's work) on a copy of the final model,
+    # under the profiler: the device's busy share
+    tied = copy.deepcopy(cm)
+    wall, busy, evs = profiled(lambda: hsmm_batch.reestimate_clustered_batched(
+        tied, utts_r, n_iters=1, max_dur=HSMM_MAX_DUR, log=lambda m: None))
+    by_kind = {}
+    for ev in evs:
+        k = ev.key.lower()
+        g = next((n for n in PATHS["recipe"] if n in k),
+                 "gemm" if "gemm" in k else "other")
+        by_kind.setdefault(g, [0.0, 0])
+        by_kind[g][0] += dev_us(ev) / 1e3
+        by_kind[g][1] += ev.count
+    print(f"recipe: one tied BW iteration under the profiler: wall "
+          f"{1e3 * wall:.1f} ms, device busy {1e3 * busy:.1f} ms "
+          f"({100 * busy / wall:.0f}%, idle {100 - 100 * busy / wall:.0f}%);"
+          f" by kind: " + ", ".join(f"{g} {v:.2f} ms in {n}"
+                                    for g, (v, n) in by_kind.items()),
+          flush=True)
+    del tied
+
+    # phase 3 for the recipe: K20's launches (FALGN's padded batches, each
+    # also against its shortest utterance alone) and the untied K19's, K18
+    # and K20 past the shared-memory rows (T 9000), K17 with a NaN in bap
+    vit = [i for n, i in rec_rc if n == "hsmm_viterbi"]
+    acc = [i for n, i in rec_rc if n == "hsmm_accumulate"]
+    print(f"recipe replays: {len(vit)} K20 launches (batches of "
+          f"{sorted(len(i['t_len']) for i in vit)} utterances), {len(acc)} "
+          f"K19 launches at {sorted({i['n_rows'] for i in acc})} rows",
+          flush=True)
+    for inp in vit:
+        replay("recipe", "hsmm_viterbi", inp)
+    for inp in acc[:4]:
+        replay("recipe", "hsmm_accumulate", inp)
+    long18 = k18_long_inputs(dev)
+    replay("recipe_long", "hsmm_fb", dict(long18, temper=1.0))
+    long20 = dict(long18)
+    long20.pop("max_dur")
+    replay("recipe_long", "hsmm_viterbi", dict(long20, max_dur=HSMM_MAX_DUR))
+    replay("recipe_nan", "hsmm_loglik", nan_bap_inputs(hsmm, dev))
+    del rec_rc, vit, acc, long18, long20
+    torch.cuda.empty_cache()
+
+    # phase 4 for the recipe: the card against the CPU path on
+    # tests/test_recipe.py's corpus
+    utts_t, spans_t = recipe_tiny_corpus()
+    qs_t = clustering.questions_from_config(qconf.parse_config(TINY_QUESTIONS))
+    voices, built = [], []
+    for d in ("cuda", "cpu"):
+        with recording_trees(clustering) as trees_d:
+            voices.append(recipe.train_voice(
+                utts_t, qs_t, recipe.RecipeConfig(**TINY_RECIPE),
+                streams=tiny_streams(hsmm), bootstrap_spans=spans_t,
+                log=lambda m: None, device=d))
+        built.append(trees_d)
+    ok, text = compare_voices(*voices, utts_t, clustering, *built)
+    print(f"recipe, card vs CPU path (tests/test_recipe.py's corpus, soft "
+          f"counts): {text}", flush=True)
+    if not ok:
+        raise RuntimeError("the card's recipe disagrees with the CPU path")
+
     print(smi)
     src = "hts_train_world_tpu_torch/csrc/"
     by_path = {"copy_synth": counts_cs, "feature_lane": counts_fl,
                "synth_lane": counts_sl, "corpus500": counts_cp,
                "harvest_lane": counts_hl, "corpus500_harvest": counts_ch,
-               "hsmm_em": counts_hm}
+               "hsmm_em": counts_hm, "recipe": counts_rc}
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": src + kernels.KERNELS[name][0],

@@ -22,7 +22,11 @@
 // Chain states >= k_len pass both recursions through unchanged and get zero
 // occupancy; segments never cross t_len.  The per-state rows of F and B go
 // to device scratch (B, K, T+1) for phase D; a state's csum column, its
-// duration log-probs and two (T+1)-rows live in shared memory.
+// duration log-probs and two (T+1)-rows live in shared memory, or, when
+// those 3 (T+1) + max_dur doubles pass the shared-memory budget (T past
+// about 8200 frames at max_dur 60), in the per-utterance rows of `rows_g`
+// that the wrapper allocates.  Both layouts run the same code in the same
+// order, so a batch gives the same numbers whichever it takes.
 //
 // Bound: operations (three exp and ~20 float64 operations per valid
 // (state, t0, d) term), with the K states sequential inside a block.
@@ -84,6 +88,9 @@ __device__ void load_state(const double* __restrict__ csum, int K, int T,
   }
 }
 
+// kDeviceRows: the rows in `rows_g` (else in shared memory, where the
+// compiler then knows them to be and reads them as such)
+template <bool kDeviceRows>
 __global__ void __launch_bounds__(THREADS)
 hsmm_fb_kernel(const double* __restrict__ obs, const double* __restrict__ dmean,
                const double* __restrict__ dvar,
@@ -92,8 +99,10 @@ hsmm_fb_kernel(const double* __restrict__ obs, const double* __restrict__ dmean,
                int max_dur, double temper, double* __restrict__ csum_g,
                double* __restrict__ Fg, double* __restrict__ Bg,
                double* __restrict__ ll_out, double* __restrict__ gamma_g,
-               double* __restrict__ dstats_g) {
-  extern __shared__ double sm[];
+               double* __restrict__ dstats_g, double* __restrict__ rows_g) {
+  extern __shared__ double sm_shared[];
+  double* sm = kDeviceRows
+      ? rows_g + (size_t)blockIdx.x * (3 * (T + 1) + max_dur) : sm_shared;
   double* ra = sm;                 // T+1
   double* rb = ra + (T + 1);       // T+1
   double* cs = rb + (T + 1);       // T+1
@@ -257,19 +266,27 @@ extern "C" int hsmm_fb_launch(const double* obs, const double* dmean,
                               const long long* k_len, int B, int T, int K,
                               int max_dur, double temper, double* csum,
                               double* F, double* Bw, double* ll,
-                              double* gamma, double* dstats, cudaStream_t st) {
+                              double* gamma, double* dstats, double* rows,
+                              cudaStream_t st) {
   if (B > 0) {
-    const size_t smem = (3 * (size_t)(T + 1) + max_dur) * sizeof(double);
-    if (smem > 200 * 1024) return (int)cudaErrorInvalidValue;
+    // rows: null to keep the rows in shared memory (the wrapper passes
+    // device rows when they pass its budget of 200 KiB)
+    const size_t smem = rows != nullptr
+        ? 0 : (3 * (size_t)(T + 1) + max_dur) * sizeof(double);
     if (smem > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
-          hsmm_fb_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          hsmm_fb_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
           (int)smem);
       if (e != cudaSuccess) return (int)e;
     }
-    hsmm_fb_kernel<<<B, THREADS, smem, st>>>(obs, dmean, dvar, t_len, k_len,
-                                             T, K, max_dur, temper, csum, F,
-                                             Bw, ll, gamma, dstats);
+    if (rows != nullptr)
+      hsmm_fb_kernel<true><<<B, THREADS, 0, st>>>(
+          obs, dmean, dvar, t_len, k_len, T, K, max_dur, temper, csum, F, Bw,
+          ll, gamma, dstats, rows);
+    else
+      hsmm_fb_kernel<false><<<B, THREADS, smem, st>>>(
+          obs, dmean, dvar, t_len, k_len, T, K, max_dur, temper, csum, F, Bw,
+          ll, gamma, dstats, rows);
   }
   return (int)cudaGetLastError();
 }

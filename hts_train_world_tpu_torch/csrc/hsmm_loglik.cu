@@ -10,19 +10,20 @@
 // frames) and keeps the TT quadratic forms in registers.  Nothing of the
 // broadcast reaches device memory.
 //
-// Per (b, t, k) and stream s of non-zero weight:
+// Per (b, t, k) and every stream s, in stream order:
 //   ll = -0.5 * ((sum_j (x_j - mu_j)^2 / v_j + sum_j log v_j) + D_s log 2pi)
 // an MSD stream scores log w + ll where frames[b, t, a_s] != 0, else
-// log1p(-w), w clipped to [1e-4, 1 - 1e-4]; total += weight * ll.  A stream
-// of weight exactly 0.0 (bap) is skipped: total + 0.0 * ll == total for a
-// finite ll, and the plain twin skips it too.
+// log1p(-w), w clipped to [1e-4, 1 - 1e-4]; total = total + weight * ll.
+// A stream of weight 0.0 (bap) is scored too, as hsmm.py:170 does: for a
+// finite ll the total is unchanged, and a NaN or inf in its columns makes
+// the total NaN, as in the JAX package.
 //
 // meta (n_streams, 6) int64: column start, stop, msd flag, and the offsets
 // of the stream's means (R_s, D_s), variances and msd weights (R_s,) in
 // `tabs`.  rows (n_streams, B, Kb) int64.
 //
 // Bound: operations (about 3 float64 operations per (b, t, k, column) of
-// the weighted streams, against a few bytes per frame and per output).
+// all streams, against a few bytes per frame and per output).
 #include "common.cuh"
 
 namespace {
@@ -52,7 +53,6 @@ hsmm_loglik_kernel(const double* __restrict__ frames, int B, int Tb, int D,
     for (int t = 0; t < TT; ++t) total[t] = 0.0;
     for (int s = 0; s < n_streams; ++s) {
       const double wt = wts[s];
-      if (wt == 0.0) continue;
       const long long* m = meta + 6 * s;
       const int a = (int)m[0], Ds = (int)(m[1] - m[0]);
       const bool msd = m[2] != 0;

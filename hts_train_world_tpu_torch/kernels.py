@@ -85,9 +85,12 @@ KERNELS = {
                     [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
     "hsmm_fb": ("hsmm_fb.cu", "hsmm_fb_launch",
                 [_P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _P, _P, _P, _P, _P,
-                 _P]),
+                 _P, _P]),
     "hsmm_accumulate": ("hsmm_accumulate.cu", "hsmm_accumulate_launch",
                         [_P, _P, _I, _I, _I, _P]),
+    "hsmm_viterbi": ("hsmm_viterbi.cu", "hsmm_viterbi_launch",
+                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                      _P]),
 }
 
 launches: collections.Counter = collections.Counter()

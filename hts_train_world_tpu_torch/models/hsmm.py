@@ -1,6 +1,6 @@
 """MSD-HSMM acoustic models: observation log-likelihoods (K17), the
-segmental forward-backward (K18), HSMMAlign's Viterbi and the per-utterance
-embedded re-estimation, in float64 on the card or the CPU.
+segmental forward-backward (K18), HSMMAlign's Viterbi (K20) and the
+per-utterance embedded re-estimation, in float64 on the card or the CPU.
 
 Counterpart of `hts_train_world_tpu/models/hsmm.py` (the HCompV / HInit /
 HERest / HSMMAlign stages, Training.pl:264-741).  Left-to-right, no-skip
@@ -17,7 +17,9 @@ are literal copies of the JAX package's); the E-step runs in torch:
 - `segment_fb` (K18, csrc/hsmm_fb.cu): the padded segmental forward-backward
   with occupancies and duration statistics; `forward_backward_segment` is
   one utterance of it;
-- `viterbi_segment` stays plain torch on both devices.
+- `viterbi_segment_batch` (K20, csrc/hsmm_viterbi.cu): HSMMAlign's padded
+  segmental Viterbi with the backtrack; `viterbi_segment` is one utterance
+  of it.
 
 Everything here is float64: segment sums are differences of a T-long
 prefix sum of per-frame log-likelihoods of order 1e2-1e3 at D = 237, which
@@ -37,6 +39,19 @@ from hts_train_world_tpu_torch import kernels
 
 LOG_2PI = float(np.log(2.0 * np.pi))
 LOG_ZERO = -1.0e10
+# K18's and K20's per-utterance rows (3 (T+1) + max_dur doubles) stay in
+# shared memory up to this many bytes, in device memory past it
+ROWS_SHARED_BYTES = 200 * 1024
+
+
+def _rows_scratch(B: int, T: int, max_dur: int, dev):
+    """(the kernels' `rows` pointer, the tensor that holds it): 0 when the
+    rows fit the shared-memory budget, else B device rows."""
+    n = 3 * (T + 1) + max_dur
+    if 8 * n <= ROWS_SHARED_BYTES:
+        return 0, None
+    t = torch.empty(B * n, dtype=torch.float64, device=dev)
+    return t.data_ptr(), t
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,8 +205,9 @@ def _gauss_ll(x, mu, var):
 def batch_frame_loglik_plain(frames, rows, means, variances, msd_w,
                              stream_slices, msd_flags, weights_static):
     """The plain twin of K17, one utterance at a time as the JAX package's
-    vmap of `frame_loglik` over gathered rows.  A stream of weight 0.0
-    (bap) is skipped: `total + 0.0 * ll` is `total` for finite ll."""
+    vmap of `frame_loglik` over gathered rows.  Every stream is scored, the
+    weight-0 bap too (`total + 0.0 * ll`: unchanged for a finite ll, NaN
+    for a non-finite one, as in the JAX package)."""
     B, Tb, _ = frames.shape
     Kb = rows[0].shape[1]
     out = torch.empty((B, Tb, Kb), dtype=frames.dtype, device=frames.device)
@@ -200,8 +216,6 @@ def batch_frame_loglik_plain(frames, rows, means, variances, msd_w,
         total = 0.0
         for i, ((a, e), is_msd, wt) in enumerate(
                 zip(stream_slices, msd_flags, weights_static)):
-            if wt == 0.0:
-                continue
             r = rows[i][b]
             ll = _gauss_ll(x_all[:, a:e], means[i][r], variances[i][r])
             if is_msd:
@@ -294,44 +308,111 @@ def _dur_ll(d, mean, var):
 
 
 # ---------------------------------------------------------------------------
-# segmental Viterbi over a composed utterance chain (plain torch)
+# segmental Viterbi over composed utterance chains: K20
 # ---------------------------------------------------------------------------
+
+
+def _backtrack(best_d, T: int, S: int):
+    """Chain ends from the (S, T+1) argmaxes (d - 1), walking back from T;
+    a negative frame wraps once and then clamps, as JAX's indexing does."""
+    t_end = T
+    ends = []
+    for s in range(S - 1, -1, -1):
+        i = t_end + T + 1 if t_end < 0 else t_end
+        d = int(best_d[s, min(max(i, 0), T)]) + 1
+        ends.append(t_end)
+        t_end = t_end - d
+    return ends[::-1]
+
+
+def viterbi_segment_batch_plain(obs_ll, dur_mean, dur_var, t_len, k_len,
+                                max_dur: int):
+    """The plain twin of K20: the JAX package's `viterbi_segment` on each
+    utterance's unpadded (t_len, k_len) block.  Ends past k_len are 0."""
+    B, _, Kb = obs_ll.shape
+    dt, dev = obs_ll.dtype, obs_ll.device
+    best_ll = torch.empty(B, dtype=dt, device=dev)
+    ends = torch.zeros((B, Kb), dtype=torch.long, device=dev)
+    ds = torch.arange(1, max_dur + 1, dtype=dt, device=dev)
+    for b in range(B):
+        T, S = int(t_len[b]), int(k_len[b])
+        obs = obs_ll[b, :T, :S]
+        csum = torch.cat([torch.zeros((1, S), dtype=dt, device=dev),
+                          torch.cumsum(obs, 0)], 0)           # (T+1, S)
+        t = torch.arange(T + 1, device=dev)
+        td = t[:, None] - ds.long()[None, :]                  # (T+1, Dmax)
+        valid = td >= 0
+        tdc = td.clamp(0, T)
+        delta = torch.full((T + 1,), LOG_ZERO, dtype=dt, device=dev)
+        delta[0] = 0.0
+        best_ds = []
+        for s in range(S):
+            dll = _dur_ll(ds, dur_mean[b, s], dur_var[b, s])
+            prev = delta[tdc]
+            seg = csum[:, s][:, None] - csum[tdc, s]
+            cand = torch.where(valid, prev + dll[None, :] + seg, LOG_ZERO)
+            best_ds.append(torch.argmax(cand, dim=1))
+            delta = torch.amax(cand, dim=1)
+        best_ll[b] = delta[T]
+        ends[b, :S] = torch.as_tensor(
+            _backtrack(torch.stack(best_ds).cpu().numpy(), T, S))
+    return best_ll, ends
+
+
+def viterbi_segment_batch(obs_ll, dur_mean, dur_var, t_len, k_len,
+                          max_dur: int):
+    """K20: HSMMAlign's segmental Viterbi over a padded batch.  obs_ll
+    (B, Tb, Kb) float64 chain-ordered state log-likelihoods, dur_mean/var
+    (B, Kb) float64, t_len/k_len (B,) int64 (1 <= t_len <= Tb, 1 <= k_len
+    <= Kb) -> (best_ll (B,) float64, ends (B, Kb) int64), ends[b, s] the
+    exclusive end frame of chain state s (0 past k_len).  Left-to-right,
+    no skip, every state visited, durations 1..max_dur."""
+    if not obs_ll.is_cuda:
+        return viterbi_segment_batch_plain(obs_ll, dur_mean, dur_var, t_len,
+                                           k_len, max_dur)
+    B, T, K = obs_ll.shape
+    f64 = torch.float64
+    if (obs_ll.dtype != f64 or dur_mean.dtype != f64
+            or dur_var.dtype != f64 or dur_mean.shape != (B, K)
+            or dur_var.shape != (B, K) or t_len.dtype != torch.long
+            or k_len.dtype != torch.long or t_len.shape != (B,)
+            or k_len.shape != (B,) or not 1 <= max_dur <= 32767 or T < 1):
+        raise ValueError("viterbi_segment_batch: float64 obs_ll (B, T, K) "
+                         "and dur mean/var (B, K), int64 t_len/k_len (B,), "
+                         "1 <= max_dur <= 32767")
+    obs_ll, dur_mean, dur_var, t_len, k_len = (
+        x.contiguous() for x in (obs_ll, dur_mean, dur_var, t_len, k_len))
+    dev = obs_ll.device
+    kernels.check_cuda("viterbi_segment_batch", obs_ll, dur_mean, dur_var,
+                       t_len, k_len)
+    csum = torch.empty((B, T + 1, K), dtype=f64, device=dev)
+    bp = torch.empty((B, K, T + 1), dtype=torch.int16, device=dev)
+    best_ll = torch.empty(B, dtype=f64, device=dev)
+    ends = torch.empty((B, K), dtype=torch.long, device=dev)
+    rows_p, _rows = _rows_scratch(B, T, int(max_dur), dev)
+    kernels.launch("hsmm_viterbi", [
+        obs_ll.data_ptr(), dur_mean.data_ptr(), dur_var.data_ptr(),
+        t_len.data_ptr(), k_len.data_ptr(), B, T, K, int(max_dur),
+        csum.data_ptr(), bp.data_ptr(), best_ll.data_ptr(), ends.data_ptr(),
+        rows_p],
+        dict(obs_ll=obs_ll, dur_mean=dur_mean, dur_var=dur_var, t_len=t_len,
+             k_len=k_len, max_dur=int(max_dur)))
+    return best_ll, ends
 
 
 def viterbi_segment(obs_ll, dur_mean, dur_var, max_dur: int = 40):
     """obs_ll: (T, S) state observation log-liks in chain order;
     dur_mean/var: (S,).  Left-to-right, no skip; every state visited.
     Returns (best_ll, end_times (S,)) where end_times[s] is the exclusive
-    frame index where state s ends.  Plain torch on both devices (the
-    JAX package runs it per utterance, unbatched)."""
+    frame index where state s ends, as tensors on obs_ll's device.  One
+    utterance of `viterbi_segment_batch` (K20 on the card)."""
     T, S = obs_ll.shape
-    dt, dev = obs_ll.dtype, obs_ll.device
-    csum = torch.cat([torch.zeros((1, S), dtype=dt, device=dev),
-                      torch.cumsum(obs_ll, 0)], 0)           # (T+1, S)
-    ds = torch.arange(1, max_dur + 1, dtype=dt, device=dev)
-    t = torch.arange(T + 1, device=dev)
-    td = t[:, None] - ds.long()[None, :]                     # (T+1, Dmax)
-    valid = td >= 0
-    tdc = td.clamp(0, T)
-    delta = torch.full((T + 1,), LOG_ZERO, dtype=dt, device=dev)
-    delta[0] = 0.0
-    best_ds = []
-    for s in range(S):
-        dll = _dur_ll(ds, dur_mean[s], dur_var[s])
-        prev = delta[tdc]
-        seg = csum[:, s][:, None] - csum[tdc, s]
-        cand = torch.where(valid, prev + dll[None, :] + seg, LOG_ZERO)
-        best_ds.append(torch.argmax(cand, dim=1))
-        delta = torch.amax(cand, dim=1)
-    best_ll = delta[T]
-    best = torch.stack(best_ds).cpu().numpy()
-    t_end = T
-    ends = []
-    for s in range(S - 1, -1, -1):
-        d = int(best[s, t_end]) + 1
-        ends.append(t_end)
-        t_end = t_end - d
-    return best_ll, torch.as_tensor(ends[::-1], dtype=torch.long)
+    dev = obs_ll.device
+    ll, ends = viterbi_segment_batch(
+        obs_ll[None], dur_mean[None], dur_var[None],
+        torch.tensor([T], device=dev), torch.tensor([S], device=dev),
+        max_dur)
+    return ll[0], ends[0]
 
 
 def _tables(modelset: ModelSet, dev):
@@ -392,7 +473,7 @@ def align_utterance(modelset: ModelSet, frames: np.ndarray,
             f"states); alignment is infeasible")
     obs_ll, dmean, dvar = chain_loglik(modelset, frames, label_seq, device)
     ll, ends = viterbi_segment(obs_ll, dmean, dvar, max_dur)
-    return float(ll), ends.numpy()
+    return float(ll), ends.cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -509,11 +590,12 @@ def segment_fb(obs_ll, dur_mean, dur_var, max_dur: int, temper, t_len,
     ll = torch.empty(B, dtype=f64, device=dev)
     gamma = torch.empty((B, T, S), dtype=f64, device=dev)
     dstats = torch.empty((B, S, 3), dtype=f64, device=dev)
+    rows_p, _rows = _rows_scratch(B, T, int(max_dur), dev)
     kernels.launch("hsmm_fb", [
         obs_ll.data_ptr(), dur_mean.data_ptr(), dur_var.data_ptr(),
         t_len.data_ptr(), k_len.data_ptr(), B, T, S, int(max_dur),
         float(temper), csum.data_ptr(), Fw.data_ptr(), Bw.data_ptr(),
-        ll.data_ptr(), gamma.data_ptr(), dstats.data_ptr()],
+        ll.data_ptr(), gamma.data_ptr(), dstats.data_ptr(), rows_p],
         dict(obs_ll=obs_ll, dur_mean=dur_mean, dur_var=dur_var,
              max_dur=int(max_dur), temper=float(temper), t_len=t_len,
              k_len=k_len))

@@ -1,10 +1,11 @@
 """Batched HSMM EM — the corpus-scale HERest E-step (Training.pl:433-446)
 as a handful of launches per bucket batch instead of a per-utterance loop.
 
-Counterpart of the monophone half of
-`hts_train_world_tpu/models/hsmm_batch.py`.  Every trainable pdf row (a
-(model, state)) lives in one global table per stream; each utterance is a
-chain of K states carrying row ids into those tables.  Per padded batch:
+Counterpart of `hts_train_world_tpu/models/hsmm_batch.py` (without the
+mesh).  Every trainable pdf row (a (model, state) for the monophone or
+untied set; a (stream, state, leaf) for the tied model) lives in one global
+table per stream; each utterance is a chain of K states carrying row ids
+into those tables, per stream for the tied model.  Per padded batch:
 
   K17 (gathered MSD log-likelihoods) -> duration gather ->
   K18 (segmental forward-backward, true t_len/k_len) -> `ok` mask ->
@@ -20,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -66,6 +67,59 @@ def chain_rows_modelset(ms: hsmm.ModelSet, label_seq) -> np.ndarray:
     S = ms.n_states
     idxs = np.asarray([ms.index(n) for n in label_seq])
     return (idxs[:, None] * S + np.arange(S)[None, :]).reshape(-1)
+
+
+def tables_from_clustered(model) -> Tuple[RowTables, dict, int]:
+    """Stack the tied model's leaves: stream row (s, leaf) -> offs[s]+leaf
+    where offs accumulates leaves over states; duration row (dl, s) ->
+    dl*S + s.  Returns (tables, {stream: offsets (S,)}, dur row count)."""
+    S = model.n_states
+    means, vars_, msd_w, offsets = {}, {}, {}, {}
+    for st in model.streams:
+        ms_, vs_, ws_ = [], [], []
+        offs = np.zeros(S, np.int64)
+        at = 0
+        for s in range(S):
+            tree = model.trees[st.name][s]
+            offs[s] = at
+            for leaf in range(tree.n_leaves):
+                m, v = tree.leaf_params[leaf]
+                ms_.append(np.asarray(m, float))
+                vs_.append(np.asarray(v, float))
+                if st.msd:
+                    ws_.append(float(model.msd_weights[st.name][s][leaf]))
+            at += tree.n_leaves
+        means[st.name] = np.stack(ms_)
+        vars_[st.name] = np.stack(vs_)
+        if st.msd:
+            msd_w[st.name] = np.asarray(ws_)
+        offsets[st.name] = offs
+    Ld = model.dur_tree.n_leaves
+    dmean = np.zeros(Ld * S)
+    dvar = np.zeros(Ld * S)
+    for leaf in range(Ld):
+        m, v = model.dur_tree.leaf_params[leaf]
+        dmean[leaf * S:(leaf + 1) * S] = np.asarray(m, float)
+        dvar[leaf * S:(leaf + 1) * S] = np.asarray(v, float)
+    return (RowTables(means, vars_, msd_w, dmean, dvar, model.streams),
+            offsets, Ld * S)
+
+
+def chain_rows_clustered(model, ctx_seq, offsets):
+    """Per-stream (K,) row ids + (K,) duration row ids for the tied model."""
+    S = model.n_states
+    K = len(ctx_seq) * S
+    rows = {st.name: np.zeros(K, np.int64) for st in model.streams}
+    dur_rows = np.zeros(K, np.int64)
+    for li, ctx in enumerate(ctx_seq):
+        dl = model.dur_tree.leaf_of(ctx)
+        for s in range(S):
+            k = li * S + s
+            dur_rows[k] = dl * S + s
+            for st in model.streams:
+                leaf = model.trees[st.name][s].leaf_of(ctx)
+                rows[st.name][k] = offsets[st.name][s] + leaf
+    return rows, dur_rows
 
 
 # ---------------------------------------------------------------------------
@@ -353,8 +407,46 @@ def mstep_modelset(ms: hsmm.ModelSet, acc: EStepAccumulators, floor,
     return ms
 
 
+def mstep_clustered(model, offsets, acc: EStepAccumulators, floors,
+                    min_occ: float = 1e-6):
+    """Write accumulators back into tree leaf params + msd weights +
+    the joint duration tree."""
+    S = model.n_states
+    for i, st in enumerate(model.streams):
+        a = acc.streams[i]
+        for s in range(S):
+            tree = model.trees[st.name][s]
+            off = offsets[st.name][s]
+            for leaf in range(tree.n_leaves):
+                r = off + leaf
+                occ = a["occ"][r]
+                if st.msd:
+                    tot = a["p_tot"][r]
+                    if tot > min_occ:
+                        model.msd_weights[st.name][s][leaf] = float(
+                            np.clip(a["p_occ"][r] / tot, 1e-3, 1 - 1e-3))
+                    if occ <= 2.0:
+                        continue
+                elif occ <= min_occ:
+                    continue
+                mu = a["x"][r] / occ
+                va = np.maximum(a["x2"][r] / occ - mu * mu,
+                                floors[st.name])
+                tree.leaf_params[leaf] = (mu, va)
+    Ld = model.dur_tree.n_leaves
+    for leaf in range(Ld):
+        rows = acc.dur[leaf * S:(leaf + 1) * S]
+        mass = rows[:, 0]
+        if (mass <= min_occ).any():
+            continue
+        dm = rows[:, 1] / mass
+        dv = np.maximum(rows[:, 2] / mass - dm * dm, 0.0) + 1.0
+        model.dur_tree.leaf_params[leaf] = (dm, dv)
+    return model
+
+
 # ---------------------------------------------------------------------------
-# the EM loop
+# the EM loops
 # ---------------------------------------------------------------------------
 
 
@@ -393,6 +485,40 @@ def reestimate_modelset_batched(ms: hsmm.ModelSet, utterances,
                            temper, max_batch=max_batch, device=device)
         mstep_modelset(ms, acc, floor)
         log(f"batched BW iter {it}: total loglik {acc.total_ll:.1f} "
+            f"({acc.n_ok:.0f} utts)")
+        history.append(acc.total_ll)
+    return history
+
+
+def reestimate_clustered_batched(model, utterances, n_iters: int = 2,
+                                 max_dur: int = 40,
+                                 var_floor_scale: float = 0.01,
+                                 max_batch: int = 32, log=print,
+                                 device="cuda"):
+    """Batched soft-count ERST2/ERST4: HERest on the tied mmf
+    (Training.pl:538-551) — full Baum-Welch occupancies accumulated per
+    tree leaf on the device (K17-K19, separate row ids per stream),
+    replacing the hard Viterbi counts of
+    context_clustered.reestimate_clustered.  Returns the total
+    log-likelihood of each iteration."""
+    device_mod.resolve(device)
+    all_frames = np.concatenate([u[0] for u in utterances])
+    _, gvar = hsmm.global_stats(all_frames, model.streams)
+    floors = {st.name: gvar[st.sl] * var_floor_scale + 1e-8
+              for st in model.streams}
+    history = []
+    for it in range(n_iters):
+        tables, offsets, n_dur = tables_from_clustered(model)
+        n_rows = {n: len(tables.means[n]) for n in tables.means}
+        chained = []
+        for f, ctx_seq in utterances:
+            rows, dur_rows = chain_rows_clustered(model, ctx_seq, offsets)
+            chained.append(ChainedUtterance(np.asarray(f, float), rows,
+                                            dur_rows))
+        acc = corpus_estep(tables, chained, n_rows, n_dur, max_dur,
+                           max_batch=max_batch, device=device)
+        mstep_clustered(model, offsets, acc, floors)
+        log(f"batched tied BW iter {it}: total loglik {acc.total_ll:.1f} "
             f"({acc.n_ok:.0f} utts)")
         history.append(acc.total_ll)
     return history

@@ -1,0 +1,333 @@
+"""HMM-voice training recipe — the Training.pl driver, on the card.
+
+Counterpart of `hts_train_world_tpu/models/recipe.py`: one typed config
+with the reference's stage switches (Config.pm.in:310-349) and training
+knobs (nIte, DAEM, configure.ac:698-713), and one driver that runs the HTS
+flow on the MSD-HSMM stack:
+
+  IN_RE   init_modelset (HInit/HRest bootstrap from label spans)
+  ERST0   monophone embedded re-estimation — full Baum-Welch (batched),
+          DAEM-annealed, or segmental Viterbi (Training.pl:417-446)
+  CXCL/ERST2   full-context stats -> MDL tree clustering -> tied model
+  UNTIE/CXCL2/ERST4   untied statistics from the tied model, the second
+          clustering round and its re-estimation (Training.pl:553-599)
+  FALGN   Viterbi forced alignment under the CLUSTERED model
+          (HSMMAlign on the tied mmf, Training.pl:601-618)
+  MCDGV   context-dependent GV models from per-utterance static
+          variances (Training.pl:620-685, make_data_gv :1402-1491)
+  CONVM   .htsvoice export incl. GV sections (export;
+          Training.pl:761-797)
+
+The E-steps and alignments run on the card (`device="cuda"`, the default;
+K17-K20) or, with `device="cpu"`, through the kernels' plain twins; the
+tree search and the M-steps are host numpy.  Not in the port yet: SEMIT and
+UPMIX (`cfg.semitied`, `cfg.upmix`: ROADMAP Queue A 7), MSPF and
+PGEN/WGEN (`cfg.use_mspf`, `synthesize_utterance`, `make_mspf`: Queue A 2);
+the first three raise NotImplementedError.  `RecipeState.stage_seconds`
+records each stage's wall time (host clock; every stage ends in a read of
+its results to the host).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from hts_train_world_tpu_torch import device as device_mod
+from hts_train_world_tpu_torch.models import context_clustered, gv_model, hsmm
+from hts_train_world_tpu_torch.models import hsmm_batch as hb
+
+
+@dataclasses.dataclass(frozen=True)
+class RecipeConfig:
+    """Stage switches + knobs (Config.pm.in:310-349, configure.ac)."""
+    n_states: int = 5            # $nState
+    n_iters: int = 5             # $nIte embedded EM sweeps
+    max_dur: int = 60            # HSMM duration cap (MAXSTDDEVCOEF analog)
+    var_floor_scale: float = 0.01   # $vflr
+    # DAEM (configure.ac:701-703)
+    daem: bool = False
+    daem_n_iter: int = 10        # DAEMNITER
+    daem_alpha: float = 1.0      # DAEMALPHA
+    # clustering (Config.pm.in:69-97)
+    mdl_factor: float = 1.0
+    min_occupancy: float = 1.0
+    # tied-model refinement (ERST2 / UNTIE->CXCL2 / ERST4)
+    tied_iters: int = 1          # embedded EM sweeps on the tied model
+    recluster: bool = True       # UNTIE + second clustering round
+    # variants
+    upmix: bool = False          # UPMIX + ERST5
+    upmix_iters: int = 2
+    semitied: bool = False       # SEMIT
+    semitied_iters: int = 20     # MAXSEMITIEDITER
+    # E-step flavor for embedded stages
+    soft_counts: bool = True     # full BW (HERest) vs segmental (HInit)
+    # voice building (MCDGV/MSPF/PGEN/WGEN/CONVM, Training.pl:620-797)
+    n_win: int = 3               # delta windows in the cmp layout
+    use_gv: bool = True          # $useHmmGV
+    cdgv: bool = True            # $cdgv (context-dependent GV trees)
+    nosilgv: bool = True         # $nosilgv (drop silence frames from GV)
+    silence_phones: Tuple[str, ...] = ("sil", "pau")   # @slnt
+    use_mspf: bool = False       # $useMSPF
+    mspf_weight: float = 1.0
+    pgtype: int = 0              # HMGenS -c {0,1,2}
+    postfilter_mcp: float = 0.0  # mcep postfilter strength (ref 1.4)
+    alpha: float = 0.42          # frequency warping for the postfilter
+
+
+@dataclasses.dataclass
+class RecipeState:
+    monophone: Optional[hsmm.ModelSet] = None
+    clustered: Optional[context_clustered.ClusteredModel] = None
+    mixture: Optional[object] = None      # UPMIX: not in the port yet
+    semitied: Optional[object] = None     # SEMIT: not in the port yet
+    alignments: Optional[Dict[int, np.ndarray]] = None
+    gv: Optional[gv_model.GVModel] = None
+    mspf: Optional[tuple] = None          # MSPF: not in the port yet
+    log_history: List[str] = dataclasses.field(default_factory=list)
+    # stage -> wall seconds: IN_RE, ERST0, CXCL estep, CXCL trees, ERST2,
+    # CXCL2 estep, CXCL2 trees, ERST4, FALGN, MCDGV (those that ran)
+    stage_seconds: Dict[str, float] = dataclasses.field(
+        default_factory=dict)
+
+
+def train_voice(corpus, questions, cfg: RecipeConfig = RecipeConfig(),
+                streams: Sequence[hsmm.StreamDef] | None = None,
+                bootstrap_spans=None, log=print,
+                device="cuda") -> RecipeState:
+    """Run the recipe.
+
+    corpus: list of (frames (T, D), full_context_label_seq).
+    questions: clustering questions (`models.clustering.Question`, e.g.
+    from `clustering.questions_from_config(qconf.parse_config(...))`).
+    bootstrap_spans: optional {utt_index: phone end frames} for HInit-style
+    supervised bootstrapping; uniform cuts otherwise.  device: where the
+    E-steps and alignments run ("cuda" raises without a card).
+    """
+    for flag, what, queue in (("semitied", "SEMIT", "Queue A 7"),
+                              ("upmix", "UPMIX/ERST5", "Queue A 7"),
+                              ("use_mspf", "MSPF", "Queue A 2")):
+        if getattr(cfg, flag):
+            raise NotImplementedError(
+                f"cfg.{flag} ({what}) is not in the port yet (ROADMAP "
+                f"{queue})")
+    device_mod.resolve(device)
+    streams = tuple(streams or hsmm.world_streams())
+    state = RecipeState()
+    clock = [time.perf_counter()]
+
+    def say(msg):
+        state.log_history.append(msg)
+        log(msg)
+
+    def lap(stage):
+        now = time.perf_counter()
+        state.stage_seconds[stage] = now - clock[0]
+        clock[0] = now
+
+    # ---- IN_RE: monophone bootstrap --------------------------------
+    say("IN_RE: monophone initialization")
+    mono_seqs = [[context_clustered.phone_of(c) for c in seq]
+                 for _, seq in corpus]
+    names = sorted({p for seq in mono_seqs for p in seq})
+    frames_by_model: Dict[str, list] = {n: [] for n in names}
+    for ui, (frames, _) in enumerate(corpus):
+        seq = mono_seqs[ui]
+        if bootstrap_spans and ui in bootstrap_spans:
+            ends = np.asarray(bootstrap_spans[ui])
+        else:
+            ends = np.linspace(0, len(frames), len(seq) + 1)[1:].astype(int)
+        starts = np.concatenate([[0], ends[:-1]])
+        for i, p in enumerate(seq):
+            frames_by_model[p].append(frames[starts[i]:ends[i]])
+    ms = hsmm.init_modelset(names, frames_by_model, streams,
+                            n_states=cfg.n_states,
+                            var_floor_scale=cfg.var_floor_scale)
+    lap("IN_RE")
+
+    # ---- ERST0: monophone embedded re-estimation -------------------
+    utts_mono = [(f, mono_seqs[ui]) for ui, (f, _) in enumerate(corpus)]
+    if cfg.daem:
+        say(f"ERST0: DAEM-annealed embedded re-estimation "
+            f"({cfg.daem_n_iter} x {cfg.n_iters})")
+        hsmm.daem_reestimate(ms, utts_mono, n_outer=cfg.daem_n_iter,
+                             n_inner=cfg.n_iters, alpha=cfg.daem_alpha,
+                             var_floor_scale=cfg.var_floor_scale,
+                             max_dur=cfg.max_dur, log=say,
+                             batched=cfg.soft_counts, device=device)
+    elif cfg.soft_counts:
+        say("ERST0: embedded re-estimation (batched Baum-Welch)")
+        hb.reestimate_modelset_batched(
+            ms, utts_mono, n_iters=cfg.n_iters,
+            var_floor_scale=cfg.var_floor_scale, max_dur=cfg.max_dur,
+            log=say, device=device)
+    else:
+        say("ERST0: embedded re-estimation (viterbi)")
+        hsmm.embedded_reestimate(ms, utts_mono, n_iters=cfg.n_iters,
+                                 var_floor_scale=cfg.var_floor_scale,
+                                 max_dur=cfg.max_dur, log=say,
+                                 mode="viterbi", device=device)
+    state.monophone = ms
+    lap("ERST0")
+
+    # ---- MN2FL/ERST1/CXCL: full-context clustering -------------------
+    say("CXCL: full-context statistics + MDL tree clustering")
+    utts_full = [(f, seq) for f, seq in corpus]
+    if cfg.soft_counts:
+        # reference-true flow (Training.pl:449-494): clone untied
+        # full-context models, HERest them, cluster from THEIR counts
+        contexts = sorted({c for _, seq in corpus for c in seq})
+        full_ms = context_clustered.clone_full_context(ms, contexts)
+        stream_stats, msd_stats, dur_stats = \
+            context_clustered.collect_context_stats_soft(
+                full_ms, utts_full, cfg.max_dur, n_reest=1,
+                var_floor_scale=cfg.var_floor_scale, log=say, device=device)
+    else:
+        stream_stats, msd_stats, dur_stats = \
+            context_clustered.collect_context_stats(ms, utts_full,
+                                                    cfg.max_dur, device)
+    lap("CXCL estep")
+    state.clustered = context_clustered.build_clustered_model(
+        ms, stream_stats, msd_stats, dur_stats, questions,
+        mdl_factor=cfg.mdl_factor, min_occupancy=cfg.min_occupancy)
+    lap("CXCL trees")
+
+    # ---- ERST2: embedded re-estimation of the tied model -------------
+    if cfg.tied_iters > 0:
+        if cfg.soft_counts:
+            say("ERST2: tied-model re-estimation (batched Baum-Welch)")
+            hb.reestimate_clustered_batched(
+                state.clustered, utts_full, n_iters=cfg.tied_iters,
+                max_dur=cfg.max_dur, var_floor_scale=cfg.var_floor_scale,
+                log=say, device=device)
+        else:
+            say("ERST2: tied-model embedded re-estimation (viterbi)")
+            context_clustered.reestimate_clustered(
+                state.clustered, utts_full, n_iters=cfg.tied_iters,
+                max_dur=cfg.max_dur, var_floor_scale=cfg.var_floor_scale,
+                log=say, device=device)
+        lap("ERST2")
+
+    # ---- UNTIE -> CXCL2 -> ERST4 --------------------------------------
+    if cfg.recluster:
+        say("UNTIE/CXCL2: untied statistics from the tied model "
+            "+ second clustering round")
+        if cfg.soft_counts:
+            contexts = sorted({c for _, seq in corpus for c in seq})
+            untied = context_clustered.clone_from_clustered(
+                state.clustered, contexts)
+            ss2, ms2_, ds2 = context_clustered.collect_context_stats_soft(
+                untied, utts_full, cfg.max_dur, n_reest=1,
+                var_floor_scale=cfg.var_floor_scale, log=say, device=device)
+        else:
+            ss2, ms2_, ds2 = context_clustered.collect_context_stats_tied(
+                state.clustered, utts_full, cfg.max_dur, device)
+        lap("CXCL2 estep")
+        state.clustered = context_clustered.build_clustered_model(
+            ms, ss2, ms2_, ds2, questions,
+            mdl_factor=cfg.mdl_factor, min_occupancy=cfg.min_occupancy)
+        lap("CXCL2 trees")
+        if cfg.tied_iters > 0:
+            say("ERST4: re-estimation of the reclustered model")
+            if cfg.soft_counts:
+                hb.reestimate_clustered_batched(
+                    state.clustered, utts_full, n_iters=cfg.tied_iters,
+                    max_dur=cfg.max_dur,
+                    var_floor_scale=cfg.var_floor_scale, log=say,
+                    device=device)
+            else:
+                context_clustered.reestimate_clustered(
+                    state.clustered, utts_full, n_iters=cfg.tied_iters,
+                    max_dur=cfg.max_dur,
+                    var_floor_scale=cfg.var_floor_scale, log=say,
+                    device=device)
+            lap("ERST4")
+
+    # ---- FALGN: forced alignment under the CLUSTERED model -----------
+    # (the reference aligns with the re-estimated tied mmf, not the
+    # monophone set: HSMMAlign -H $reclmmf, Training.pl:613)
+    say("FALGN: Viterbi forced alignment (clustered model)")
+    state.alignments = {}
+    aligned = context_clustered.align_corpus_with_clustered(
+        state.clustered, corpus, cfg.max_dur, device)
+    for ui, res in enumerate(aligned):
+        if isinstance(res, ValueError):
+            # drop unalignable utterances like the reference's screening
+            # gates (data/Makefile.in:216-238, Training.pl:601-618)
+            say(f"FALGN: dropping utt {ui}: {res}")
+            continue
+        state.alignments[ui] = res[1]
+    lap("FALGN")
+
+    # ---- MCDGV: context-dependent GV models ---------------------------
+    if cfg.use_gv:
+        say("MCDGV: GV models from per-utterance static variances")
+        state.gv = make_gv(state, corpus, cfg, questions)
+        lap("MCDGV")
+
+    say("recipe complete")
+    return state
+
+
+# ---------------------------------------------------------------------------
+# MCDGV (Training.pl:620-685) — per-utterance GV observations
+# ---------------------------------------------------------------------------
+
+
+def _statics(frames: np.ndarray, st: hsmm.StreamDef, n_win: int):
+    """Static block of one stream from cmp-layout frames (the window
+    expansion is [static | delta | delta2], features/windows.py)."""
+    width = (st.sl.stop - st.sl.start) // n_win
+    return frames[:, st.sl.start:st.sl.start + width]
+
+
+def _phone_ends(state: RecipeState, ui: int, n_states: int):
+    ends = state.alignments.get(ui)
+    return None if ends is None else ends[n_states - 1::n_states]
+
+
+def make_gv(state: RecipeState, corpus, cfg: RecipeConfig,
+            questions) -> gv_model.GVModel:
+    """make_data_gv + MCDGV: per utterance, the per-dimension variance of
+    each stream's statics over non-silence (and MSD-present) frames, one
+    observation labeled by the utterance's first full-context label,
+    clustered by the usual questions when cdgv (Training.pl:1402-1491)."""
+    model = state.clustered
+    obs = []
+    for ui, (frames, ctx_seq) in enumerate(corpus):
+        keep = np.ones(len(frames), bool)
+        if cfg.nosilgv and cfg.silence_phones:
+            pe = _phone_ends(state, ui, cfg.n_states)
+            if pe is not None:
+                keep = gv_model.silence_keep_mask(
+                    [context_clustered.phone_of(c) for c in ctx_seq],
+                    pe, cfg.silence_phones, len(frames))
+        statics = {}
+        keeps = {}
+        for st in model.streams:
+            statics[st.name] = _statics(frames, st, cfg.n_win)
+            k = keep
+            if st.msd:
+                k = keep & (frames[:, st.msd_flag_col] != 0.0)
+            keeps[st.name] = k
+        ctx0 = ctx_seq[0] if cfg.cdgv else "gv"
+        obs.append((ctx0, statics, keeps))
+    stats = gv_model.gv_observations(obs)
+    return gv_model.build_gv_model(
+        stats, questions, mdl_factor=cfg.mdl_factor,
+        min_occupancy=cfg.min_occupancy, context_dependent=cfg.cdgv)
+
+
+def export(state: RecipeState, path: str, fs: int, frame_shift: int,
+           cfg: RecipeConfig, alpha: float = 0.0) -> None:
+    """CONVM: package the trained voice (+ GV models) as .htsvoice."""
+    model = state.clustered
+    static_dims = {st.name: (st.sl.stop - st.sl.start) // cfg.n_win
+                   for st in model.streams}
+    context_clustered.export_voice(
+        model, path, fs, frame_shift, static_dims, gv_model=state.gv,
+        alpha=alpha or cfg.alpha,
+        gv_off_context=tuple(f"*-{p}+*" for p in cfg.silence_phones)
+        if cfg.nosilgv else ())

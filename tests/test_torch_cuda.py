@@ -895,3 +895,125 @@ def test_hsmm_wrappers_reject_what_the_kernels_do_not_take(cuda):
         hsmm.segment_fb(x[..., :3], dm, dm, 4, 1.0, n.int(), n)
     with pytest.raises(ValueError):
         hsmm_batch.segment_sum(x[0].float(), n, 3)
+
+
+def test_k20_kernel_matches_plain(cuda):
+    """A padded batch against the twin run on the CPU (the kernel's
+    sequential prefix sums), and padded against unpadded bit for bit."""
+    rng = np.random.default_rng(20)
+    B, T, K = 4, 300, 40
+    t = lambda a, dt=torch.float64: torch.as_tensor(a, dtype=dt,
+                                                    device=cuda)
+    obs = t(-3.0 * np.abs(rng.standard_normal((B, T, K))))
+    dm, dv = t(rng.uniform(2, 9, (B, K))), t(rng.uniform(1, 5, (B, K)))
+    tl = t([T, 251, 180, 299], torch.long)
+    kl = t([K, 33, 40, 25], torch.long)
+    kernels.reset_counts()
+    ll, ends = hsmm.viterbi_segment_batch(obs, dm, dv, tl, kl, 60)
+    assert kernels.launches["hsmm_viterbi"] == 1
+    ll0, e0 = hsmm.viterbi_segment_batch_plain(obs.cpu(), dm.cpu(), dv.cpu(),
+                                               tl.cpu(), kl.cpu(), 60)
+    assert torch.equal(ends.cpu(), e0)
+    assert ((ll.cpu() - ll0).abs() <= 1e-9 * ll0.abs()).all()
+    for b in range(B):
+        T_, K_ = int(tl[b]), int(kl[b])
+        l1, e1 = hsmm.viterbi_segment(obs[b, :T_, :K_].contiguous(),
+                                      dm[b, :K_].contiguous(),
+                                      dv[b, :K_].contiguous(), 60)
+        assert float(l1) == float(ll[b]) and torch.equal(e1, ends[b, :K_])
+
+
+def test_k20_breaks_a_forced_tie_as_the_twin(cuda):
+    obs = torch.zeros((1, 5, 2), dtype=torch.float64, device=cuda)
+    dm = torch.full((1, 2), 2.5, dtype=torch.float64, device=cuda)
+    dv = torch.full((1, 2), 1.5, dtype=torch.float64, device=cuda)
+    n = torch.tensor([5], device=cuda)
+    k = torch.tensor([2], device=cuda)
+    ll, ends = hsmm.viterbi_segment_batch(obs, dm, dv, n, k, 4)
+    assert ends.cpu().tolist() == [[3, 5]]
+
+
+@pytest.mark.parametrize("name", ["hsmm_fb", "hsmm_viterbi"])
+def test_k18_and_k20_take_a_9000_frame_utterance(cuda, name):
+    """Past the shared-memory rows (3 (T+1) + max_dur > 25600 doubles) the
+    rows go to device memory: K18 against its twin at its tolerances, K20
+    against its twin on the CPU."""
+    inp = chip_smoke.k18_long_inputs(cuda)
+    kernels.reset_counts()
+    if name == "hsmm_fb":
+        ll, g, d = hsmm.segment_fb(**inp, temper=1.0)
+        ll0, g0, d0 = hsmm.segment_fb_plain(**inp, temper=1.0)
+        assert ((ll - ll0).abs() <= 1e-9 * ll0.abs()).all()
+        assert (g - g0).abs().max() <= 1e-10
+        assert ((d - d0).abs() <= 1e-9 * d0.abs()).all()
+        assert abs(float(g.sum()) - 9000.0) <= 1e-6
+    else:
+        ll, ends = hsmm.viterbi_segment_batch(**inp)
+        cpu = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+               for k, v in inp.items()}
+        ll0, e0 = hsmm.viterbi_segment_batch_plain(**cpu)
+        assert torch.equal(ends.cpu(), e0) and int(e0[0, -1]) == 9000
+        assert abs(float(ll[0]) - float(ll0[0])) <= 1e-9 * abs(float(ll0[0]))
+    assert kernels.launches[name] == 1
+
+
+def test_k17_scores_a_nan_bap_frame_as_nan(cuda):
+    inp = chip_smoke.nan_bap_inputs(hsmm, cuda)
+    got = hsmm.batch_frame_loglik(**inp)
+    want = hsmm.batch_frame_loglik_plain(**inp)
+    assert torch.isnan(got[1, 5]).all()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert int(torch.isnan(got).sum()) == got.shape[2]
+    fin = torch.isfinite(want)
+    assert ((got - want).abs()[fin] <= 1e-12 * (1 + want.abs()[fin])).all()
+
+
+def test_k19_bit_equal_at_the_untied_row_count(cuda):
+    """1250 rows (250 contexts x 5 states), ids as a bucket batch of
+    chains gives them, some rows empty: bit-equal to the CPU's index_add_
+    and across launches."""
+    rng = np.random.default_rng(1250)
+    R, C = 1250, 301
+    ids = np.concatenate([rng.permutation(R - 50)[:120] for _ in range(26)])
+    vals = torch.as_tensor(rng.standard_normal((len(ids), C)) * 10.0 ** (
+        rng.uniform(-3, 3, (len(ids), 1))), device=cuda)
+    ids = torch.as_tensor(ids, device=cuda)
+    kernels.reset_counts()
+    a = hsmm_batch.segment_sum(vals, ids, R)
+    b = hsmm_batch.segment_sum(vals, ids, R)
+    assert kernels.launches["hsmm_accumulate"] == 2
+    c = hsmm_batch.segment_sum_plain(vals.cpu(), ids.cpu(), R)
+    assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+    assert not a[R - 50:].any()
+
+
+def test_recipe_matches_the_cpu_path(cuda):
+    from hts_train_world_tpu_torch.features import qconf
+    from hts_train_world_tpu_torch.models import clustering, recipe
+    utts, spans = chip_smoke.recipe_tiny_corpus()
+    qs = clustering.questions_from_config(
+        qconf.parse_config(chip_smoke.TINY_QUESTIONS))
+    kernels.reset_counts()
+    voices, built = [], []
+    for d in ("cuda", "cpu"):
+        with chip_smoke.recording_trees(clustering) as trees_d:
+            voices.append(recipe.train_voice(
+                utts, qs, recipe.RecipeConfig(**chip_smoke.TINY_RECIPE),
+                streams=chip_smoke.tiny_streams(hsmm), bootstrap_spans=spans,
+                log=lambda m: None, device=d))
+        built.append(trees_d)
+    assert all(kernels.launches[k] > 0 for k in chip_smoke.PATHS["recipe"])
+    ok, text = chip_smoke.compare_voices(*voices, utts, clustering, *built)
+    assert ok, text
+
+
+def test_k20_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    obs = torch.zeros((2, 5, 3), dtype=torch.float64, device=cuda)
+    dm = torch.ones((2, 3), dtype=torch.float64, device=cuda)
+    n = torch.tensor([5, 5], device=cuda)
+    with pytest.raises(ValueError):
+        hsmm.viterbi_segment_batch(obs.float(), dm, dm, n, n, 4)
+    with pytest.raises(ValueError):
+        hsmm.viterbi_segment_batch(obs, dm, dm, n.int(), n, 4)
+    with pytest.raises(ValueError):
+        hsmm.viterbi_segment_batch(obs, dm, dm, n, n, 40000)

@@ -1,11 +1,12 @@
-"""The plain twins of the HSMM kernels (K17-K19) against the JAX package,
+"""The plain twins of the HSMM kernels (K17-K20) against the JAX package,
 on the CPU, and the kernels' arithmetic written out in numpy.
 
 On the CPU each kernel wrapper runs its plain PyTorch twin; these tests
-hold the twins against `hsmm.frame_loglik`, `hsmm.forward_backward_segment`
-and `jax.ops.segment_sum` on the same numpy inputs, with the JAX side in
-float64 as its own tests run it.  `tests/test_torch_cuda.py` holds each
-CUDA kernel against its twin on the card.
+hold the twins against `hsmm.frame_loglik`, `hsmm.forward_backward_segment`,
+`jax.ops.segment_sum` and `hsmm.viterbi_segment` on the same numpy inputs,
+with the JAX side in float64 as its own tests run it.
+`tests/test_torch_cuda.py` holds each CUDA kernel against its twin on the
+card.
 """
 import jax
 import jax.numpy as jnp
@@ -86,7 +87,7 @@ def test_k17_one_utterance_frame_loglik_matches_jax():
 def _k17_numpy(fr, means, vars_, msd_w, rows, sls, flags, wts):
     """K17's arithmetic as one thread runs it: per (b, k) and stream, the
     columns in order with 1/v, sum log v alongside, then the MSD switch
-    and the weighted total; weight-0 streams skipped."""
+    and the weighted total over every stream (weight 0 included)."""
     B, T, _ = fr.shape
     K = rows[0].shape[1]
     out = np.zeros((B, T, K))
@@ -94,8 +95,6 @@ def _k17_numpy(fr, means, vars_, msd_w, rows, sls, flags, wts):
         for k in range(K):
             total = np.zeros(T)
             for i, ((a, e), f, wt) in enumerate(zip(sls, flags, wts)):
-                if wt == 0.0:
-                    continue
                 r = rows[i][b, k]
                 q = np.zeros(T)
                 slv = 0.0
@@ -123,6 +122,32 @@ def test_k17_arithmetic_in_numpy_matches_twin():
         *args).numpy()
     got = _k17_numpy(fr, means, vars_, msd_w, rows, *args)
     assert np.all(np.abs(got - want) <= 1e-12 * (1 + np.abs(want)))
+
+
+@pytest.mark.parametrize("what", [np.nan, np.inf])
+def test_k17_twin_scores_a_non_finite_bap_frame_as_jax(what):
+    """The weight-0 bap stream is scored as `total + 0.0 * ll`: a NaN or
+    inf in its columns makes that frame's log-likelihoods NaN, as in the
+    JAX package, and leaves every other frame as it was."""
+    sts, fr, means, vars_, msd_w, rows = _loglik_inputs("world", T=9, K=4)
+    bap = next(st for st in sts if st.name == "bap")
+    fr[1, 4, bap.sl.start + 3] = what
+    args = hsmm.stream_args(sts)
+    got = hsmm.batch_frame_loglik(
+        _t(fr), tuple(_t(r, torch.long) for r in rows),
+        tuple(map(_t, means)), tuple(map(_t, vars_)), tuple(map(_t, msd_w)),
+        *args).numpy()
+    want = np.asarray(jhsmm.frame_loglik(
+        jnp.asarray(fr[1]), tuple(jnp.asarray(m[r[1]])
+                                  for m, r in zip(means, rows)),
+        tuple(jnp.asarray(v[r[1]]) for v, r in zip(vars_, rows)),
+        tuple(jnp.asarray(w[r[1]]) for w, r in zip(msd_w, rows)), *args))
+    assert np.isnan(want[4]).all() and np.isnan(got[1, 4]).all()
+    assert np.array_equal(np.isfinite(got[1]), np.isfinite(want))
+    ok = np.isfinite(want)
+    assert np.abs(got[1][ok] - want[ok]).max() \
+        <= 1e-12 * np.abs(want[ok]).max()
+    assert np.isfinite(got[0]).all()
 
 
 def _fb_inputs(seed, B=3, T=60, S=10, scale=3.0):
@@ -291,3 +316,119 @@ def test_k19_twin_adds_in_ascending_order():
         want[ids[i]] = want[ids[i]] + vals[i]
     got = hsmm_batch.segment_sum_plain(_t(vals), _t(ids, torch.long), R)
     assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("R", [11, 1250])
+def test_k19_twin_at_the_untied_row_count_matches_jax(R):
+    """At 1250 rows (the untied clone's table size: 250 contexts x 5
+    states) as at 11, the twin adds each row's members in ascending index
+    order from 0.0, empty rows 0.0, and agrees with JAX's segment_sum."""
+    rng = np.random.default_rng(R)
+    N, C = 3 * R, 5
+    vals = rng.standard_normal((N, C)) * 10.0 ** rng.uniform(-8, 8, (N, 1))
+    ids = rng.integers(0, R - 3, N)
+    want = np.zeros((R, C))
+    for i in range(N):
+        want[ids[i]] = want[ids[i]] + vals[i]
+    twin = hsmm_batch.segment_sum(_t(vals), _t(ids, torch.long), R).numpy()
+    assert np.array_equal(twin, want)
+    assert np.all(twin[R - 3:] == 0.0)
+    jx = np.asarray(jax.ops.segment_sum(jnp.asarray(vals), jnp.asarray(ids),
+                                        R))
+    assert np.all(np.abs(twin - jx) <= 1e-12 * np.abs(vals).max())
+
+
+def _vit_inputs(seed, B=3, T=70, S=12):
+    rng = np.random.default_rng(seed)
+    obs = rng.standard_normal((B, T, S)) * 3.0
+    dm = rng.uniform(2, 7, (B, S))
+    dv = rng.uniform(1, 4, (B, S))
+    t_len = np.array([T, T - 19, T - 6])[:B]
+    k_len = np.array([S, S - 4, S - 1])[:B]
+    return obs, dm, dv, t_len, k_len
+
+
+def test_k20_twin_matches_jax_viterbi_segment():
+    obs, dm, dv, t_len, k_len = _vit_inputs(20)
+    ll, ends = hsmm.viterbi_segment_batch(
+        _t(obs), _t(dm), _t(dv), _t(t_len, torch.long),
+        _t(k_len, torch.long), 15)
+    for b in range(3):
+        T, S = int(t_len[b]), int(k_len[b])
+        ll0, e0 = jhsmm.viterbi_segment(jnp.asarray(obs[b, :T, :S]),
+                                        jnp.asarray(dm[b, :S]),
+                                        jnp.asarray(dv[b, :S]), 15)
+        assert np.array_equal(ends[b, :S].numpy(), np.asarray(e0))
+        assert np.all(ends[b, S:].numpy() == 0)
+        assert abs(float(ll[b]) - float(ll0)) <= 1e-9 * abs(float(ll0))
+
+
+def test_k20_twin_breaks_a_forced_tie_as_jax():
+    """Zero log-likelihoods and duration means of 2.5: (2, 3) and (3, 2)
+    score exactly alike, and both take the smaller d at the end."""
+    obs = np.zeros((1, 5, 2))
+    dm = np.full((1, 2), 2.5)
+    dv = np.full((1, 2), 1.5)
+    ll, ends = hsmm.viterbi_segment_batch(_t(obs), _t(dm), _t(dv),
+                                          _t([5], torch.long),
+                                          _t([2], torch.long), 4)
+    ll0, e0 = jhsmm.viterbi_segment(jnp.asarray(obs[0]), jnp.asarray(dm[0]),
+                                    jnp.asarray(dv[0]), 4)
+    assert np.array_equal(np.asarray(e0), [3, 5])
+    assert np.array_equal(ends[0].numpy(), [3, 5])
+    assert float(ll[0]) == float(ll0)
+
+
+def test_k20_twin_padded_equals_unpadded():
+    obs, dm, dv, t_len, k_len = _vit_inputs(21)
+    obs[1, t_len[1]:] = 1e6          # garbage in the padding
+    obs[1, :, k_len[1]:] = -1e6
+    dm[1, k_len[1]:] = 0.1
+    ll, ends = hsmm.viterbi_segment_batch(
+        _t(obs), _t(dm), _t(dv), _t(t_len, torch.long),
+        _t(k_len, torch.long), 15)
+    T, S = int(t_len[1]), int(k_len[1])
+    l1, e1 = hsmm.viterbi_segment(_t(obs[1, :T, :S]), _t(dm[1, :S]),
+                                  _t(dv[1, :S]), 15)
+    assert float(l1) == float(ll[1])
+    assert np.array_equal(e1.numpy(), ends[1, :S].numpy())
+
+
+def _k20_numpy(obs, dm, dv, Dm):
+    """K20's arithmetic as the kernel runs it: sequential prefix sums, per
+    destination the d = 1..Dm terms in order with out-of-range ones
+    exactly LOG_ZERO, a strict > for the max, one walk back."""
+    T, S = obs.shape
+    NEG = hsmm.LOG_ZERO
+    cs = np.zeros((T + 1, S))
+    for t in range(T):
+        cs[t + 1] = cs[t] + obs[t]
+    delta = np.full(T + 1, NEG)
+    delta[0] = 0.0
+    bp = np.zeros((S, T + 1), np.int64)
+    for s in range(S):
+        dl = [-0.5 * (((d - dm[s]) * (d - dm[s])) / dv[s] + np.log(dv[s])
+                      + LOG_2PI) for d in range(1, Dm + 1)]
+        nxt = np.empty(T + 1)
+        for t in range(T + 1):
+            best, arg = 0.0, 0
+            for d in range(1, Dm + 1):
+                c = ((delta[t - d] + dl[d - 1]) + (cs[t, s] - cs[t - d, s])
+                     if t - d >= 0 else NEG)
+                if d == 1 or c > best:
+                    best, arg = c, d - 1
+            nxt[t], bp[s, t] = best, arg
+        delta = nxt
+    ends, te = [], T
+    for s in range(S - 1, -1, -1):
+        ends.append(te)
+        te -= bp[s, te] + 1
+    return delta[T], ends[::-1]
+
+
+def test_k20_arithmetic_in_numpy_matches_twin():
+    obs, dm, dv, _, _ = _vit_inputs(22, B=1, T=40, S=6)
+    ll, ends = hsmm.viterbi_segment(_t(obs[0]), _t(dm[0]), _t(dv[0]), 12)
+    l0, e0 = _k20_numpy(obs[0], dm[0], dv[0], 12)
+    assert list(ends.numpy()) == e0
+    assert abs(float(ll) - l0) <= 1e-12 * abs(l0)
