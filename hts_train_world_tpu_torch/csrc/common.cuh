@@ -48,3 +48,24 @@ __device__ __forceinline__ int block_sum_int(int v, int* red) {
   __syncthreads();
   return red[0];
 }
+
+__device__ __forceinline__ double warp_sum(double v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The float64 block sum, returned to every thread (`red`: 32 doubles).
+__device__ __forceinline__ double block_sum(double v, double* red) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  v = warp_sum(v);
+  __syncthreads();
+  if (lane == 0) red[wid] = v;
+  __syncthreads();
+  if (wid == 0) {
+    v = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.0;
+    v = warp_sum(v);
+    if (lane == 0) red[0] = v;
+  }
+  __syncthreads();
+  return red[0];
+}

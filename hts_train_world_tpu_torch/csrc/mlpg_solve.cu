@@ -12,6 +12,12 @@
 // (..., T, n_win, D) / (..., T, D), so the threads of a warp (neighbouring
 // dimensions) read and write neighbouring addresses.
 //
+// The kernel is a template on the scalar type: float for the feature lane,
+// double for generation (pgen's mlpg_streams, generate_em, make_mspf),
+// where MSD streams put variances x1e8 on unvoiced frames and leaves can sit
+// at variance 1e-8, so precisions span ~1e16, beyond a float32 LDL^T.  The
+// float instantiation is the same arithmetic as before the template.
+//
 // Bound: latency.  The recursion is strictly sequential: 2*T dependent steps
 // per thread, with B*D independent threads (1200 at the 48 kHz feature
 // shapes).  Bytes (means and variances read once, the output written once)
@@ -23,55 +29,56 @@ namespace {
 constexpr int THREADS = 128;
 constexpr int MAXW = 4;
 
+template <typename F>
 __global__ void __launch_bounds__(THREADS)
-mlpg_solve_kernel(const float* __restrict__ mu, const float* __restrict__ var,
+mlpg_solve_kernel(const F* __restrict__ mu, const F* __restrict__ var,
                   int B, int T, int nw, int D,
-                  const float* __restrict__ coef, float* __restrict__ zs,
-                  float* __restrict__ l1s, float* __restrict__ l2s,
-                  float* __restrict__ out) {
+                  const F* __restrict__ coef, F* __restrict__ zs,
+                  F* __restrict__ l1s, F* __restrict__ l2s,
+                  F* __restrict__ out) {
   const int g = blockIdx.x * THREADS + threadIdx.x;
   if (g >= B * D) return;
   const int b = g / D, d = g % D;
-  const float* mub = mu + (size_t)b * T * nw * D + d;
-  const float* vb = var + (size_t)b * T * nw * D + d;
+  const F* mub = mu + (size_t)b * T * nw * D + d;
+  const F* vb = var + (size_t)b * T * nw * D + d;
   const size_t ob = (size_t)b * T * D + d;
-  float c[MAXW][3];
+  F c[MAXW][3];
 #pragma unroll
   for (int w = 0; w < MAXW; ++w)
 #pragma unroll
-    for (int k = 0; k < 3; ++k) c[w][k] = w < nw ? coef[w * 3 + k] : 0.f;
+    for (int k = 0; k < 3; ++k) c[w][k] = w < nw ? coef[w * 3 + k] : F(0);
 
   // P / U [w][slot]: precision and mean at frame i-1+slot (0 outside [0, T))
-  float P[MAXW][3], U[MAXW][3];
+  F P[MAXW][3], U[MAXW][3];
 #pragma unroll
   for (int w = 0; w < MAXW; ++w) {
-    P[w][0] = U[w][0] = 0.f;
+    P[w][0] = U[w][0] = F(0);
 #pragma unroll
     for (int s = 1; s < 3; ++s) {
       const int t = s - 1;
       const bool ok = w < nw && t < T;
-      P[w][s] = ok ? 1.0f / vb[((size_t)t * nw + w) * D] : 0.f;
-      U[w][s] = ok ? mub[((size_t)t * nw + w) * D] : 0.f;
+      P[w][s] = ok ? F(1) / vb[((size_t)t * nw + w) * D] : F(0);
+      U[w][s] = ok ? mub[((size_t)t * nw + w) * D] : F(0);
     }
   }
 
-  float d1 = 1.f, d2 = 1.f, y1 = 0.f, y2 = 0.f, lp = 0.f;
+  F d1 = F(1), d2 = F(1), y1 = F(0), y2 = F(0), lp = F(0);
   for (int i = 0; i < T; ++i) {
     // row i: A[i,i], A[i-1,i], A[i-2,i] and rhs[i]
-    float a[3] = {0.f, 0.f, 0.f}, r = 0.f;
+    F a[3] = {F(0), F(0), F(0)}, r = F(0);
 #pragma unroll
     for (int w = 0; w < MAXW; ++w) {
 #pragma unroll
       for (int ki = 0; ki < 3; ++ki) {
-        const float wk = c[w][ki];
-        if (wk == 0.f) continue;
+        const F wk = c[w][ki];
+        if (wk == F(0)) continue;
         // rhs: frame t = i - k, slot 2 - ki
         const int t = i - (ki - 1);
         if (t >= 0 && t < T) r = r + P[w][2 - ki] * U[w][2 - ki] * wk;
 #pragma unroll
         for (int kj = ki; kj < 3; ++kj) {
-          const float wj = c[w][kj];
-          if (wj == 0.f) continue;
+          const F wj = c[w][kj];
+          if (wj == F(0)) continue;
           const int off = kj - ki;
           const int tt = i - (kj - 1);  // frame of the product, slot 2 - kj
           if (tt >= 0 && tt < T && i - off >= 0)
@@ -79,11 +86,11 @@ mlpg_solve_kernel(const float* __restrict__ mu, const float* __restrict__ var,
         }
       }
     }
-    const float ai1 = i >= 1 ? a[1] : 0.f, ai2 = i >= 2 ? a[2] : 0.f;
-    const float l2 = ai2 / d2;
-    const float l1 = (ai1 - l2 * d2 * lp) / d1;
-    const float di = a[0] - l1 * l1 * d1 - l2 * l2 * d2;
-    const float yi = r - l1 * y1 - l2 * y2;
+    const F ai1 = i >= 1 ? a[1] : F(0), ai2 = i >= 2 ? a[2] : F(0);
+    const F l2 = ai2 / d2;
+    const F l1 = (ai1 - l2 * d2 * lp) / d1;
+    const F di = a[0] - l1 * l1 * d1 - l2 * l2 * d2;
+    const F yi = r - l1 * y1 - l2 * y2;
     zs[ob + (size_t)i * D] = yi / di;
     l1s[ob + (size_t)i * D] = l1;
     l2s[ob + (size_t)i * D] = l2;
@@ -101,34 +108,46 @@ mlpg_solve_kernel(const float* __restrict__ mu, const float* __restrict__ var,
       P[w][1] = P[w][2];
       U[w][1] = U[w][2];
       const bool ok = w < nw && tn < T;
-      P[w][2] = ok ? 1.0f / vb[((size_t)tn * nw + w) * D] : 0.f;
-      U[w][2] = ok ? mub[((size_t)tn * nw + w) * D] : 0.f;
+      P[w][2] = ok ? F(1) / vb[((size_t)tn * nw + w) * D] : F(0);
+      U[w][2] = ok ? mub[((size_t)tn * nw + w) * D] : F(0);
     }
   }
 
-  float c1 = 0.f, c2 = 0.f;
+  F c1 = F(0), c2 = F(0);
   for (int i = T - 1; i >= 0; --i) {
-    const float ln1 = i + 1 < T ? l1s[ob + (size_t)(i + 1) * D] : 0.f;
-    const float ln2 = i + 2 < T ? l2s[ob + (size_t)(i + 2) * D] : 0.f;
-    const float ci = zs[ob + (size_t)i * D] - ln1 * c1 - ln2 * c2;
+    const F ln1 = i + 1 < T ? l1s[ob + (size_t)(i + 1) * D] : F(0);
+    const F ln2 = i + 2 < T ? l2s[ob + (size_t)(i + 2) * D] : F(0);
+    const F ci = zs[ob + (size_t)i * D] - ln1 * c1 - ln2 * c2;
     out[ob + (size_t)i * D] = ci;
     c2 = c1;
     c1 = ci;
   }
 }
 
-}  // namespace
-
-extern "C" int mlpg_solve_launch(const float* mu, const float* var, int B,
-                                 int T, int nw, int D, const float* coef,
-                                 float* scratch, float* out, cudaStream_t s) {
+template <typename F>
+int launch(const void* mu, const void* var, int B, int T, int nw, int D,
+           const void* coef, void* scratch_, void* out, cudaStream_t s) {
   if (nw > MAXW) return (int)cudaErrorInvalidValue;
+  F* scratch = static_cast<F*>(scratch_);
   const int n = B * D;
   if (n > 0 && T > 0) {
     const size_t plane = (size_t)B * T * D;
-    mlpg_solve_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0, s>>>(
-        mu, var, B, T, nw, D, coef, scratch, scratch + plane,
-        scratch + 2 * plane, out);
+    mlpg_solve_kernel<F><<<(n + THREADS - 1) / THREADS, THREADS, 0, s>>>(
+        static_cast<const F*>(mu), static_cast<const F*>(var), B, T, nw, D,
+        static_cast<const F*>(coef), scratch, scratch + plane,
+        scratch + 2 * plane, static_cast<F*>(out));
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// f64: 0 for float tensors, 1 for double (means, variances, coefficients,
+// scratch and output alike).
+extern "C" int mlpg_solve_launch(const void* mu, const void* var, int B,
+                                 int T, int nw, int D, const void* coef,
+                                 int f64, void* scratch, void* out,
+                                 cudaStream_t s) {
+  return f64 ? launch<double>(mu, var, B, T, nw, D, coef, scratch, out, s)
+             : launch<float>(mu, var, B, T, nw, D, coef, scratch, out, s);
 }

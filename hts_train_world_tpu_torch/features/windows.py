@@ -8,7 +8,8 @@ are [1], [-0.5, 0, 0.5], [1, -2, 1].
 
 `expand` runs as kernel K7 (csrc/delta_window.cu) for CUDA tensors and as
 its plain twin `expand_plain` (shifted adds) for CPU tensors; the two do
-the same f32 operations in the same order, so they agree bit for bit.
+the same operations in the same order, so they agree bit for bit, in
+float32 (the feature lane) or float64 (composition and generation).
 """
 from __future__ import annotations
 
@@ -66,9 +67,9 @@ def expand_plain(x, windows=DEFAULT_WINDOWS):
 
 
 @functools.lru_cache(maxsize=None)
-def _window_table(windows: tuple, device):
+def _window_table(windows: tuple, dtype, device):
     """(coefficients, support) of the windows centred in a common odd
-    width, as f32 (n_win, width) tensors on `device`."""
+    width, as (n_win, width) tensors of `dtype` on `device`."""
     nlr = max((len(w) - 1) // 2 for w in windows)
     width = 2 * nlr + 1
     coef = np.zeros((len(windows), width))
@@ -78,8 +79,8 @@ def _window_table(windows: tuple, device):
         o = nlr - (len(w) - 1) // 2
         coef[i, o:o + len(w)] = w
         sup[i, o:o + len(w)] = _support(w)
-    return (torch.as_tensor(coef, dtype=torch.float32, device=device),
-            torch.as_tensor(sup, dtype=torch.float32, device=device))
+    return (torch.as_tensor(coef, dtype=dtype, device=device),
+            torch.as_tensor(sup, dtype=dtype, device=device))
 
 
 def expand(x, windows=DEFAULT_WINDOWS):
@@ -87,19 +88,20 @@ def expand(x, windows=DEFAULT_WINDOWS):
     in the order [static | delta | delta-delta] (window.pl's layout)."""
     if not x.is_cuda:
         return expand_plain(x, windows)
-    if x.dtype != torch.float32 or x.dim() < 2:
-        raise ValueError("expand: f32 statics (..., T, D)")
+    if x.dtype not in (torch.float32, torch.float64) or x.dim() < 2:
+        raise ValueError("expand: f32 or f64 statics (..., T, D)")
     if any(len(w) % 2 == 0 for w in windows):
         raise ValueError("expand: windows of odd length")
     *lead, T, D = x.shape
     xc = x.reshape(-1, T, D).contiguous()
     key = tuple(tuple(float(v) for v in w) for w in windows)
-    coef, sup = _window_table(key, x.device)
+    coef, sup = _window_table(key, x.dtype, x.device)
     kernels.check_cuda("expand", xc, coef, sup)
     out = torch.empty((xc.shape[0], T, len(windows) * D), dtype=x.dtype,
                       device=x.device)
     kernels.launch("delta_window", [
         xc.data_ptr(), xc.shape[0], T, D, coef.data_ptr(), sup.data_ptr(),
-        coef.shape[0], coef.shape[1], out.data_ptr()],
+        coef.shape[0], coef.shape[1], int(x.dtype == torch.float64),
+        out.data_ptr()],
         dict(x=x, windows=windows))
     return out.reshape(*lead, T, len(windows) * D)

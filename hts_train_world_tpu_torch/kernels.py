@@ -1,7 +1,8 @@
 """Build, load and launch the hand-written CUDA kernels.
 
-Each source under `csrc/` is compiled by `nvcc` for `sm_90a` into its own
-shared library with a plain C interface, loaded with `ctypes`.  Nothing
+Twenty-three kernels, K1-K23 (`KERNELS`).  Each source under `csrc/` is
+compiled by `nvcc` for `sm_90a` into its own shared library with a plain
+C interface, loaded with `ctypes`.  Nothing
 happens at import time: the first launch builds every kernel (one `nvcc`
 per source, all started together) into `<repo>/.torch_ext_build/<hash>/`,
 keyed by a hash of the sources and flags, so an unchanged tree reuses the
@@ -54,9 +55,9 @@ KERNELS = {
     "codec_encode": ("codec_encode.cu", "codec_encode_launch",
                      [_P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P]),
     "delta_window": ("delta_window.cu", "delta_window_launch",
-                     [_P, _I, _I, _I, _P, _P, _I, _I, _P]),
+                     [_P, _I, _I, _I, _P, _P, _I, _I, _I, _P]),
     "mlpg_solve": ("mlpg_solve.cu", "mlpg_solve_launch",
-                   [_P, _P, _I, _I, _I, _I, _P, _P, _P]),
+                   [_P, _P, _I, _I, _I, _I, _P, _I, _P, _P]),
     "synth_time_base": ("synth_time_base.cu", "synth_time_base_launch",
                         [_P, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P,
                          _P, _P]),
@@ -91,6 +92,12 @@ KERNELS = {
     "hsmm_viterbi": ("hsmm_viterbi.cu", "hsmm_viterbi_launch",
                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                       _P]),
+    "mspf": ("mspf.cu", "mspf_launch",
+             [_P, _I, _I, _I, _P, _P, _P, _P, _D, _I, _P, _P, _P, _P]),
+    "mcep_postfilter": ("mcep_postfilter.cu", "mcep_postfilter_launch",
+                        [_P, _I, _I, _P, _I, _D, _P]),
+    "gv_scale": ("gv_scale.cu", "gv_scale_launch",
+                 [_P, _I, _I, _P, _D, _P, _P]),
 }
 
 launches: collections.Counter = collections.Counter()

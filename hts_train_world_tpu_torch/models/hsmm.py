@@ -803,3 +803,45 @@ def daem_reestimate(modelset: ModelSet, utterances, n_outer: int = 10,
                                 max_dur=max_dur, log=log,
                                 mode="baum_welch", temper=k, device=device)
     return modelset
+
+
+# ---------------------------------------------------------------------------
+# parameter generation (HMGenS equivalent)
+# ---------------------------------------------------------------------------
+
+
+def generate_from_models(modelset: ModelSet, label_seq: Sequence[str],
+                         speaking_rate: float = 1.0):
+    """HMGenS pgtype-0 equivalent over monophones: state durations from the
+    duration Gaussians (round(mean * rate), >= 1; np.round, half to even),
+    then frame-level means/variances per stream ready for MLPG, the frame
+    V/UV (lf0 weight > 0.5) and the durations, as host numpy."""
+    S = modelset.n_states
+    durs = []
+    for name in label_seq:
+        mi = modelset.index(name)
+        d = np.maximum(1, np.round(
+            modelset.dur_mean[mi] * speaking_rate)).astype(int)
+        durs.append(d)
+    durs = np.concatenate(durs)
+    means = {st.name: [] for st in modelset.streams}
+    vars_ = {st.name: [] for st in modelset.streams}
+    vuv = []
+    k = 0
+    for name in label_seq:
+        mi = modelset.index(name)
+        for s in range(S):
+            d = durs[k]
+            k += 1
+            for st in modelset.streams:
+                means[st.name].append(
+                    np.repeat(modelset.means[st.name][mi, s][None], d, 0))
+                vars_[st.name].append(
+                    np.repeat(modelset.variances[st.name][mi, s][None],
+                              d, 0))
+            w = (modelset.msd_weights["lf0"][mi, s]
+                 if "lf0" in modelset.msd_weights else 1.0)
+            vuv.append(np.full(d, w > 0.5))
+    return ({k: np.concatenate(v) for k, v in means.items()},
+            {k: np.concatenate(v) for k, v in vars_.items()},
+            np.concatenate(vuv), durs)

@@ -15,17 +15,21 @@ flow on the MSD-HSMM stack:
           (HSMMAlign on the tied mmf, Training.pl:601-618)
   MCDGV   context-dependent GV models from per-utterance static
           variances (Training.pl:620-685, make_data_gv :1402-1491)
+  MSPF    natural vs generated modulation-spectrum statistics under the
+          forced alignment (make_mspf, Training.pl:687-724; K8, K21)
+  PGEN/WGEN  label sequence -> waveform (synthesize_utterance,
+          Training.pl:730-759; models/pgen.py)
   CONVM   .htsvoice export incl. GV sections (export;
           Training.pl:761-797)
 
-The E-steps and alignments run on the card (`device="cuda"`, the default;
-K17-K20) or, with `device="cpu"`, through the kernels' plain twins; the
-tree search and the M-steps are host numpy.  Not in the port yet: SEMIT and
-UPMIX (`cfg.semitied`, `cfg.upmix`: ROADMAP Queue A 7), MSPF and
-PGEN/WGEN (`cfg.use_mspf`, `synthesize_utterance`, `make_mspf`: Queue A 2);
-the first three raise NotImplementedError.  `RecipeState.stage_seconds`
+The E-steps, alignments and generation run on the card (`device="cuda"`,
+the default; K17-K20, K8, K21) or, with `device="cpu"`, through the
+kernels' plain twins; the tree search and the M-steps are host numpy.
+Not in the port yet: SEMIT and UPMIX (`cfg.semitied`, `cfg.upmix`: ROADMAP
+Queue A 7), which raise NotImplementedError.  `RecipeState.stage_seconds`
 records each stage's wall time (host clock; every stage ends in a read of
-its results to the host).
+its results to the host).  `state_from_numpy` builds a RecipeState from
+plain parts (a voice trained elsewhere, e.g. by the JAX package).
 """
 from __future__ import annotations
 
@@ -36,8 +40,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from hts_train_world_tpu_torch import device as device_mod
-from hts_train_world_tpu_torch.models import context_clustered, gv_model, hsmm
+from hts_train_world_tpu_torch.models import clustering, context_clustered
+from hts_train_world_tpu_torch.models import gv_model, hsmm
 from hts_train_world_tpu_torch.models import hsmm_batch as hb
+from hts_train_world_tpu_torch.models import pgen as pgen_mod
+from hts_train_world_tpu_torch.ops import postfilter as pf_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,10 +92,10 @@ class RecipeState:
     semitied: Optional[object] = None     # SEMIT: not in the port yet
     alignments: Optional[Dict[int, np.ndarray]] = None
     gv: Optional[gv_model.GVModel] = None
-    mspf: Optional[tuple] = None          # MSPF: not in the port yet
+    mspf: Optional[tuple] = None          # (nat, gen) MspfStats
     log_history: List[str] = dataclasses.field(default_factory=list)
     # stage -> wall seconds: IN_RE, ERST0, CXCL estep, CXCL trees, ERST2,
-    # CXCL2 estep, CXCL2 trees, ERST4, FALGN, MCDGV (those that ran)
+    # CXCL2 estep, CXCL2 trees, ERST4, FALGN, MCDGV, MSPF (those that ran)
     stage_seconds: Dict[str, float] = dataclasses.field(
         default_factory=dict)
 
@@ -107,8 +114,7 @@ def train_voice(corpus, questions, cfg: RecipeConfig = RecipeConfig(),
     E-steps and alignments run ("cuda" raises without a card).
     """
     for flag, what, queue in (("semitied", "SEMIT", "Queue A 7"),
-                              ("upmix", "UPMIX/ERST5", "Queue A 7"),
-                              ("use_mspf", "MSPF", "Queue A 2")):
+                              ("upmix", "UPMIX/ERST5", "Queue A 7")):
         if getattr(cfg, flag):
             raise NotImplementedError(
                 f"cfg.{flag} ({what}) is not in the port yet (ROADMAP "
@@ -267,6 +273,12 @@ def train_voice(corpus, questions, cfg: RecipeConfig = RecipeConfig(),
         state.gv = make_gv(state, corpus, cfg, questions)
         lap("MCDGV")
 
+    # ---- MSPF: modulation-spectrum postfilter statistics --------------
+    if cfg.use_mspf:
+        say("MSPF: natural/generated modulation-spectrum statistics")
+        state.mspf = make_mspf(state, corpus, cfg, device)
+        lap("MSPF")
+
     say("recipe complete")
     return state
 
@@ -318,6 +330,88 @@ def make_gv(state: RecipeState, corpus, cfg: RecipeConfig,
     return gv_model.build_gv_model(
         stats, questions, mdl_factor=cfg.mdl_factor,
         min_occupancy=cfg.min_occupancy, context_dependent=cfg.cdgv)
+
+
+# ---------------------------------------------------------------------------
+# MSPF (Training.pl:687-724) — natural vs aligned-generation stats
+# ---------------------------------------------------------------------------
+
+
+def make_mspf(state: RecipeState, corpus, cfg: RecipeConfig, device="cuda"):
+    """Natural mgc statics vs parameters generated under the FORCED
+    alignment (HMGenS -m with fal labels, Training.pl:713-721): the two
+    modulation-spectrum statistics the postfilter maps between.  Per
+    aligned utterance one MLPG (K8) on `device`; each set of trajectories
+    analysed by K21, one launch an utterance."""
+    dev = device_mod.resolve(device)
+    model = state.clustered
+    mgc_st = next(st for st in model.streams if st.name == "mgc")
+    nat_trajs, gen_trajs = [], []
+    for ui, (frames, ctx_seq) in enumerate(corpus):
+        ends = state.alignments.get(ui)
+        if ends is None:
+            continue
+        durs = np.diff(np.concatenate([[0], ends]))
+        fp = pgen_mod.frame_params(model, ctx_seq, durs, dev)
+        statics = pgen_mod.mlpg_streams(fp, model.streams, cfg.n_win)
+        nat_trajs.append(_statics(frames, mgc_st, cfg.n_win))
+        gen_trajs.append(statics["mgc"])
+    nat = pf_mod.mspf_stats(nat_trajs, dev)
+    gen = pf_mod.mspf_stats(gen_trajs, dev)
+    return nat, gen
+
+
+# ---------------------------------------------------------------------------
+# PGEN + WGEN (Training.pl:730-759) — label sequence -> waveform
+# ---------------------------------------------------------------------------
+
+
+def synthesize_utterance(state: RecipeState, label_seq: Sequence[str],
+                         cfg: RecipeConfig, fs: int,
+                         frame_period: float = 5.0, fft_size: int = 0,
+                         rho: float = 0.0, durs=None, noise=None,
+                         seed: int = 0, device="cuda"):
+    """Generate one utterance from the trained voice: durations (pgtype /
+    rho) -> MLPG -> GV -> postfilter -> WORLD synthesis.  Returns
+    (waveform, statics, vuv, durs): the waveform a float32 tensor, the
+    statics float64 tensors and vuv a bool tensor on `device`, durs numpy.
+    `noise` (y_length+16,) replaces synthesis's draw from `seed`."""
+    gcfg = pgen_mod.GenConfig(
+        pgtype=cfg.pgtype, rho=rho, max_dur=cfg.max_dur, n_win=cfg.n_win,
+        use_gv=cfg.use_gv and state.gv is not None,
+        postfilter_mcp=cfg.postfilter_mcp, alpha=cfg.alpha)
+    statics, vuv, durs = pgen_mod.generate_parameters(
+        state.clustered, label_seq, gcfg, gv_model=state.gv, durs=durs,
+        mspf=state.mspf if cfg.use_mspf else None,
+        mspf_weight=cfg.mspf_weight, device=device)
+    y = pgen_mod.generate_waveform(statics, vuv, fs, fft_size,
+                                   frame_period, noise=noise, seed=seed,
+                                   device=device)
+    return y, statics, vuv, durs
+
+
+def state_from_numpy(clustered, gv=None, mspf=None, alignments=None,
+                     gv_context_dependent: bool = True) -> RecipeState:
+    """A RecipeState from plain parts: `clustered` the dict of
+    `ClusteredModel.to_plain`; `gv` {stream: `Tree.to_plain` pair} or
+    None; `mspf` ((nat_mean, nat_std), (gen_mean, gen_std)) arrays or
+    None; `alignments` {utterance: state end frames}.  `to_plain` reads
+    attributes only, so this carries a voice trained by the JAX package
+    across."""
+    g = None
+    if gv is not None:
+        g = gv_model.GVModel({n: clustering.tree_from_plain(*t)
+                              for n, t in gv.items()}, gv_context_dependent)
+    m = None
+    if mspf is not None:
+        m = tuple(pf_mod.MspfStats(np.array(mean, dtype=np.float64),
+                                   np.array(std, dtype=np.float64))
+                  for mean, std in mspf)
+    return RecipeState(
+        clustered=context_clustered.clustered_from_plain(clustered),
+        alignments=None if alignments is None else {
+            int(k): np.array(v) for k, v in alignments.items()},
+        gv=g, mspf=m)
 
 
 def export(state: RecipeState, path: str, fs: int, frame_shift: int,

@@ -196,22 +196,19 @@ def freqt_matrix(m1: int, m2: int, a: float):
     run on unit vectors with the C's update order (d = old g; g[j] uses
     the new g[j-1])."""
     b = 1.0 - a * a
-    T = np.zeros((m1 + 1, m2 + 1))
-    for u in range(m1 + 1):
-        c1 = np.zeros(m1 + 1)
-        c1[u] = 1.0
-        g = np.zeros(m2 + 1)
-        for i in range(-m1, 1):
-            d = g.copy()
-            gn = np.empty(m2 + 1)
-            gn[0] = c1[-i] + a * d[0]
-            if m2 >= 1:
-                gn[1] = b * d[0] + a * d[1]
-            for j in range(2, m2 + 1):
-                gn[j] = d[j - 1] + a * (d[j] - gn[j - 1])
-            g = gn
-        T[u] = g
-    return T
+    # row u of c1 is the unit vector e_u: all rows run at once, each with
+    # the same scalar operations in the same order
+    c1 = np.eye(m1 + 1)
+    g = np.zeros((m1 + 1, m2 + 1))
+    for i in range(-m1, 1):
+        d = g
+        g = np.empty((m1 + 1, m2 + 1))
+        g[:, 0] = c1[:, -i] + a * d[:, 0]
+        if m2 >= 1:
+            g[:, 1] = b * d[:, 0] + a * d[:, 1]
+        for j in range(2, m2 + 1):
+            g[:, j] = d[:, j - 1] + a * (d[:, j] - g[:, j - 1])
+    return g
 
 
 def mgc2sp_real(mgc, alpha: float, fft_size: int):

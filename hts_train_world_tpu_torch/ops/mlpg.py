@@ -9,7 +9,8 @@ recursion over frames and a back substitution.  Window taps outside
 
 `mlpg` runs kernel K8 (csrc/mlpg_solve.cu) for CUDA tensors: one thread
 per (utterance, dimension) builds the bands on the fly and runs both
-recursions.  `mlpg_plain` (`build_banded_normal` + `banded_ldlt_solve`) is
+recursions, in float32 (the feature lane) or float64 (generation, where
+precisions span ~1e16), whichever its inputs hold.  `mlpg_plain` (`build_banded_normal` + `banded_ldlt_solve`) is
 its plain twin, run for CPU tensors; it accumulates the bands in the JAX
 package's order, and the kernel does the same operations.  Statics-only
 windows have a closed form and launch nothing.
@@ -111,39 +112,42 @@ def mlpg_plain(means, variances, windows=DEFAULT_WINDOWS):
 
 
 @functools.lru_cache(maxsize=None)
-def _window_table(windows: tuple, device):
-    """Window coefficients centred in 3 taps, f32 (n_win, 3)."""
+def _window_table(windows: tuple, dtype, device):
+    """Window coefficients centred in 3 taps, (n_win, 3) of `dtype`."""
     coef = np.zeros((len(windows), 3))
     for i, w in enumerate(windows):
         o = 1 - (len(w) - 1) // 2
         coef[i, o:o + len(w)] = w
-    return torch.as_tensor(coef, dtype=torch.float32, device=device)
+    return torch.as_tensor(coef, dtype=dtype, device=device)
 
 
 def mlpg(means, variances, windows=DEFAULT_WINDOWS):
-    """K8: means, variances (..., T, n_win, D) -> statics (..., T, D)."""
+    """K8: means, variances (..., T, n_win, D) -> statics (..., T, D), in
+    the inputs' dtype (float32 or float64 on the card)."""
     wins = tuple(tuple(float(v) for v in w) for w in windows)
     if window_bandwidth(wins) == 0:
         return _statics_only(means, variances)
     if not means.is_cuda:
         return mlpg_plain(means, variances, wins)
     *lead, T, n_win, D = means.shape
-    if (means.dtype != torch.float32 or variances.shape != means.shape
-            or variances.dtype != torch.float32 or n_win != len(wins)
-            or n_win > MAX_WINDOWS or window_bandwidth(wins) != 1
+    dt = means.dtype
+    if (dt not in (torch.float32, torch.float64)
+            or variances.shape != means.shape or variances.dtype != dt
+            or n_win != len(wins) or n_win > MAX_WINDOWS
+            or window_bandwidth(wins) != 1
             or any(len(w) % 2 == 0 for w in wins)):
-        raise ValueError("mlpg: f32 means/variances (..., T, n_win, D), "
-                         f"at most {MAX_WINDOWS} odd windows of <= 3 taps")
+        raise ValueError("mlpg: f32 or f64 means/variances (..., T, n_win, "
+                         f"D) of one dtype, at most {MAX_WINDOWS} odd "
+                         "windows of <= 3 taps")
     mu = means.reshape(-1, T, n_win, D).contiguous()
     var = variances.reshape(-1, T, n_win, D).contiguous()
-    coef = _window_table(wins, means.device)
+    coef = _window_table(wins, dt, means.device)
     kernels.check_cuda("mlpg", mu, var, coef)
     B = mu.shape[0]
-    scratch = torch.empty((3, B, T, D), dtype=torch.float32,
-                          device=means.device)
-    out = torch.empty((B, T, D), dtype=torch.float32, device=means.device)
+    scratch = torch.empty((3, B, T, D), dtype=dt, device=means.device)
+    out = torch.empty((B, T, D), dtype=dt, device=means.device)
     kernels.launch("mlpg_solve", [
         mu.data_ptr(), var.data_ptr(), B, T, n_win, D, coef.data_ptr(),
-        scratch.data_ptr(), out.data_ptr()],
+        int(dt == torch.float64), scratch.data_ptr(), out.data_ptr()],
         dict(means=means, variances=variances, windows=windows))
     return out.reshape(*lead, T, D)

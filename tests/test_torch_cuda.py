@@ -229,7 +229,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         prims.top_k_threshold_sum(ps.float(), 2000)
     with pytest.raises(ValueError):
-        windows.expand(ps[None])
+        windows.expand(ps[None].half())
+    with pytest.raises(ValueError):
+        mlpg.mlpg(torch.ones((1, 5, 3, 2), device=cuda),
+                  torch.ones((1, 5, 3, 2), dtype=torch.float64, device=cuda))
     with pytest.raises(ValueError):
         mlpg.mlpg(torch.ones((1, 5, 3, 2), device=cuda),
                   torch.ones((1, 5, 3, 2), device=cuda),
@@ -1017,3 +1020,186 @@ def test_k20_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         hsmm.viterbi_segment_batch(obs, dm, dm, n.int(), n, 4)
     with pytest.raises(ValueError):
         hsmm.viterbi_segment_batch(obs, dm, dm, n, n, 40000)
+
+
+# ---------------------------------------------------------------------------
+# the generation lane: K21-K23, K7/K8 in float64, synthesize_utterance
+# ---------------------------------------------------------------------------
+
+
+def _gen_traj(T, D, seed, dev):
+    rng = np.random.default_rng(seed)
+    x = np.cumsum(rng.standard_normal((T, D)) * 0.1, axis=0) \
+        + rng.standard_normal(D)[None] * 2.0
+    return torch.as_tensor(x, dtype=torch.float64, device=dev)
+
+
+@pytest.mark.parametrize("T", [37, 400, 1100])
+def test_k21_kernel_matches_plain(cuda, T):
+    """Analysis (ms) and the postfilter against the twin on the card, D 50,
+    statistics from trajectories (as make_mspf gathers them)."""
+    from hts_train_world_tpu_torch.ops import postfilter as pf
+    D = 50
+    x = _gen_traj(T, D, T, cuda)
+    nat = pf.mspf_stats([_gen_traj(n, D, n + 1, cuda) for n in (90, 211)],
+                        cuda)
+    gen = pf.mspf_stats([_gen_traj(n, D, n + 2, cuda) for n in (150, 301)],
+                        cuda)
+    kernels.reset_counts()
+    ms = pf.mspf(x)
+    ms_p = pf.mspf_plain(x)
+    assert ms.shape == (D, pf.n_frames(T), 33)
+    mk, mq = ms.exp(), ms_p.exp()
+    assert ((mk - mq).abs().amax((1, 2)) <= 1e-9 * mq.amax((1, 2))).all()
+    y = pf.apply_mspf(x, nat, gen, 0.8)
+    stats = tuple(torch.as_tensor(a, device=cuda) for a in
+                  (nat.mean, nat.std, gen.mean, gen.std))
+    y_p = pf.mspf_plain(x, stats, 0.8)
+    assert kernels.launches["mspf"] == 2
+    assert ((y - y_p).abs().amax(0) <= 1e-9 * y_p.abs().amax(0)).all()
+    # deterministic: the gather overlap-add adds in one order
+    assert torch.equal(pf.apply_mspf(x, nat, gen, 0.8), y)
+
+
+def test_k21_zero_gen_std_gives_the_twin_non_finite(cuda):
+    from hts_train_world_tpu_torch.ops import postfilter as pf
+    x = _gen_traj(60, 3, 5, cuda)
+    st = pf.mspf_stats([_gen_traj(90, 3, 6, cuda)], cuda)
+    st.std[1, ::3] = 0.0
+    y = pf.apply_mspf(x, st, st, 1.0)
+    y_p = pf.mspf_plain(x, tuple(torch.as_tensor(a, device=cuda) for a in
+                                 (st.mean, st.std, st.mean, st.std)), 1.0)
+    assert not torch.isfinite(y[:, 1]).any()
+    assert torch.equal(torch.isfinite(y), torch.isfinite(y_p))
+
+
+@pytest.mark.parametrize("fft_size", [1024, 4096])
+def test_k22_kernel_matches_plain(cuda, fft_size):
+    from hts_train_world_tpu_torch.ops import postfilter as pf
+    rng = np.random.default_rng(fft_size)
+    mgc = rng.standard_normal((300, 50)) * 0.3 / (1.0 + np.arange(50))
+    mgc[:, 0] -= 2.0
+    x = torch.as_tensor(mgc, device=cuda)
+    kernels.reset_counts()
+    got = pf.mcep_postfilter(x, 0.42, 1.4, fft_size)
+    want = pf.mcep_postfilter_plain(x, 0.42, 1.4, fft_size)
+    assert kernels.launches["mcep_postfilter"] == 1
+    assert ((got - want).abs() <= 1e-9 * (1.0 + want.abs())).all()
+    assert (got[:, 0] - x[:, 0]).abs().max() > 1e-3
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("weight", [1.0, 0.5])
+def test_k23_kernel_matches_plain(cuda, masked, weight):
+    from hts_train_world_tpu_torch.ops import gv
+    rng = np.random.default_rng(int(masked))
+    x = rng.standard_normal((900, 50)) * rng.uniform(0.1, 3.0, 50)
+    x[:, 7] = 2.0
+    mask = None
+    if masked:
+        x = x[:, :1]
+        v = rng.random(900) > 0.4
+        x[~v] = -1.0e10
+        mask = torch.as_tensor(v, device=cuda)
+    xt = torch.as_tensor(x, device=cuda)
+    g = rng.uniform(0.2, 2.0, x.shape[1])
+    kernels.reset_counts()
+    got = gv.gv_scale(xt, g, weight, mask)
+    want = gv.gv_scale_plain(xt, g, weight, mask)
+    assert kernels.launches["gv_scale"] == 1
+    assert ((got - want).abs().amax(0) <= 1e-9 * want.abs().amax(0)).all()
+    if masked:
+        assert torch.equal(got[~mask], xt[~mask])
+        few = torch.zeros_like(mask)
+        few[:2] = True
+        assert torch.equal(gv.gv_scale(xt, g, weight, few), xt)
+
+
+def test_k8_float64_kernel_matches_plain_at_a_1e16_spread(cuda):
+    rng = np.random.default_rng(8)
+    T, D = 700, 77
+    mu = rng.standard_normal((T, 3, D))
+    var = rng.uniform(0.05, 2.0, (T, 3, D))
+    var[T // 4:T // 2] *= 1e8
+    var[T // 2:T // 2 + 7] = 1e-8
+    m, v = (torch.as_tensor(a, device=cuda) for a in (mu, var))
+    kernels.reset_counts()
+    got = mlpg.mlpg(m, v)
+    assert got.dtype == torch.float64
+    assert kernels.launches["mlpg_solve"] == 1
+    want = mlpg.mlpg_plain(m, v)
+    assert ((got - want).abs() <= 1e-9 * want.abs().amax(0)).all()
+
+
+def test_k7_float64_kernel_bit_equal_to_plain(cuda):
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((3, 500, 25)) * 1e3
+    x[0, 40:44, 3] = -1.0e10
+    xt = torch.as_tensor(x, device=cuda)
+    kernels.reset_counts()
+    got = windows.expand(xt)
+    assert got.dtype == torch.float64
+    assert kernels.launches["delta_window"] == 1
+    assert torch.equal(got, windows.expand_plain(xt))
+
+
+def test_generation_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from hts_train_world_tpu_torch.ops import gv
+    from hts_train_world_tpu_torch.ops import postfilter as pf
+    x = torch.zeros((40, 5), device=cuda)
+    with pytest.raises(ValueError):
+        pf.mspf(x)
+    with pytest.raises(ValueError):
+        pf.mspf(x.double(), (x.double(),) * 4)
+    with pytest.raises(ValueError):
+        pf.mcep_postfilter(x, 0.42)
+    with pytest.raises(ValueError):
+        pf.mcep_postfilter(torch.zeros((4, 300), dtype=torch.float64,
+                                       device=cuda), 0.42)
+    with pytest.raises(ValueError):
+        gv.gv_scale(x, np.ones(5))
+    with pytest.raises(ValueError):
+        gv.gv_scale(x.double(), np.ones(5), mask=torch.ones(
+            40, dtype=torch.uint8, device=cuda))
+
+
+def test_synthesize_utterance_matches_the_cpu_path(cuda):
+    """tests/test_voice_build.py's corpus, its voice trained once on the
+    card; generation on the card against the CPU path from that voice:
+    the same durations and V/UV, statics within 1e-9, the waveform on
+    injected noise within the synth lane's float32 bounds."""
+    import dataclasses
+    from hts_train_world_tpu_torch.features import compose, qconf
+    from hts_train_world_tpu_torch.models import clustering, pgen, recipe
+    corpus, spans, lay = chip_smoke.voice_tiny_corpus(bucketing, compose,
+                                                      "cuda")
+    cfg_t = recipe.RecipeConfig(**chip_smoke.VOICE_TINY_RECIPE)
+    qs = clustering.questions_from_config(
+        qconf.parse_config(chip_smoke.VOICE_TINY_QUESTIONS))
+    st = recipe.train_voice(corpus, qs, cfg_t,
+                            streams=hsmm.world_streams(lay),
+                            bootstrap_spans=spans, log=lambda m: None)
+    labels = [f"x^x-{p}+x=x/E:1]" for p in ("sil", "n2", "n0", "n1", "sil")]
+    d = pgen.state_durations(st.clustered, labels)
+    yl = cfg.y_length_for(int(d.sum()), 5.0, 16000)
+    noise = np.random.default_rng(3).standard_normal(
+        syn.synthesis_stream_len(yl))
+    for variant in (cfg_t, dataclasses.replace(cfg_t, use_mspf=False,
+                                               postfilter_mcp=1.4)):
+        kernels.reset_counts()
+        yg, sg, vg, dg = recipe.synthesize_utterance(st, labels, variant,
+                                                     16000, noise=noise)
+        assert kernels.launches["gv_scale"] == 2
+        assert kernels.launches["mspf" if variant.use_mspf
+                                else "mcep_postfilter"] == 1
+        yc, sc, vc, dc = recipe.synthesize_utterance(
+            st, labels, variant, 16000, noise=noise, device="cpu")
+        assert np.array_equal(dg, dc) and torch.equal(vg.cpu(), vc)
+        for n in sc:
+            live = sc[n] != pgen.MAGIC
+            assert torch.equal(sg[n].cpu() != pgen.MAGIC, live)
+            assert ((sg[n].cpu() - sc[n]).abs()[live].max()
+                    <= 1e-9 * sc[n].abs()[live].max())
+        yg, yc = yg.cpu().double(), yc.double()
+        assert (yg - yc).abs().max() <= 1e-3 * yc.abs().max()
+        assert abs(float(yg.pow(2).sum() / yc.pow(2).sum()) - 1.0) <= 1e-3
