@@ -33,9 +33,15 @@ Drives the port's paths at full size on a corpus made from a seed:
   231), `train_voice(RecipeConfig(use_mspf=True))`, `recipe.export` and
   `engine.synthesize` of 16 unseen phrases (PGEN: durations, MLPG, GV,
   MSPF; WGEN: decode and WORLD synthesis), plus the mcep postfilter and
-  pgtype 1 through `recipe.synthesize_utterance`.
+  pgtype 1 through `recipe.synthesize_utterance`;
+- the corpus pipeline's front half (`runtime.pipeline.SingingPipeline`,
+  ANALYZE -> COMPOSE -> STATS -> HALGN -> MKDAT): 64 sung phrases at 48 kHz
+  with vibrato on the long notes, as wav files and HTS labels with note
+  names on disk, to lf0 (2) / mgc (50) / bap (25) / vib (2) streams, HTK
+  cmp files (D = 237), statistics, state and phone alignments and ffi
+  label features.
 
-Twenty-three kernels, K1-K23, are built, driven and held to their twins.
+Twenty-seven kernels, K1-K27, are built, driven and held to their twins.
 
 Phases (any failure raises):
 
@@ -97,7 +103,18 @@ Phases (any failure raises):
    tests/test_voice_build.py's small corpus (16 kHz, mgc 12) the voice
    trained on the card and on the CPU (the same voice), generation from
    it on both (statics within 1e-9), and the exported file against the
-   state.
+   state;
+13. the pipeline lane: `run(upto="MKDAT")` counted stage by stage (ANALYZE
+   K1-K6 and K24-K27, COMPOSE K7 in float64, HALGN K7 and K17-K20), ANALYZE
+   under the profiler; the wall seconds of each stage, ANALYZE's loader,
+   extraction, LOWESS/vibrato and file writes, its audio-seconds per
+   second and device idle share, HALGN's `train_voice` stage seconds, the
+   voiced runs and the vibrato found against the one sung; gates on every
+   stage's files (frame counts, the cmp header, finite values, alignment
+   ends, ffi width); and on tests/test_torch_pipeline.py's corpus (16 kHz)
+   the front half on the card and on the CPU (streams within the CPU
+   tests' tolerances; from the CPU's streams, cmp, alignments and ffi
+   equal).
 
 Prints each measurement, the card's name and power limit, a `kernels`
 JSON line, and as the last line {"ok": true, "device": {...}}.  Exits
@@ -110,6 +127,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import cProfile
+import filecmp
 import json
 import os
 import pstats
@@ -152,12 +170,18 @@ REPLACES = {
     "mspf": ("K21", "hts_train_world_tpu/ops/postfilter.py:51"),
     "mcep_postfilter": ("K22", "hts_train_world_tpu/ops/postfilter.py:32"),
     "gv_scale": ("K23", "hts_train_world_tpu/ops/gv.py:22"),
+    "stonemask_if": ("K24", "hts_train_world_tpu/ops/stonemask.py:117"),
+    "cheaptrick_lifter": ("K25", "hts_train_world_tpu/ops/cheaptrick.py:163"),
+    "d4c_group_delay": ("K26", "hts_train_world_tpu/ops/d4c.py:153"),
+    "d4c_aperiodicity": ("K27", "hts_train_world_tpu/ops/d4c.py:196"),
 }
+BODY = ("cheaptrick_lifter", "d4c_group_delay", "d4c_aperiodicity")
 ANALYSIS = ("frame_window", "spectral_smooth", "topk_sum", "fix_f0",
-            "dio_candidates")
+            "dio_candidates", "stonemask_if") + BODY
 SYNTHESIS = ("synth_time_base", "synth_pulse_spectra", "synth_ola")
 HARVEST = ("harvest_decimate", "harvest_candidates", "harvest_refine",
-           "harvest_contour", "frame_window", "spectral_smooth", "topk_sum")
+           "harvest_contour", "frame_window", "spectral_smooth",
+           "topk_sum") + BODY
 # the kernels each path must launch
 PATHS = {
     "copy_synth": ANALYSIS + SYNTHESIS,
@@ -185,6 +209,11 @@ PATHS = {
     + SYNTHESIS,
     "voice_train": ("hsmm_loglik", "hsmm_fb", "hsmm_accumulate",
                     "hsmm_viterbi", "mlpg_solve", "mspf"),
+    # the pipeline lane, stage by stage
+    "pipeline_analyze": ANALYSIS + ("codec_encode",),
+    "pipeline_compose": ("delta_window",),
+    "pipeline_halgn": ("delta_window", "hsmm_loglik", "hsmm_fb",
+                       "hsmm_accumulate", "hsmm_viterbi"),
 }
 # the HSMM lane: RecipeConfig's defaults (models/recipe.py:45-47)
 HSMM_MODELS, HSMM_STATES, HSMM_MAX_DUR, HSMM_UTTS = 40, 5, 60, 128
@@ -193,6 +222,10 @@ RECIPE_SEED, RECIPE_TEMPLATES, RECIPE_UTTS = 5, 16, 128
 # the voice-build lane: sung phrases at 48 kHz, 12 pitches
 VOICE_SEED, VOICE_TEMPLATES, VOICE_UTTS, VOICE_UNSEEN = 12, 16, 64, 16
 VOICE_PITCH = {f"p{i:02d}": 220.0 * 2.0 ** (i / 12.0) for i in range(12)}
+# the pipeline lane: phase 12's phrases with vibrato, notes by name
+NOTE_NAMES = ["A3", "Bb3", "B3", "C4", "Db4", "D4", "Eb4", "E4", "F4", "Gb4",
+              "G4", "Ab4"]
+VIBRATO_HZ, VIBRATO_DEPTH, VIBRATO_MIN = 5.5, 0.03, 40
 
 
 def corpus(batch: int, n: int, seed: int = 0) -> np.ndarray:
@@ -585,6 +618,57 @@ def split_margins(clustering, x, built_x, y, built_y):
     return out
 
 
+def occupancy_ties(built_x, built_y, tol: float):
+    """Two recipe runs' trees in build order (`recording_trees`): the
+    first pair that partitions its contexts differently, walked to the
+    first node where the two differ.  There, each question that one of the
+    trees splits the node by is a witness of a `min_occupancy` tie when it
+    is admissible under one run's statistics and not under the other's
+    (a branch's occupancy, the msd gamma of an MSD stream, on either side
+    of the threshold) and that occupancy lies within tol x max(1, m) of
+    the threshold m.  Returns (index of the pair or None, witnesses)."""
+    def occ(args, kw):
+        stats, m = args[0], (args[3] if len(args) > 3
+                             else kw.get("min_occupancy", 1.0))
+        msd = kw.get("msd_by_context")
+        src = msd if msd is not None else stats
+        ctxs = (sorted(set(stats) | set(msd)) if msd is not None
+                else list(stats))
+        return {c: float(src[c].gamma) if c in src else 0.0
+                for c in ctxs}, float(m)
+
+    for i, ((x, ax, kx), (y, ay, ky)) in enumerate(zip(built_x.values(),
+                                                       built_y.values())):
+        gx, m = occ(ax, kx)
+        gy, _ = occ(ay, ky)
+        if tree_partition(x, gx) == tree_partition(y, gx):
+            continue
+        nx, ny, cs = x.root, y.root, list(gx)
+        while nx.question is not None and ny.question is not None:
+            yx = [c for c in cs if nx.question.matches(c)]
+            if yx != [c for c in cs if ny.question.matches(c)]:
+                break
+            if tree_partition(nx.yes, yx) != tree_partition(ny.yes, yx):
+                nx, ny, cs = nx.yes, ny.yes, yx
+            else:
+                nx, ny, cs = nx.no, ny.no, [c for c in cs if c not in yx]
+        out = []
+        for q in {n.question.name: n.question for n in (nx, ny)
+                  if n.question is not None}.values():
+            sides = []
+            for g in (gx, gy):
+                yes = sum(g[c] for c in cs if q.matches(c))
+                sides.append((yes, sum(g[c] for c in cs) - yes))
+            adm = [min(s) >= m for s in sides]
+            near = min(abs(o - m) for s in sides for o in s)
+            if adm[0] != adm[1] and near <= tol * max(1.0, m):
+                out.append(dict(question=q.name, contexts=len(cs),
+                                occupancies=sides, threshold=m,
+                                distance=near))
+        return i, out
+    return None, []
+
+
 def compare_voices(a, b, corpus, clustering, built_a, built_b,
                    msd_floor: float = 1e-3):
     """Two RecipeStates of one corpus: (passed, text).  Every tree (stream,
@@ -739,10 +823,12 @@ def recipe_tiny_corpus(seed: int = 2):
     return utts, spans
 
 
-def sung_phrase(rng, phones, frames_per, fs, pitch):
+def sung_phrase(rng, phones, frames_per, fs, pitch, vibrato=False):
     """tests/test_voice_build.py:28-50's audio: per note four harmonics
     (0.55, 0.25, 0.12, 0.05, random phases) x 0.6 plus 5e-4 white noise,
-    "sil" the noise alone; returns the audio and the phone end frames."""
+    "sil" the noise alone; returns the audio and the phone end frames.
+    `vibrato`: notes of VIBRATO_MIN frames or more sway by VIBRATO_DEPTH of
+    their pitch at VIBRATO_HZ (the same random draws)."""
     shift = int(fs * FRAME_PERIOD / 1000.0)
     segs, ends, total = [], [], 0
     for p, nf in zip(phones, frames_per):
@@ -751,10 +837,17 @@ def sung_phrase(rng, phones, frames_per, fs, pitch):
             seg = 0.0005 * rng.standard_normal(n)
         else:
             t = np.arange(n) / fs
-            seg = 0.6 * sum(
-                a * np.sin(2 * np.pi * pitch[p] * (h + 1) * t
-                           + rng.uniform(0, 6.28))
-                for h, a in enumerate([0.55, 0.25, 0.12, 0.05]))
+            if vibrato and nf >= VIBRATO_MIN:
+                ph = np.cumsum(2 * np.pi * pitch[p] / fs * (
+                    1 + VIBRATO_DEPTH * np.sin(2 * np.pi * VIBRATO_HZ * t)))
+                seg = 0.6 * sum(
+                    a * np.sin(ph * (h + 1) + rng.uniform(0, 6.28))
+                    for h, a in enumerate([0.55, 0.25, 0.12, 0.05]))
+            else:
+                seg = 0.6 * sum(
+                    a * np.sin(2 * np.pi * pitch[p] * (h + 1) * t
+                               + rng.uniform(0, 6.28))
+                    for h, a in enumerate([0.55, 0.25, 0.12, 0.05]))
             seg = seg + 0.0005 * rng.standard_normal(n)
         segs.append(seg)
         total += nf
@@ -784,7 +877,7 @@ def voice_phrases(rng, n, avoid=()):
     return out
 
 
-def voice_corpus(seed: int = VOICE_SEED, fs: int = 48000):
+def voice_corpus(seed: int = VOICE_SEED, fs: int = 48000, vibrato=False):
     """The voice-build lane's corpus in memory: VOICE_TEMPLATES phrase
     templates, VOICE_UTTS utterances taking them in turn with fresh note
     lengths (30-80 frames; sil 20), and VOICE_UNSEEN phrases of new note
@@ -797,12 +890,114 @@ def voice_corpus(seed: int = VOICE_SEED, fs: int = 48000):
         ph = templates[u % VOICE_TEMPLATES]
         nf = [20] + [int(v) for v in rng.integers(30, 81, len(ph) - 2)] \
             + [20]
-        x, ends = sung_phrase(rng, ph, nf, fs, VOICE_PITCH)
+        x, ends = sung_phrase(rng, ph, nf, fs, VOICE_PITCH, vibrato)
         sigs.append(x.astype(np.float32))
         labels.append(voice_labels(ph))
         spans[u] = ends
     unseen = voice_phrases(rng, VOICE_UNSEEN, avoid=templates)
     return sigs, labels, spans, templates, unseen
+
+
+def pipeline_corpus(wd, wavio, n_utts=VOICE_UTTS):
+    """The pipeline lane's corpus on disk under `wd`: the voice-build
+    lane's 64 phrases (seed 12, 48 kHz) with vibrato on every note of
+    VIBRATO_MIN frames or more, as 16-bit wavs in raw/, full-context labels
+    in 100 ns units in labels/full/ with the notes by name (/E:A3] ...
+    /E:Ab4]), and qconf.conf (L/C/R-Phone of the 13 phones, C-Note by
+    name, the frame position in the phone).  Returns per utterance the
+    signal as written and its notes as (start, end, pitch, vibrato)
+    frames."""
+    sigs, _, spans, templates, _ = voice_corpus(fs=48000, vibrato=True)
+    names = dict(zip(sorted(VOICE_PITCH), NOTE_NAMES))
+    for sub in ("raw", "labels/full", "labels/mono"):
+        os.makedirs(os.path.join(wd, sub), exist_ok=True)
+    shift_100ns = int(FRAME_PERIOD * 1e4)
+    out = []
+    for u, x in enumerate(sigs[:n_utts]):
+        phones = templates[u % VOICE_TEMPLATES]
+        base = f"phrase{u:03d}"
+        wavio.wavwrite(x, 48000, os.path.join(wd, "raw", f"{base}.wav"))
+        x, _ = wavio.wavread(os.path.join(wd, "raw", f"{base}.wav"))
+        ph = ["x"] + list(phones) + ["x"]
+        lines, notes, start = [], [], 0
+        for i, end in enumerate(spans[u]):
+            note = names.get(phones[i], "xx")
+            lines.append(f"{start * shift_100ns} {end * shift_100ns} "
+                         f"{ph[i]}^{ph[i]}-{ph[i + 1]}+{ph[i + 2]}="
+                         f"{ph[i + 2]}@{i + 1}_x/E:{note}]")
+            if phones[i] != "sil":
+                notes.append((start, int(end), VOICE_PITCH[phones[i]],
+                              end - start >= VIBRATO_MIN))
+            start = int(end)
+        with open(os.path.join(wd, "labels", "full", f"{base}.lab"),
+                  "w") as f:
+            f.write("\n".join(lines) + "\n")
+        out.append((x, notes))
+    names_all = sorted(VOICE_PITCH) + ["sil"]
+    conf = ([f"L-Phone_{p} {{*^{p}-*}}" for p in names_all]
+            + [f"C-Phone_{p} {{*-{p}+*}}" for p in names_all]
+            + [f"R-Phone_{p} {{*+{p}=*}}" for p in names_all]
+            + [f"C-Note_{n} {{*/E:{n}]*}}" for n in NOTE_NAMES]
+            + ["Pos_C-Frame_in_Phone(Fw)  MIN=1 MAX=200",
+               "Pos_C-Frame_in_Phone(Bw)  MIN=1 MAX=200"])
+    with open(os.path.join(wd, "qconf.conf"), "w") as f:
+        f.write("\n".join(conf) + "\n")
+    return out
+
+
+# tests/test_torch_pipeline.py's corpus and HALGN recipe (hard counts: the
+# soft counts put one of its note states on min_occupancy's threshold)
+PIPELINE_TINY_NOTES = ["G3", "A3", "Bb3"]
+PIPELINE_TINY_QCONF = """
+C-Phone_a  {*-a+*}
+C-Phone_i  {*-i+*}
+C-Phone_sil {*-sil+*}
+C-Note_G3 {*/E:G3]*}
+C-Note_A3 {*/E:A3]*}
+C-Note_Bb3 {*/E:Bb3]*}
+Pos_C-Frame_in_Phone(Fw)  MIN=1 MAX=200
+Pos_C-Frame_in_Phone(Bw)  MIN=1 MAX=200
+"""
+PIPELINE_TINY_HALGN = dict(n_states=5, n_iters=2, tied_iters=1,
+                           recluster=False, use_gv=False, use_mspf=False,
+                           soft_counts=False)
+# phase 4's bounds on the card-vs-CPU |d| of every frame of the corpus's
+# streams (lf0 and vib where both are voiced): about four times the largest
+# read on an H100 (4.77e-07, 1.31e-06, 6.68e-06 and 3.81e-06)
+PIPELINE_TINY_MAX = dict(lf0=2e-6, vib=5e-6, mgc=3e-5, bap=2e-5)
+
+
+def pipeline_tiny_corpus(wd, wavio, fs=16000):
+    """tests/test_torch_pipeline.py's make_corpus."""
+    rng = np.random.default_rng(0)
+    for sub in ("raw", "labels/full", "labels/mono"):
+        os.makedirs(os.path.join(wd, sub), exist_ok=True)
+    for u in range(3):
+        dur = 0.6
+        n = int(fs * dur)
+        t = np.arange(n) / fs
+        f0 = np.full(n, 200.0 + 20 * u)
+        if u == 0:
+            f0 *= 1.0 + 0.03 * np.sin(2 * np.pi * 5.5 * t)
+        ph = np.cumsum(2 * np.pi * f0 / fs)
+        x = (0.5 * np.sin(ph) + 0.25 * np.sin(2 * ph)
+             + 0.01 * rng.standard_normal(n))
+        edge = n // 8
+        x[:edge] *= 0
+        x[-edge:] *= 0
+        x += 0.003 * rng.standard_normal(n)
+        wavio.wavwrite(0.8 * x / np.abs(x).max(), fs,
+                       os.path.join(wd, "raw", f"utt{u}.wav"))
+        d = int(dur * 1e7)
+        e1, e2 = d // 8, d - d // 8
+        lines = [f"0 {e1} x^x-sil+a=x/E:xx]",
+                 f"{e1} {e2} x^sil-a+sil=x/E:{PIPELINE_TINY_NOTES[u]}]",
+                 f"{e2} {d} x^a-sil+x=x/E:xx]"]
+        with open(os.path.join(wd, "labels", "full", f"utt{u}.lab"),
+                  "w") as f:
+            f.write("\n".join(lines) + "\n")
+    with open(os.path.join(wd, "qconf.conf"), "w") as f:
+        f.write(PIPELINE_TINY_QCONF)
 
 
 def voice_questions():
@@ -892,6 +1087,221 @@ def voice_tiny_corpus(bucketing, compose, device, fs: int = 16000):
     return corpus, spans, layout
 
 
+def pipeline_lane(counted, profiled, device="cuda", n_utts=VOICE_UTTS):
+    """Phase 13: the front half on the pipeline lane's corpus, counted
+    stage by stage, ANALYZE under the profiler; prints the stage seconds
+    and what the vibrato scan found, holds every stage's files to their
+    gates; returns the launch counts of ANALYZE, COMPOSE + STATS and
+    HALGN + MKDAT."""
+    from hts_train_world_tpu_torch import config as cfg
+    from hts_train_world_tpu_torch.features import htk, qconf
+    from hts_train_world_tpu_torch.io import rawio, wavio
+    from hts_train_world_tpu_torch.runtime import pipeline as pl
+    wd_p = tempfile.mkdtemp()
+    t0 = time.perf_counter()
+    utts_p = pipeline_corpus(wd_p, wavio, n_utts)
+    audio_p = sum(len(x) for x, _ in utts_p) / 48000
+    print(f"pipeline lane: corpus written in {time.perf_counter() - t0:.2f} "
+          f"s: {len(utts_p)} phrases, {audio_p:.1f} s at 48 kHz, "
+          f"{sum(len(n) for _, n in utts_p)} notes, "
+          f"{sum(v for _, n in utts_p for *_, v in n)} with vibrato",
+          flush=True)
+    pipe = pl.SingingPipeline(pl.PipelineConfig(wd_p, fs=48000,
+                                                use_hmm_align=True,
+                                                device=device))
+    lay_p = pipe.cfg.layout
+    (wall_a, busy_a, _), counts_pa, _ = counted(
+        "pipeline_analyze", lambda: profiled(pipe.analyze))
+    _, counts_pc, _ = counted("pipeline_compose", lambda: (
+        pipe.compose_stage(), pipe.stats()))
+    _, counts_ph, _ = counted("pipeline_halgn", lambda: (
+        pipe.halgn(), pipe.mkdat()))
+    pipe.run(upto="MKDAT")                      # every stage done: no-ops
+    secs_p = pipe.stage_seconds
+    print("pipeline lane: stage seconds: " + ", ".join(
+        f"{k} {secs_p[k]:.3f}" for k in ("ANALYZE", "COMPOSE", "STATS",
+                                         "HALGN", "MKDAT"))
+          + "; ANALYZE (under the profiler) by part: " + ", ".join(
+              f"{k.split()[1]} {v:.3f}" for k, v in secs_p.items()
+              if k.startswith("ANALYZE "))
+          + f"; ANALYZE {audio_p / secs_p['ANALYZE']:.2f} audio-s/s, "
+          f"its extraction alone {audio_p / secs_p['ANALYZE extract']:.2f}; "
+          f"LOWESS + vibrato scan "
+          f"{100 * secs_p['ANALYZE vibrato'] / secs_p['ANALYZE']:.1f}% of "
+          f"ANALYZE; device busy {busy_a:.3f} s of {wall_a:.3f} s, idle "
+          f"{100 - 100 * busy_a / wall_a:.1f}%", flush=True)
+    print("pipeline lane: HALGN's train_voice stage seconds: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in pipe.halgn_seconds.items()), flush=True)
+
+    # gates on every stage's files, and what the vibrato scan found
+    n_in = qconf.num_features(qconf.parse_config(
+        open(os.path.join(wd_p, "qconf.conf")).read()))
+    bad, runs, found, depth_r, period = [], 0, 0, [], []
+    for u, (x, notes) in enumerate(utts_p):
+        b = f"phrase{u:03d}"
+        Tp = cfg.samples_for_dio(48000, len(x), FRAME_PERIOD)
+        st = {n: rawio.read_f32(pipe._p(n, b, n)) for n in ("lf0", "mgc",
+                                                             "bap", "vib")}
+        dims = dict(lf0=lay_p.lf0_dim, mgc=lay_p.mgc_dim, bap=lay_p.bap_dim,
+                    vib=lay_p.vib_dim)
+        for n, v in st.items():
+            if v.size != Tp * dims[n] or not np.isfinite(v).all():
+                bad.append(f"{b}.{n}")
+        cmp_d, _, _ = htk.read_htk(pipe._p("cmp", b, "cmp"))
+        with open(pipe._p("cmp", b, "cmp"), "rb") as f:
+            head = np.frombuffer(f.read(8), "=i4").tolist() + \
+                np.frombuffer(f.read(4), "=i2").tolist()
+        if head != [Tp, 50000, 4 * lay_p.cmp_dim, 9] \
+                or cmp_d.shape != (Tp, 237) or not np.isfinite(cmp_d).all():
+            bad.append(f"{b}.cmp {head}")
+        ffo = rawio.read_f32(pipe._p("ffo", b, "ffo"), lay_p.ffo_dim)
+        ffi = rawio.read_f32(pipe._p("ffi", b, "ffi"), n_in)
+        if ffo.shape != (Tp, 238) or not np.isfinite(ffo).all() \
+                or ffi.shape != (Tp, n_in) or not np.isfinite(ffi).all():
+            bad.append(f"{b}.ffo/ffi")
+        for sub in ("align", "fal"):
+            rows = [ln.split() for ln in open(os.path.join(
+                wd_p, "labels", sub, f"{b}.lab")).read().splitlines()]
+            ends = [int(r[1]) for r in rows]
+            starts = [int(r[0]) for r in rows]
+            if starts[0] != 0 or starts[1:] != ends[:-1] \
+                    or any(e <= s0 for s0, e in zip(starts, ends)) \
+                    or ends[-1] != Tp * 50000:
+                bad.append(f"labels/{sub}/{b}")
+        f0p = np.where(st["lf0"].reshape(Tp, 2)[:, 0] != 0,
+                       np.exp(st["lf0"].reshape(Tp, 2)[:, 0]), 0.0)
+        vib = st["vib"].reshape(Tp, 2)
+        for s0, e, pitch, vibr in notes:
+            v = f0p[s0:min(e, Tp)] >= 55.0
+            edges = np.flatnonzero(np.diff(np.concatenate([[0], v, [0]])))
+            runs += int(((edges[1::2] - edges[::2]) > 20).sum())
+            on = vib[s0:e, 0] != np.float32(1e-8)
+            if vibr and on.any():
+                found += 1
+                depth_r.append(float(np.median(np.exp(vib[s0:e, 0][on])))
+                               / (VIBRATO_DEPTH * pitch))
+                period.append(float(np.median(np.exp(vib[s0:e, 1][on]))))
+    for name in ("ffo", "mgc", "lf0", "bap", "gv"):
+        v = rawio.read_f32(os.path.join(wd_p, "stats", f"{name}.var"))
+        if not v.size or not np.isfinite(v).all():
+            bad.append(f"stats/{name}.var")
+    n_vib = sum(v for _, n in utts_p for *_, v in n)
+    print(f"pipeline lane: {runs} voiced runs of more than 20 frames in the "
+          f"notes; vibrato found on {found} of {n_vib} vibrato notes, depth "
+          f"/ sung depth median "
+          f"{np.median(depth_r) if depth_r else float('nan'):.3f}, period "
+          f"median {np.median(period) if period else float('nan'):.2f} "
+          f"frames (sung {1000.0 / VIBRATO_HZ / FRAME_PERIOD:.2f}); files: "
+          f"{'all pass' if not bad else bad[:8]}", flush=True)
+    if bad:
+        raise RuntimeError(f"pipeline lane: files fail their gates: "
+                           f"{bad[:8]}")
+    try:
+        pipe.run()
+        raise RuntimeError("pipeline lane: run() went past MKDAT")
+    except NotImplementedError:
+        pass
+    shutil.rmtree(wd_p)
+    return counts_pa, counts_pc, counts_ph
+
+
+def pipeline_card_vs_cpu(devices=("cuda", "cpu")):
+    """Phase 4 for the pipeline lane: tests/test_torch_pipeline.py's
+    corpus through the front half on the card and on the CPU; the streams
+    within the CPU tests' tolerances (medians) and within
+    `PIPELINE_TINY_MAX` on every frame, then, from the CPU's streams, the
+    cmp, ffo, alignments and ffi equal at hard counts.  HALGN again at the
+    lane's own recipe (soft counts) from the same streams: the alignments
+    equal and every tree alike, or else the first tree that differs does
+    so at a `min_occupancy` tie (`occupancy_ties`, within 1e-8 of the
+    threshold, the bound phase 4 holds the recipe's parameters to)."""
+    from hts_train_world_tpu_torch.io import rawio, wavio
+    from hts_train_world_tpu_torch.models import clustering, recipe
+    from hts_train_world_tpu_torch.runtime import pipeline as pl
+    wds = {d: tempfile.mkdtemp() for d in devices}
+    pipes = {}
+    for d, wd in wds.items():
+        pipeline_tiny_corpus(wd, wavio)
+        pipes[d] = pl.SingingPipeline(pl.PipelineConfig(
+            wd, fs=16000, use_hmm_align=True,
+            hmm=recipe.RecipeConfig(**PIPELINE_TINY_HALGN), device=d))
+        pipes[d].run(upto="ANALYZE")
+    lay_t = pipes[devices[1]].cfg.layout
+    worst = {}
+    ok_s = True
+    for u in range(3):
+        b = f"utt{u}"
+        g = {n: rawio.read_f32(pipes[devices[0]]._p(n, b, n), w) for n, w in (
+            ("lf0", 2), ("mgc", lay_t.mgc_dim), ("bap", lay_t.bap_dim),
+            ("vib", 2))}
+        c = {n: rawio.read_f32(pipes[devices[1]]._p(n, b, n), v.shape[1])
+             for n, v in g.items()}
+        for n in ("lf0", "vib"):
+            for k in range(2):
+                off = 0.0 if n == "lf0" else np.float32(1e-8)
+                lg, lc = g[n][:, k] != off, c[n][:, k] != off
+                agree = float((lg == lc).mean())
+                both = lg & lc
+                d = np.abs(g[n][both, k] - c[n][both, k])
+                med, mx = ((float(np.median(d)), float(d.max()))
+                           if both.any() else (0.0, 0.0))
+                a0, m0, x0 = worst.get(f"{n}{k}", (1.0, 0.0, 0.0))
+                worst[f"{n}{k}"] = (min(a0, agree), max(m0, med), max(x0, mx))
+                ok_s &= (agree > 0.9 and med < 1e-3
+                         and mx <= PIPELINE_TINY_MAX[n])
+        for n in ("mgc", "bap"):
+            d = np.abs(g[n] - c[n])
+            _, m0, x0 = worst.get(n, (None, 0.0, 0.0))
+            worst[n] = (None, max(m0, float(np.median(d))),
+                        max(x0, float(d.max())))
+            ok_s &= np.median(d) < 0.01 and d.max() <= PIPELINE_TINY_MAX[n]
+    for n in ("lf0", "mgc", "bap", "vib"):
+        for u in range(3):
+            shutil.copy(pipes[devices[1]]._p(n, f"utt{u}", n),
+                        pipes[devices[0]]._p(n, f"utt{u}", n))
+    for d in wds:
+        pipes[d].run(upto="MKDAT")
+
+    def same_files(subs):
+        return {sub: all(filecmp.cmp(
+            os.path.join(wds[devices[0]], sub, f"utt{u}.{ext}"),
+            os.path.join(wds[devices[1]], sub, f"utt{u}.{ext}"),
+            shallow=False) for u in range(3)) for sub, ext in subs}
+    labs = (("labels/align", "lab"), ("labels/fal", "lab"))
+    same = same_files((("cmp", "cmp"), ("ffo", "ffo"), *labs,
+                       ("ffi", "ffi")))
+    built = {}
+    for d in devices:
+        pipes[d].cfg.hmm = None          # the lane's recipe: soft counts
+        pipes[d].manifest.reset_from("HALGN", pl.STAGES)
+        with recording_trees(clustering) as built[d]:
+            pipes[d].halgn()
+    soft = same_files(labs)
+    at, ties = occupancy_ties(built[devices[0]], built[devices[1]], 1e-8)
+    ok_soft = (at is None and all(soft.values())) or bool(ties)
+    print(f"pipeline lane, card vs CPU path (tests/test_torch_pipeline.py's "
+          f"corpus, 16 kHz): streams " + ", ".join(
+              f"{k} " + (f"{v[0]:.3f} agree / " if v[0] is not None
+                         else "") + f"med |d| {v[1]:.2e} / max |d| {v[2]:.2e}"
+              for k, v in worst.items())
+          + f" (V/UV > 0.9, med lf0/vib < 1e-3, mgc/bap < 1e-2; max "
+          + ", ".join(f"{k} <= {v:.0e}" for k, v in PIPELINE_TINY_MAX.items())
+          + f"); from the CPU's streams equal at hard counts: {same}; at "
+          f"soft counts (the lane's recipe) equal: {soft}, "
+          + ("every tree alike" if at is None else
+             f"tree {at} of {len(built[devices[0]])} (build order) differs "
+             f"first, min_occupancy ties: " + ("; ".join(
+                 f"{t['question']} at {t['contexts']} contexts, branch "
+                 f"occupancies {t['occupancies'][0]} (card) / "
+                 f"{t['occupancies'][1]} (CPU), |occ - {t['threshold']}| "
+                 f"{t['distance']:.2e}" for t in ties) or "none")),
+          flush=True)
+    if not (ok_s and all(same.values()) and ok_soft):
+        raise RuntimeError("the card's pipeline disagrees with the CPU path")
+    for wd in wds.values():
+        shutil.rmtree(wd)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -906,7 +1316,10 @@ def main() -> int:
     from hts_train_world_tpu_torch.models import clustering, hsmm, hsmm_batch
     from hts_train_world_tpu_torch.models import context_clustered, recipe
     from hts_train_world_tpu_torch.models import voice
+    from hts_train_world_tpu_torch.ops import cheaptrick as ct_mod
     from hts_train_world_tpu_torch.ops import codec
+    from hts_train_world_tpu_torch.ops import d4c as d4c_mod
+    from hts_train_world_tpu_torch.ops import stonemask as sm_mod
     from hts_train_world_tpu_torch.ops import dio as dio_mod
     from hts_train_world_tpu_torch.ops import fftmat, frames
     from hts_train_world_tpu_torch.ops import harvest as hv
@@ -1116,6 +1529,11 @@ def main() -> int:
         "mcep_postfilter": (pf_mod.mcep_postfilter,
                             pf_mod.mcep_postfilter_plain),
         "gv_scale": (gv_mod.gv_scale, gv_mod.gv_scale_plain),
+        "stonemask_if": (sm_mod.if_readout, sm_mod.if_readout_plain),
+        "cheaptrick_lifter": (ct_mod.lifter, ct_mod.lifter_plain),
+        "d4c_group_delay": (d4c_mod.group_delay, d4c_mod.group_delay_plain),
+        "d4c_aperiodicity": (d4c_mod.aperiodicity,
+                             d4c_mod.aperiodicity_plain),
     }
 
     def nbytes(*ts):
@@ -1172,6 +1590,32 @@ def main() -> int:
             t_o = T_ * H_ * (4.0 * M_ + 40.0) / F64_OPS_PER_S
         elif name == "gv_scale":
             t_o = 8.0 * inp["statics"].numel() / F64_OPS_PER_S
+        elif name == "stonemask_if":
+            # the 2 + 6 harmonic bins of four spectra a frame, its f0, h,
+            # gate and result; ~30 operations a bin
+            R_ = inp["f0s"].numel()
+            moved = R_ * (8 * 4 * 4 + 4 + 4 + 1 + 4)
+            t_o = 8 * 30.0 * R_ / F32_OPS_PER_S
+        elif name == "cheaptrick_lifter":
+            # a sin, a cos (~20 each) and ~10 more a bin in the lifter;
+            # log or exp (~10) and a compare in the others
+            t_o = (50.0 if inp["stage"] == ct_mod.LIFTER else 12.0) \
+                * inp["x"].numel() / F32_OPS_PER_S
+        elif name == "d4c_group_delay":
+            st = inp["stage"]
+            if st == d4c_mod.LOVE:      # the bins (b0, b2] of each row
+                R_ = inp["p"].shape[0]
+                moved = 4 * R_ * (inp["b2"] - inp["b0"]) + 4 * R_ * 4
+                t_o = 2.0 * R_ * (inp["b2"] - inp["b0"]) / F64_OPS_PER_S
+            elif st == d4c_mod.SEGMENTS:   # the band spans of a and b
+                seg = outs[0].numel()
+                moved = 3 * 4 * seg + nbytes(inp["window"])
+                t_o = 2.0 * seg / F32_OPS_PER_S
+            else:
+                t_o = 4.0 * outs[0].numel() / F32_OPS_PER_S
+        elif name == "d4c_aperiodicity":
+            # per bin the segment search, the lerp and powf (~30)
+            t_o = 30.0 * outs[0].numel() / F32_OPS_PER_S
         elif name == "synth_time_base":
             # ~40 f32 operations a sample (search, lerp, increment, wrap,
             # jump) and one float64 add; the serial sum is not counted
@@ -1251,6 +1695,9 @@ def main() -> int:
         (no -1e10 propagation)."""
         if name == "topk_sum":
             return lambda: torch.topk(inp["p"], inp["k"], dim=1).values.sum(1)
+        if name == "d4c_group_delay" and inp["stage"] == d4c_mod.LOVE:
+            # LoveTrain's band sums as the twin takes them: one cumsum
+            return lambda: torch.cumsum(inp["p"], dim=1)
         if name == "spectral_smooth" and inp["width"] is not None:
             b, ps = inp["b_max"], inp["ps"]
             n = ps.shape[1]
@@ -1656,6 +2103,45 @@ def main() -> int:
             return (worst <= 1e-9 and kept, float((k - p).abs().max()),
                     f"worst |err| / column max {worst:.2e} <= 1e-9; rows "
                     f"outside the mask unchanged: {kept}")
+        if name == "stonemask_if":
+            k, p = out_k[0], out_p[0]
+            g = inp["gate"]
+            return (bit_same(k, p), float((k - p).abs().max()),
+                    f"bit-equal; {int(g.sum())} of {g.numel()} frames gated, "
+                    f"{int(((k == inp['f0s']) & ~g).sum())} kept by the 20 % "
+                    f"guard")
+        if name == "cheaptrick_lifter":
+            # per element within 2e-6 relative (the log stage: of the
+            # row's largest |log|)
+            k, p = out_k[0], out_p[0]
+            scale = (p.abs().amax(1, keepdim=True)
+                     if inp["stage"] == ct_mod.LOG else p.abs())
+            worst = float(((k - p).abs() / scale.clamp(min=1e-30)).max())
+            return (worst <= 2e-6, float((k - p).abs().max()),
+                    f"stage {inp['stage']}: worst |err| / |plain| "
+                    f"{worst:.2e} <= 2e-6")
+        if name == "d4c_group_delay":
+            if inp["stage"] == d4c_mod.LOVE:
+                (ak, pk, ck), (ap, pp, cp) = out_k, out_p
+                rel = float(((ak - ap).abs() / ap.abs().clamp(
+                    min=1e-30)).max())
+                same = bool(torch.equal(pk, pp) and torch.equal(ck, cp))
+                return (rel <= 1e-6 and same, float((ak - ap).abs().max()),
+                        f"LoveTrain: ap0 rel {rel:.2e} <= 1e-6 (float64 "
+                        f"block sums vs the twin's float32 cumsum); process "
+                        f"and cf0 equal: {same} ({int(pk.sum())} of "
+                        f"{pk.numel()} processed)")
+            k, p = out_k[0], out_p[0]
+            return (bit_same(k, p), max_err([(k, p)]),
+                    f"stage {inp['stage']}: bit-equal (NaN where the "
+                    f"twin's: the windows of silent frames)")
+        if name == "d4c_aperiodicity":
+            (ak, ck), (ap, cp) = out_k, out_p
+            rel = float(((ak - ap).abs() / ap.abs()).max())
+            e_c = float((ck - cp).abs().max())
+            return (rel <= 1e-6 and e_c <= 1e-4, float((ak - ap).abs().max()),
+                    f"ap rel {rel:.2e} <= 1e-6, coarse |err| {e_c:.2e} dB "
+                    f"<= 1e-4")
         if name == "hsmm_viterbi":
             return check_k20(inp, out_k, out_p)
         if name == "hsmm_fb":
@@ -1846,7 +2332,7 @@ def main() -> int:
     n_ch, nf, L8 = (len(hv.channel_layout(plan_h)), plan_h["fft_size"],
                     plan_h["y_length"])
     T1 = cfg.samples_for_dio(FS, L, 1.0)
-    R, H, Hd = BATCH * T, half + 1, fft_d // 2 + 1
+    R, H = BATCH * T, half + 1
     n_ap = cfg.number_of_aperiodicities(FS)
     P = pulse_bucket[0]
     print("plain-stage bounds (B=16 x 2.0 s @ 48 kHz): "
@@ -1868,17 +2354,7 @@ def main() -> int:
           # spectrum), four out; exp, cos, sin, sqrt and ~12 products a bin
           + f"; synthesis mid-pass ({BATCH}, {P}, {H}) x 10 "
           + stage_bound(10 * 4 * BATCH * P * H, 25.0 * BATCH * P * H)
-          # D4C: the two centroids' four spectra each and the smoothed
-          # power in, the static group delay out (R, Hd); CheapTrick: the
-          # power, log, cepstrum, liftered cepstrum, exp and sp (R, H)
-          + f"; D4C coarse body + CheapTrick lifter ({R}, {Hd}) x 10 + "
-          f"({R}, {H}) x 6 "
-          + stage_bound(4 * (10 * R * Hd + 6 * R * H),
-                        30.0 * R * Hd + 10.0 * R * H)
-          # two passes of six harmonic bins of four spectra a frame, f0 in
-          # and out; ~15 operations a bin
-          + f"; StoneMask IF readout ({R} frames x 2 x 6 bins x 4 spectra) "
-          + stage_bound(4 * R * 2 * 6 * 4 + 8 * R, 2 * 6 * 15.0 * R)
+
           # WORLD's coarse-band bap decode (ops/codec.py:150-165): the
           # n_ap bands in, the (R, H) aperiodicity out; a gather-lerp and
           # 10 ** (x / 20) (~15 operations) a bin
@@ -2778,6 +3254,10 @@ def main() -> int:
                            "path or the file with the state")
     shutil.rmtree(tmp_v)
 
+    # ---- 13. the pipeline lane: the corpus pipeline's front half ----
+    counts_pa, counts_pc, counts_ph = pipeline_lane(counted, profiled)
+    pipeline_card_vs_cpu()
+
     print(smi)
     src = "hts_train_world_tpu_torch/csrc/"
     by_path = {"copy_synth": counts_cs, "feature_lane": counts_fl,
@@ -2788,7 +3268,8 @@ def main() -> int:
                "voice_synth": counts_vs, "voice_synth_gated": counts_vg,
                "voice_mcep": variants["voice_mcep"][0],
                "voice_pgtype1": variants["voice_pgtype1"][0],
-               "voice_train": counts_vt}
+               "voice_train": counts_vt, "pipeline_analyze": counts_pa,
+               "pipeline_compose": counts_pc, "pipeline_halgn": counts_ph}
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": src + kernels.KERNELS[name][0],

@@ -1,6 +1,6 @@
 """Build, load and launch the hand-written CUDA kernels.
 
-Twenty-three kernels, K1-K23 (`KERNELS`).  Each source under `csrc/` is
+Twenty-seven kernels, K1-K27 (`KERNELS`).  Each source under `csrc/` is
 compiled by `nvcc` for `sm_90a` into its own shared library with a plain
 C interface, loaded with `ctypes`.  Nothing
 happens at import time: the first launch builds every kernel (one `nvcc`
@@ -38,7 +38,8 @@ NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _D = ctypes.c_double
 
-# kernel name -> (source file, C launcher, argtypes)
+# kernel name -> (source file, C launcher, argtypes), or (source file,
+# {C launcher: argtypes}) for a kernel with a launcher for each stage
 KERNELS = {
     "frame_window": ("frame_window.cu", "frame_window_launch",
                      [_P, _I, _I, _P, _P, _P, _P, _F, _F, _I, _I, _I, _P,
@@ -98,6 +99,18 @@ KERNELS = {
                         [_P, _I, _I, _P, _I, _D, _P]),
     "gv_scale": ("gv_scale.cu", "gv_scale_launch",
                  [_P, _I, _I, _P, _D, _P, _P]),
+    "stonemask_if": ("stonemask_if.cu", "stonemask_if_launch",
+                     [_P, _P, _P, _P, _I, _I, _P, _P, _P, _F, _I, _P]),
+    "cheaptrick_lifter": ("cheaptrick_lifter.cu", "cheaptrick_lifter_launch",
+                          [_I, _P, _P, _I, _I, _F, _I, _F, _F, _F, _P]),
+    "d4c_group_delay": ("d4c_group_delay.cu", {
+        "d4c_love_train_launch": [_P, _I, _I, _I, _I, _I, _P, _F, _F, _P, _P,
+                                  _P],
+        "d4c_centroid_launch": [_P] * 8 + [_I, _I, _P],
+        "d4c_ratio_launch": [_P, _P, _I, _I, _P],
+        "d4c_segments_launch": [_P, _P, _I, _I, _P, _I, _P, _I, _P]}),
+    "d4c_aperiodicity": ("d4c_aperiodicity.cu", "d4c_aperiodicity_launch",
+                         [_P, _P, _P, _P, _I, _I, _I, _F, _I, _F, _P, _P]),
 }
 
 launches: collections.Counter = collections.Counter()
@@ -139,7 +152,7 @@ def build() -> str:
         d = _build_dir()
         os.makedirs(d, exist_ok=True)
         procs = {}
-        for name, (src, _, _) in KERNELS.items():
+        for name, (src, *_) in KERNELS.items():
             so = os.path.join(d, f"lib{name}.so")
             if os.path.exists(so):
                 continue
@@ -160,27 +173,32 @@ def build() -> str:
             msgs = [open(os.path.join(d, f"{n}.log")).read() for n in failed]
             raise RuntimeError("nvcc failed for " + ", ".join(failed)
                                + ":\n" + "\n".join(msgs))
-        for name, (_, fn, argtypes) in KERNELS.items():
+        for name, (_, *spec) in KERNELS.items():
             lib = ctypes.CDLL(os.path.join(d, f"lib{name}.so"))
-            f = getattr(lib, fn)
-            f.argtypes = argtypes + [ctypes.c_void_p]   # + cudaStream_t
-            f.restype = ctypes.c_int
+            fns = {}
+            for fn, argtypes in (spec[0] if len(spec) == 1
+                                 else {spec[0]: spec[1]}).items():
+                f = fns[fn] = getattr(lib, fn)
+                f.argtypes = argtypes + [ctypes.c_void_p]  # + cudaStream_t
+                f.restype = ctypes.c_int
             err = lib.kernel_error_string
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
-            _libs[name] = (f, err)
+            _libs[name] = (fns, err)
         _built.append(d)
         return d
 
 
-def launch(name: str, args: list, inputs: dict) -> None:
+def launch(name: str, args: list, inputs: dict, fn: str | None = None
+           ) -> None:
     """Launch kernel `name` on the current stream with C arguments
-    `args`; `inputs` (the wrapper's tensors and scalars) is what `record`
-    keeps for a replay."""
+    `args`, through its launcher `fn` where it has one for each stage;
+    `inputs` (the wrapper's tensors and scalars) is what `record` keeps
+    for a replay."""
     build()
-    fn, err = _libs[name]
+    fns, err = _libs[name]
     stream = torch.cuda.current_stream().cuda_stream
-    rc = fn(*args, stream)
+    rc = fns[fn or KERNELS[name][1]](*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: launch failed: "
                            f"{err(rc).decode()} ({rc})")

@@ -33,6 +33,7 @@ import math
 import numpy as np
 import torch
 
+from hts_train_world_tpu_torch import device as device_mod
 from hts_train_world_tpu_torch import kernels
 from hts_train_world_tpu_torch.ops import sptk
 from hts_train_world_tpu_torch.ops.codec import freqt_matrix
@@ -236,16 +237,17 @@ def mspf(traj, stats=None, weight: float = 1.0):
     return ms if analysis else out
 
 
-def mspf_stats(trajs, device=None) -> MspfStats:
+def mspf_stats(trajs, device="cuda") -> MspfStats:
     """make_mspf statistics over a corpus: trajs = list of (T, D)
     parameter sequences (numpy or tensors), each mean-subtracted and
-    analysed in one K21 launch on `device` (None: where a tensor lies,
-    the CPU for numpy); ms and ms^2 summed in float64 there, read back
+    analysed in one K21 launch on `device` (the card unless the caller
+    asks for the CPU); ms and ms^2 summed in float64 there, read back
     once."""
+    dev = device_mod.resolve(device)
     s1 = s2 = None
     n = 0
     for t in trajs:
-        x = torch.as_tensor(t, dtype=torch.float64, device=device)
+        x = torch.as_tensor(t, dtype=torch.float64, device=dev)
         ms = mspf(x)                                   # (D, F, 33)
         a, b = ms.sum(1), (ms * ms).sum(1)
         s1, s2 = (a, b) if s1 is None else (s1 + a, s2 + b)

@@ -7,6 +7,10 @@ DFT of each, and the harmonic instantaneous-frequency readout at bin stride
 r = B_max / B_c, which equals the frame's own B_c-point DFT because every
 window is zero beyond its 2h+1 samples.  The IF readouts |sm|^2 and
 Im(conj(sm) sd) do not depend on where the window sits in its row.
+
+The readout is kernel K24 (csrc/stonemask_if.cu, `if_readout`), with its
+plain PyTorch twin `if_readout_plain`: the wrapper launches the kernel for
+CUDA tensors and runs the twin only for CPU tensors.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import numpy as np
 import torch
 
 from hts_train_world_tpu_torch import config as cfg
+from hts_train_world_tpu_torch import kernels
 from hts_train_world_tpu_torch.ops import fftmat, frames, prims
 
 
@@ -43,7 +48,7 @@ def stonemask(xs, fs: int, temporal_positions, f0,
         raise NotImplementedError(
             "the port implements StoneMask on the regular frame grid only "
             "(grid_step > 0); the bucketed parity path is a later slice")
-    dtype, dev = xs.dtype, xs.device
+    dev = xs.device
     B, T = f0.shape
     B_max = stonemask_buckets(fs, f0_floor, f0_ceil)[-1]
     h_cap = (B_max // 2 - 1) // 2
@@ -60,14 +65,30 @@ def stonemask(xs, fs: int, temporal_positions, f0,
                                       width, frames.STONEMASK, pos=pos)
     smr, smi = fftmat.rfft_matmul(segm, B_max)
     sdr, sdi = fftmat.rfft_matmul(segd, B_max)
-    power = smr * smr + smi * smi
-    numer = smr * sdi - smi * sdr
+    return if_readout(smr, smi, sdr, sdi, f0s, h, gate.reshape(-1), fs,
+                      B_max).reshape(B, T)
 
+
+# The order of the six-term sums, written out so that the twin and K24 add
+# alike: the order a CPU build of torch.sum was seen to take over a row of
+# six float32 (the JAX package's and the port's earlier jnp.sum /
+# torch.sum), which keeps the CPU results where they were.  It is no
+# contract of torch's: the twin no longer calls torch.sum here.
+SUM_ORDER = (0, 4, 5, 1, 2, 3)
+
+
+def if_readout_plain(smr, smi, sdr, sdi, f0s, h, gate, fs: int, b_max: int):
+    """The harmonic IF readout (stonemask.cpp:119-168 on the fixed grid):
+    rows of the B_max-point DFTs of the window (smr, smi) and of its
+    derivative (sdr, sdi), the seed f0s, the half widths h and the gate
+    (R,) -> refined f0 (R,), 0 where gated.  The six-term sums add in
+    SUM_ORDER, as K24 does."""
+    dtype, dev = smr.dtype, smr.device
     # per-frame fft size B_c = 4 * 2^floor(log2(2h+1)) and its bin stride
     e_c = torch.floor(torch.log((2 * h + 1).to(dtype))
                       / cfg.K_LOG2).long()
     bc = 4 * torch.pow(2, e_c)
-    r = (B_max // 4) // (bc // 4)
+    r = (b_max // 4) // (bc // 4)
     bcf = bc.to(dtype)
     ks = torch.arange(1, 7, dtype=dtype, device=dev)
     k6 = torch.arange(6, device=dev)
@@ -77,16 +98,20 @@ def stonemask(xs, fs: int, temporal_positions, f0,
             prims.exact_div(f0_seed * bcf, fs)[:, None] * ks)
         idx_c = torch.minimum(torch.clamp(idx_c, min=0), (bc // 2)[:, None])
         idx = idx_c * r[:, None]
-        p = torch.gather(power, 1, idx)
-        n = torch.gather(numer, 1, idx)
+        a, b, c, d = (torch.gather(t, 1, idx) for t in (smr, smi, sdr, sdi))
+        p = a * a + b * b
+        n = a * d - b * c
         inst = torch.where(
             p == 0.0, torch.zeros_like(p),
             (idx_c.to(dtype) * fs) / bcf[:, None]
             + prims.exact_div(n / p * fs, float(np.float32(2.0 * np.pi))))
         amp = torch.sqrt(p)
         mask = (k6 < n_harmonics).to(dtype)
-        num = torch.sum(amp * inst * mask, dim=1)
-        den = torch.sum(amp * ks * mask, dim=1)
+        tn, td = amp * inst * mask, amp * ks * mask
+        num, den = tn[:, 0], td[:, 0]
+        for k in SUM_ORDER[1:]:
+            num = num + tn[:, k]
+            den = den + td[:, k]
         return num / (den + cfg.K_MY_SAFE_GUARD_MINIMUM)
 
     t1 = fix(f0s, 2)
@@ -94,5 +119,28 @@ def stonemask(xs, fs: int, temporal_positions, f0,
     t2 = fix(t1, 6)            # seeded with t1, like the bucket path
     mean_f0 = torch.where(ok1, t2, torch.zeros_like(t2))
     refined = torch.where(torch.abs(mean_f0 - f0s) / f0s > 0.2, f0s, mean_f0)
-    return torch.where(gate, torch.zeros_like(f0),
-                       refined.reshape(B, T))
+    return torch.where(gate, torch.zeros_like(refined), refined)
+
+
+def if_readout(smr, smi, sdr, sdi, f0s, h, gate, fs: int, b_max: int):
+    """K24: `if_readout_plain` with one thread a frame reading only the
+    <= 12 harmonic bins of each DFT row it needs; f32 rows (R, b_max/2+1),
+    f0s (R,) f32, h (R,) integers, gate (R,) bool."""
+    if not smr.is_cuda:
+        return if_readout_plain(smr, smi, sdr, sdi, f0s, h, gate, fs, b_max)
+    R, H = smr.shape
+    if smr.dtype != torch.float32 or H != b_max // 2 + 1 \
+            or f0s.shape != (R,):
+        raise ValueError("if_readout: f32 rows (R, b_max/2+1) and f0s (R,)")
+    sp = [t.contiguous() for t in (smr, smi, sdr, sdi)]
+    f0c = f0s.to(torch.float32).contiguous()
+    hc = h.to(torch.int32).contiguous()
+    gc = gate.to(torch.uint8).contiguous()
+    kernels.check_cuda("if_readout", *sp, f0c, hc, gc)
+    out = torch.empty(R, dtype=torch.float32, device=smr.device)
+    kernels.launch("stonemask_if", [
+        *(t.data_ptr() for t in sp), R, H, f0c.data_ptr(), hc.data_ptr(),
+        gc.data_ptr(), float(fs), b_max, out.data_ptr()],
+        dict(smr=sp[0], smi=sp[1], sdr=sp[2], sdi=sp[3], f0s=f0c, h=h,
+             gate=gate, fs=fs, b_max=b_max))
+    return out

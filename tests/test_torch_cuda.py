@@ -14,7 +14,10 @@ from hts_train_world_tpu_torch import config as cfg
 from hts_train_world_tpu_torch import kernels
 from hts_train_world_tpu_torch.features import decode, encode, windows
 from hts_train_world_tpu_torch.models import hsmm, hsmm_batch
+from hts_train_world_tpu_torch.ops import cheaptrick as ct
+from hts_train_world_tpu_torch.ops import d4c as d4c_mod
 from hts_train_world_tpu_torch.ops import dio, frames, mlpg, prims
+from hts_train_world_tpu_torch.ops import stonemask as sm
 from hts_train_world_tpu_torch.ops import harvest as hv
 from hts_train_world_tpu_torch.ops import harvest_fix as hf
 from hts_train_world_tpu_torch.ops import synthesis as syn
@@ -23,11 +26,12 @@ from hts_train_world_tpu_torch.parallel import batch, bucketing, features
 pytestmark = pytest.mark.cuda
 
 SYNTH_KERNELS = ("synth_time_base", "synth_pulse_spectra", "synth_ola")
-COPY_SYNTH_KERNELS = ("frame_window", "spectral_smooth", "topk_sum", "fix_f0",
-                      "dio_candidates") + SYNTH_KERNELS
-FEATURE_LANE_KERNELS = ("frame_window", "spectral_smooth", "topk_sum",
-                        "fix_f0", "dio_candidates", "codec_encode",
-                        "delta_window", "mlpg_solve")
+BODY_KERNELS = ("cheaptrick_lifter", "d4c_group_delay", "d4c_aperiodicity")
+DIO_KERNELS = ("frame_window", "spectral_smooth", "topk_sum", "fix_f0",
+               "dio_candidates", "stonemask_if") + BODY_KERNELS
+COPY_SYNTH_KERNELS = DIO_KERNELS + SYNTH_KERNELS
+FEATURE_LANE_KERNELS = DIO_KERNELS + ("codec_encode", "delta_window",
+                                      "mlpg_solve")
 HARVEST_KERNELS = ("harvest_decimate", "harvest_candidates", "harvest_refine",
                    "harvest_contour")
 
@@ -301,7 +305,7 @@ def test_feature_lane_runs_every_kernel_and_matches_the_cpu_path(cuda):
     out = bucketing.bucketed_extract(list(xs[:, :L - 700]) + [xs[0]], fs)
     assert len(out) == 3 and all(np.isfinite(v).all() for r in out for v in r)
     assert all(kernels.launches[k] > 0 for k in
-               COPY_SYNTH_KERNELS[:5] + ("codec_encode",))
+               DIO_KERNELS + ("codec_encode",))
 
 
 # ---------------------------------------------------------------------------
@@ -696,8 +700,9 @@ def test_harvest_lane_runs_the_kernels_and_matches_the_cpu_path(cuda):
     kernels.reset_counts()
     g = batch.batch_analyze(xs, fs, algorithm="harvest")
     torch.cuda.synchronize()
-    assert all(kernels.launches[k] > 0 for k in HARVEST_KERNELS)
-    assert kernels.launches["fix_f0"] == 0
+    assert all(kernels.launches[k] > 0 for k in HARVEST_KERNELS
+               + BODY_KERNELS)
+    assert kernels.launches["fix_f0"] == kernels.launches["stonemask_if"] == 0
     c = batch.batch_analyze(xs, fs, algorithm="harvest", device="cpu")
     f0g, f0c = g[1].cpu(), c[1]
     assert ((f0g > 0) == (f0c > 0)).float().mean() >= 0.95
@@ -1203,3 +1208,192 @@ def test_synthesize_utterance_matches_the_cpu_path(cuda):
         yg, yc = yg.cpu().double(), yc.double()
         assert (yg - yc).abs().max() <= 1e-3 * yc.abs().max()
         assert abs(float(yg.pow(2).sum() / yc.pow(2).sum()) - 1.0) <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# K24-K27: StoneMask's IF readout, CheapTrick's lifter, D4C's body
+# ---------------------------------------------------------------------------
+
+
+def _analysis_record(cuda, fs, seed=0, hostile=False):
+    """The inputs every launch of K24-K27 got on batch_analyze of two
+    harmonic utterances (with a pause), or of silence, clicks and noise."""
+    L = fs // 2
+    rng = np.random.default_rng(seed)
+    t = np.arange(L) / fs
+    if hostile:
+        xs = np.stack([np.zeros(L), np.zeros(L), 0.5 * rng.standard_normal(L)])
+        xs[1, ::fs // 50] = 0.9
+    else:
+        xs = np.stack([0.5 * np.sin(2 * np.pi * f * t * (1 + 0.02 * np.sin(
+            2 * np.pi * 5 * t))) + 0.2 * np.sin(4 * np.pi * f * t)
+            + 0.01 * rng.standard_normal(L) for f in (120.0, 310.0)])
+        xs[:, L // 3:L // 2] = 1e-4 * rng.standard_normal(L // 2 - L // 3)
+    kernels.record = []
+    try:
+        batch.batch_analyze(xs, fs)
+        torch.cuda.synchronize()
+        rec = kernels.record
+    finally:
+        kernels.record = None
+    return {n: [i for k, i in rec if k == n] for n in (
+        "stonemask_if", "cheaptrick_lifter", "d4c_group_delay",
+        "d4c_aperiodicity")}
+
+
+@pytest.mark.parametrize("fs,hostile", [(16000, False), (48000, False),
+                                        (48000, True)])
+def test_k24_kernel_bit_equal_to_plain(cuda, fs, hostile):
+    (inp,) = _analysis_record(cuda, fs, hostile=hostile)["stonemask_if"]
+    assert torch.equal(sm.if_readout(**inp), sm.if_readout_plain(**inp))
+
+
+def test_k24_bit_equal_at_the_gate_and_the_guard(cuda):
+    """Random spectra (zero-power bins too), f0 on both gate edges and
+    spread over the range, and the lane's spectra with seeds moved 19-21 %
+    off so the 20 % guard decides."""
+    fs, b_max = 48000, 4096
+    rng = np.random.default_rng(24)
+    R, H = 2000, b_max // 2 + 1
+    spec = [torch.as_tensor(rng.standard_normal((R, H)), dtype=torch.float32,
+                            device=cuda) for _ in range(4)]
+    spec[0][:, 64:80] = 0.0
+    spec[1][:, 64:80] = 0.0
+    f0 = torch.as_tensor(rng.uniform(30.0, 4200.0, R), dtype=torch.float32,
+                         device=cuda)
+    f32 = np.float32
+    f0[:4] = torch.tensor([40.0, np.nextafter(f32(40.0), f32(50.0)),
+                           fs / 12.0, np.nextafter(f32(fs / 12.0), f32(1e9))],
+                          device=cuda)
+    gate = (f0 <= 40.0) | (f0 > fs / 12.0)
+    f0s = torch.where(gate, torch.full_like(f0, 100.0), f0)
+    h = torch.clamp((1.5 * fs / f0s + 1.0).long(), max=(b_max // 2 - 1) // 2)
+    args = (*spec, f0s, h, gate, fs, b_max)
+    got, want = sm.if_readout(*args), sm.if_readout_plain(*args)
+    assert torch.equal(got, want) and not bool(got[[0, 3]].any())
+    assert bool((got[[1, 2]] != 0).all())
+    (inp,) = _analysis_record(cuda, fs)["stonemask_if"]
+    base = sm.if_readout_plain(**inp)
+    live = base > 0
+    scale = torch.as_tensor(rng.uniform(0.79, 0.81, live.numel()),
+                            dtype=torch.float32, device=cuda)
+    moved = dict(inp, f0s=torch.where(live, base * scale, inp["f0s"]))
+    got, want = sm.if_readout(**moved), sm.if_readout_plain(**moved)
+    assert torch.equal(got, want)
+    assert bool((got == moved["f0s"])[live].any())        # guard kept f0
+
+
+def _k25_chain(fn, ps, cf0, fs, N, q1=-0.15):
+    from hts_train_world_tpu_torch.ops import fftmat
+    c = fftmat.matmul(fn(ps, ct.LOG),
+                      fftmat.sym_rfft_real_mat(N, ps.dtype, ps.device))
+    A, _ = fftmat.irfft_half_mats(N, ps.dtype, ps.device)
+    return fn(fftmat.matmul(fn(c, ct.LIFTER, cf0, fs, N, q1), A), ct.EXP)
+
+
+@pytest.mark.parametrize("fs,hostile", [(16000, False), (48000, False),
+                                        (48000, True)])
+def test_k25_kernel_matches_plain(cuda, fs, hostile):
+    """Each stage within 2e-6 relative (the log stage: absolute, of the
+    row's largest |log|), and the chain's sp within 2e-6 relative."""
+    recs = _analysis_record(cuda, fs, hostile=hostile)["cheaptrick_lifter"]
+    assert [r["stage"] for r in recs] == [ct.LOG, ct.LIFTER, ct.EXP]
+    for inp in recs:
+        k, p = ct.lifter(**inp), ct.lifter_plain(**inp)
+        scale = p.abs().amax(1, keepdim=True) if inp["stage"] == ct.LOG \
+            else p.abs()
+        assert bool(((k - p).abs() <= 2e-6 * scale + 1e-30).all())
+    ps = recs[0]["x"]
+    N, cf0 = recs[1]["fft_size"], recs[1]["cf0"]
+    ps = torch.cat([ps, torch.zeros_like(ps[:2])])       # all-zero rows
+    cf0 = torch.cat([cf0, torch.full_like(cf0[:2], 500.0)])
+    k = _k25_chain(ct.lifter, ps, cf0, fs, N)
+    p = _k25_chain(ct.lifter_plain, ps, cf0, fs, N)
+    assert torch.isfinite(k).all() and (k > 0).all()
+    assert bool(((k - p).abs() <= 2e-6 * p.abs()).all())
+
+
+@pytest.mark.parametrize("fs,hostile", [(16000, False), (48000, False),
+                                        (48000, True)])
+def test_k26_k27_kernels_match_plain(cuda, fs, hostile):
+    """K26: LoveTrain's ap0 within 1e-6 relative with process and cf0
+    equal, the other stages bit for bit; K27: ap within 1e-6 relative,
+    coarse dB within 1e-4."""
+    rec = _analysis_record(cuda, fs, hostile=hostile)
+    stages = [r["stage"] for r in rec["d4c_group_delay"]]
+    assert stages == [d4c_mod.LOVE, d4c_mod.CENTROID, d4c_mod.RATIO,
+                      d4c_mod.SEGMENTS]
+    for inp in rec["d4c_group_delay"]:
+        kw = {k: v for k, v in inp.items() if k != "stage"}
+        fn = {d4c_mod.LOVE: "love_train_sums",
+              d4c_mod.CENTROID: "centroid_sum",
+              d4c_mod.RATIO: "group_delay_ratio",
+              d4c_mod.SEGMENTS: "band_segments"}[inp["stage"]]
+        k = getattr(d4c_mod, fn)(**kw)
+        p = getattr(d4c_mod, fn + "_plain")(**kw)
+        if inp["stage"] == d4c_mod.LOVE:
+            assert bool(((k[0] - p[0]).abs() <= 1e-6 * p[0].abs()).all())
+            assert torch.equal(k[1], p[1]) and torch.equal(k[2], p[2])
+        else:
+            assert bool(((k == p) | (k.isnan() & p.isnan())).all()), fn
+    (inp,) = rec["d4c_aperiodicity"]
+    (ak, ck), (ap, cp) = d4c_mod.aperiodicity(**inp), \
+        d4c_mod.aperiodicity_plain(**inp)
+    assert bool(((ak - ap).abs() <= 1e-6 * ap.abs()).all())
+    assert float((ck - cp).abs().max()) <= 1e-4
+
+
+def test_k26_hostile_rows(cuda):
+    """f0 = 0 and at the floor, all-zero power rows, sps bins that are 0 or
+    underflow: K26 as its twin."""
+    rng = np.random.default_rng(5)
+    R, H = 64, 2049
+    p = torch.as_tensor(rng.standard_normal((R, H)) ** 2, dtype=torch.float32,
+                        device=cuda)
+    p[:8] = 0.0
+    f0 = torch.as_tensor(rng.uniform(40.0, 600.0, R), dtype=torch.float32,
+                         device=cuda)
+    f0[8:12] = 0.0
+    f0[12:16] = cfg.K_FLOOR_F0
+    k = d4c_mod.love_train_sums(p, f0, 9, 342, 675, 0.0)
+    q = d4c_mod.love_train_sums_plain(p, f0, 9, 342, 675, 0.0)
+    assert bool(((k[0] - q[0]).abs() <= 1e-6 * q[0].abs()).all())
+    assert torch.equal(k[1], q[1]) and torch.equal(k[2], q[2])
+    sc = torch.as_tensor(rng.standard_normal((R, H)), dtype=torch.float32,
+                         device=cuda)
+    sps = p.clone()
+    sps[16:20, :50] = 1e-45
+    sps[20:24, :50] = 1e-40
+    sc[20:24, :50] = 1e-42
+    got = d4c_mod.group_delay_ratio(sc, sps)
+    assert torch.equal(got, d4c_mod.group_delay_ratio_plain(sc, sps))
+    assert bool((got[20:24, :50] != 0).all())       # denormals not flushed
+
+
+def test_analysis_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x = torch.ones((4, 1025), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError):
+        ct.lifter(x, ct.LOG)
+    with pytest.raises(ValueError):
+        ct.lifter(x.float(), 3)
+    with pytest.raises(ValueError):
+        d4c_mod.group_delay_ratio(x.float(), x.float()[:, :5])
+    with pytest.raises(ValueError):
+        d4c_mod.love_train_sums(x.float(), x[:, 0].float(), 9, 342, 2000,
+                                0.0)
+    with pytest.raises(ValueError):
+        sm.if_readout(x, x, x, x, x[:, 0], x[:, 0].long(),
+                      x[:, 0] > 0, 48000, 2048)
+
+
+def test_d4c_at_8k_without_bands_matches_the_cpu_path(cuda):
+    """fs <= 12 kHz: no coarse band; K26's band stage is skipped, K27
+    interpolates between the two ends alone."""
+    fs, L = 8000, 4000
+    x = (np.sin(2 * np.pi * 200 * np.arange(L) / fs)
+         + 0.01 * np.random.default_rng(0).standard_normal(L))[None]
+    g = batch.batch_analyze(x, fs)
+    c = batch.batch_analyze(x, fs, device="cpu")
+    H = cfg.cheaptrick_fft_size(fs) // 2 + 1
+    assert g[3].shape == c[3].shape == (1, c[1].shape[1], H)
+    assert float((g[3].cpu() - c[3]).abs().max()) <= 1e-5

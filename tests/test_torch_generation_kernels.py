@@ -77,13 +77,13 @@ def test_k21_twin_apply_and_stats_match_jax(T):
         got = postfilter.apply_mspf(_t(trajs[0]), nat, gen, w).numpy()
         want = np.asarray(jpf.apply_mspf(jnp.asarray(trajs[0]), nat, gen, w))
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-10)
-    st = postfilter.mspf_stats(trajs)
+    st = postfilter.mspf_stats(trajs, device="cpu")
     jst = jpf.mspf_stats(trajs)
     np.testing.assert_allclose(st.mean, jst.mean, rtol=1e-12)
     np.testing.assert_allclose(st.std, jst.std, rtol=1e-12)
     # tests/test_sptk_postfilter.py's gate: stats mapped onto themselves
     # leave the trajectory within 5% (+ 0.05)
-    one = postfilter.mspf_stats(trajs[:1])
+    one = postfilter.mspf_stats(trajs[:1], device="cpu")
     out = postfilter.apply_mspf(_t(trajs[0]), one, one, 1.0).numpy()
     assert np.abs(out - trajs[0]).max() < \
         0.05 * np.abs(trajs[0]).max() + 0.05

@@ -16,8 +16,10 @@ from hts_train_world_tpu import vocoder as jvocoder
 from hts_train_world_tpu.parallel import batch as jbatch
 from hts_train_world_tpu_torch import config as cfg
 from hts_train_world_tpu_torch import kernels, vocoder
+from hts_train_world_tpu_torch.ops import postfilter
 from hts_train_world_tpu_torch.ops import synthesis as syn
 from hts_train_world_tpu_torch.parallel import batch
+from hts_train_world_tpu_torch.runtime import pipeline
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FS = 16000
@@ -182,14 +184,25 @@ def test_parity_mode_is_a_later_slice(call):
             getattr(vocoder, call)(x, FS, device="cpu")
 
 
-@pytest.mark.parametrize("call", ["batch_analyze", "batch_copy_synth"])
-def test_default_device_is_the_card(call):
+ENTRY_POINTS = {
+    "batch_analyze": lambda d: batch.batch_analyze(_corpus(1, 1600), FS),
+    "batch_copy_synth": lambda d: batch.batch_copy_synth(_corpus(1, 1600),
+                                                         FS),
+    "SingingPipeline": lambda d: pipeline.SingingPipeline(
+        pipeline.PipelineConfig(str(d))),
+    "mspf_stats": lambda d: postfilter.mspf_stats([np.zeros((30, 2))]),
+}
+
+
+@pytest.mark.parametrize("call", list(ENTRY_POINTS))
+def test_default_device_is_the_card(call, tmp_path):
     """Entry points default to device='cuda' and raise without a card
     instead of running on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    assert pipeline.PipelineConfig(str(tmp_path)).device == "cuda"
     with pytest.raises(RuntimeError, match="CUDA"):
-        getattr(batch, call)(_corpus(1, 1600), FS)
+        ENTRY_POINTS[call](tmp_path)
 
 
 def test_port_imports_nothing_of_jax():
@@ -203,7 +216,13 @@ def test_port_imports_nothing_of_jax():
     for mod in ("features/encode.py", "features/windows.py", "ops/codec.py",
                 "ops/mlpg.py", "parallel/bucketing.py",
                 "parallel/features.py", "features/decode.py", "cli.py",
-                "io/rawio.py", "io/wavio.py", "ops/synthesis.py"):
+                "io/rawio.py", "io/wavio.py", "ops/synthesis.py",
+                "features/labels.py", "features/lowess.py",
+                "features/vibrato.py", "features/htk.py", "features/corpus.py",
+                "features/labelgen.py", "io/loader.py", "runtime/native.py",
+                "runtime/checkpoint.py", "runtime/pipeline.py",
+                "ops/stonemask.py", "ops/cheaptrick.py", "ops/d4c.py",
+                "ops/postfilter.py"):
         assert os.path.join(REPO, "hts_train_world_tpu_torch", mod) in files
     for f in files:
         with open(f) as fh:
