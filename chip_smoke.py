@@ -39,9 +39,15 @@ Drives the port's paths at full size on a corpus made from a seed:
   with vibrato on the long notes, as wav files and HTS labels with note
   names on disk, to lf0 (2) / mgc (50) / bap (25) / vib (2) streams, HTK
   cmp files (D = 237), statistics, state and phone alignments and ffi
-  label features.
+  label features;
+- the DNN lane: `models.training.train` at the reference's default recipe
+  (n_in 1186, 3 x 2048 sigmoid, n_out 238, batch 256, Adam) in frame mode
+  and in trajectory mode (one utterance of 512 frames, dims (50, 2, 25,
+  2)), then the pipeline's DNN half on the pipeline lane's workdir
+  (TRDNN -> TRJGV -> MSPFD -> PGEN -> WGEN, and `synthesize_unseen` of 4
+  phrases outside the corpus).
 
-Twenty-seven kernels, K1-K27, are built, driven and held to their twins.
+Thirty kernels, K1-K30, are built, driven and held to their twins.
 
 Phases (any failure raises):
 
@@ -57,7 +63,8 @@ Phases (any failure raises):
    bit against the plain version run on the CPU, K11 also across two
    launches); time kernel, plain version, bound and, where one exists,
    the library call; print the bounds of the plain-torch stages that have
-   no kernel yet, from this run's shapes;
+   no kernel yet, from this run's shapes (K28 and K29 are replayed in
+   phase 14, where their inputs are recorded);
 4. compare the card's copy-synthesis, feature lane, synth lane and
    Harvest lane with the CPU (plain) path on a small input (the synth
    lane must fire the same pulses);
@@ -114,7 +121,21 @@ Phases (any failure raises):
    ends, ffi width); and on tests/test_torch_pipeline.py's corpus (16 kHz)
    the front half on the card and on the CPU (streams within the CPU
    tests' tolerances; from the CPU's streams, cmp, alignments and ffi
-   equal).
+   equal);
+14. the DNN lane: (a) frame-mode frames/s and step ms over 220 steps
+   after 20, the idle share over 20 more under the profiler; (b)
+   trajectory-mode frames/s, K28 and K29 µs a launch, their launches
+   replayed against the twins (phase 3) and a float64 gradcheck through
+   both on the card; (c) the pipeline's DNN half on phase 13's workdir
+   at 3 x 2048, counted stage by stage (TRJGV K28/K29, MSPFD and PGEN K8
+   in float64 and K21, WGEN K12, K9-K11 and K30, `synthesize_unseen` all
+   of them but K28/K29), WGEN under the profiler: stage seconds, PGEN
+   utterances/s, WGEN audio-s/s and idle share; gates: the frame NLL
+   falls, the warm-started model's trajectory NLL below the frame
+   model's, the generated files finite, the unseen phrases audible (their
+   note F0 error reported); and on tests/test_torch_pipeline.py's corpus
+   the DNN half on the card and on the CPU at hidden (32, 32) (logged
+   costs, weights and PGEN files within `DNN_TINY_MAX`).
 
 Prints each measurement, the card's name and power limit, a `kernels`
 JSON line, and as the last line {"ok": true, "device": {...}}.  Exits
@@ -174,11 +195,16 @@ REPLACES = {
     "cheaptrick_lifter": ("K25", "hts_train_world_tpu/ops/cheaptrick.py:163"),
     "d4c_group_delay": ("K26", "hts_train_world_tpu/ops/d4c.py:153"),
     "d4c_aperiodicity": ("K27", "hts_train_world_tpu/ops/d4c.py:196"),
+    "trajectory_nll": ("K28", "hts_train_world_tpu/models/acoustic.py:137"),
+    "trajectory_adjoint": ("K29",
+                           "hts_train_world_tpu/models/acoustic.py:103"),
+    "synth_midpass": ("K30", "hts_train_world_tpu/ops/synthesis.py:195"),
 }
 BODY = ("cheaptrick_lifter", "d4c_group_delay", "d4c_aperiodicity")
 ANALYSIS = ("frame_window", "spectral_smooth", "topk_sum", "fix_f0",
             "dio_candidates", "stonemask_if") + BODY
-SYNTHESIS = ("synth_time_base", "synth_pulse_spectra", "synth_ola")
+SYNTHESIS = ("synth_time_base", "synth_pulse_spectra", "synth_midpass",
+             "synth_ola")
 HARVEST = ("harvest_decimate", "harvest_candidates", "harvest_refine",
            "harvest_contour", "frame_window", "spectral_smooth",
            "topk_sum") + BODY
@@ -214,6 +240,13 @@ PATHS = {
     "pipeline_compose": ("delta_window",),
     "pipeline_halgn": ("delta_window", "hsmm_loglik", "hsmm_fb",
                        "hsmm_accumulate", "hsmm_viterbi"),
+    # the DNN lane: trajectory training, then the pipeline's DNN half
+    "dnn_trajectory": ("trajectory_nll", "trajectory_adjoint"),
+    "pipeline_trjgv": ("trajectory_nll", "trajectory_adjoint"),
+    "pipeline_mspfd": ("mlpg_solve", "mspf"),
+    "pipeline_pgen": ("mlpg_solve", "mspf"),
+    "pipeline_wgen": ("codec_decode",) + SYNTHESIS,
+    "pipeline_unseen": ("mlpg_solve", "mspf", "codec_decode") + SYNTHESIS,
 }
 # the HSMM lane: RecipeConfig's defaults (models/recipe.py:45-47)
 HSMM_MODELS, HSMM_STATES, HSMM_MAX_DUR, HSMM_UTTS = 40, 5, 60, 128
@@ -226,6 +259,18 @@ VOICE_PITCH = {f"p{i:02d}": 220.0 * 2.0 ** (i / 12.0) for i in range(12)}
 NOTE_NAMES = ["A3", "Bb3", "B3", "C4", "Db4", "D4", "Eb4", "E4", "F4", "Gb4",
               "G4", "Ab4"]
 VIBRATO_HZ, VIBRATO_DEPTH, VIBRATO_MIN = 5.5, 0.03, 40
+# the DNN lane (phase 14): the reference's default recipe (tools/
+# bench_train.py:22-45, configure.ac:932-970), one utterance of 512 frames
+# for trajectory mode, and the pipeline's DNN half on phase 13's workdir
+DNN_SEED, DNN_FRAMES, DNN_T = 9, 16384, 512
+DNN_DIMS, DNN_MSD = (50, 2, 25, 2), (0, 1, 0, 0)
+DNN_FRAME_STEPS, DNN_TRAJ_STEPS = 300, 60
+DNN_TRDNN_STEPS, DNN_TRJGV_STEPS, DNN_UNSEEN = 4000, 200, 4
+# MSPF on the DNN's generations at half weight: their log modulation
+# spectra sit up to ~7.5 nats below the natural ones at some bins (a
+# frame-wise DNN over-smooths), so weight 1 scales those bins' swings
+# ~1800-fold and the float32 decode overflows (rehearsal, 6 phrases)
+DNN_MSPF_WEIGHT = 0.5
 
 
 def corpus(batch: int, n: int, seed: int = 0) -> np.ndarray:
@@ -746,6 +791,67 @@ def compare_voices(a, b, corpus, clustering, built_a, built_b,
                 f"utterances)")
 
 
+def _colmax(x, dims):
+    """Each column's largest magnitude (float64, floored at 1e-300)."""
+    return x.double().abs().amax(dim=dims, keepdim=True).clamp(min=1e-300)
+
+
+def check_k28(inp, out_k, out_p):
+    """K28 against its twin: c within `tol` of each (utterance, dimension)
+    column's largest |c|, q within `tol` relative, logdet within `tol` of
+    sum |log d| (1e-5 in float32, 1e-12 in float64; the row build and the
+    recursion are the twin's order, the sums of q and logdet are not).
+    Returns (ok, max abs err, text)."""
+    import torch
+    (ck, qk, lk, _), (cp, qp, lp, sp) = out_k, out_p
+    tol = 1e-12 if cp.dtype == torch.float64 else 1e-5
+    e_c = float(((ck - cp).double().abs() / _colmax(cp, 1)).max())
+    e_q = float(((qk - qp).double().abs() / qp.double().abs().clamp(
+        min=1e-300)).max())
+    e_l = float(((lk - lp).double().abs() / sp[0].double().log().abs().sum(
+        1).clamp(min=1e-300)).max())
+    same = bool((ck == cp).all())
+    err = max(float((ck - cp).abs().max()), float((qk - qp).abs().max()),
+              float((lk - lp).abs().max()))
+    return (max(e_c, e_q, e_l) <= tol, err,
+            f"{str(cp.dtype)[6:]} c err / column max {e_c:.2e}, q rel "
+            f"{e_q:.2e}, logdet err / sum|log d| {e_l:.2e} (<= {tol:.0e}); "
+            f"c bit-equal {same}")
+
+
+def check_k29(inp, out_k, out_p):
+    """K29 against its twin: g_mu and g_prec within `tol` of each
+    (utterance, window, dimension) column's largest magnitude (1e-5 in
+    float32, 1e-12 in float64)."""
+    import torch
+    tol = 1e-12 if out_p[0].dtype == torch.float64 else 1e-5
+    worst = max(float(((k - p).double().abs() / _colmax(p, 1)).max())
+                for k, p in zip(out_k, out_p))
+    err = max(float((k - p).abs().max()) for k, p in zip(out_k, out_p))
+    same = all(bool((k == p).all()) for k, p in zip(out_k, out_p))
+    return (worst <= tol, err,
+            f"{str(out_p[0].dtype)[6:]} g_mu, g_prec err / column max "
+            f"{worst:.2e} (<= {tol:.0e}); bit-equal {same}")
+
+
+def check_k30(inp, out_k, out_p):
+    """K30 against its twin, per element: (sre, sim) within 1e-5 exp(lpr),
+    (pre, pim) within 1e-5 exp(lar) (|nre| + |nim|): a few float32 ulps of
+    the spectra's magnitude (CUDA's expf / cosf / sinf / sqrtf are the card
+    twin's functions; --fmad=false rounds each product as the twin's
+    separate calls do)."""
+    ms = inp["lpr"].exp()
+    mp = inp["lar"].exp() * (inp["nre"].abs() + inp["nim"].abs())
+    worst = max(float(((k - p).abs() / (1e-5 * m).clamp(min=1e-30)).max())
+                for k, p, m in zip(out_k, out_p, (ms, ms, mp, mp)))
+    err = max(float((k - p).abs().max()) for k, p in zip(out_k, out_p))
+    same = sum(int((k == p).sum()) for k, p in zip(out_k, out_p))
+    n = sum(p.numel() for p in out_p)
+    return (worst <= 1.0, err,
+            f"per element err / (1e-5 x magnitude) worst {worst:.3f}; "
+            f"{same} of {n} elements bit-equal")
+
+
 def k18_long_inputs(dev, T: int = 9000, K: int = 200, seed: int = 18):
     """One utterance past the shared-memory rows of K18 and K20 (3 (T+1) +
     max_dur > 25600 doubles): obs_ll (1, T, K) of -3 |N(0, 1)| - 1 per
@@ -907,7 +1013,7 @@ def pipeline_corpus(wd, wavio, n_utts=VOICE_UTTS):
     name, the frame position in the phone).  Returns per utterance the
     signal as written and its notes as (start, end, pitch, vibrato)
     frames."""
-    sigs, _, spans, templates, _ = voice_corpus(fs=48000, vibrato=True)
+    sigs, _, spans, templates, unseen = voice_corpus(fs=48000, vibrato=True)
     names = dict(zip(sorted(VOICE_PITCH), NOTE_NAMES))
     for sub in ("raw", "labels/full", "labels/mono"):
         os.makedirs(os.path.join(wd, sub), exist_ok=True)
@@ -933,6 +1039,17 @@ def pipeline_corpus(wd, wavio, n_utts=VOICE_UTTS):
                   "w") as f:
             f.write("\n".join(lines) + "\n")
         out.append((x, notes))
+    # the unseen phrases: labels alone, 40 frames a phone (synthesize_unseen
+    # reads the contexts; the durations come from HALGN's model)
+    for k, phones in enumerate(unseen[:DNN_UNSEEN]):
+        ph = ["x"] + list(phones) + ["x"]
+        with open(os.path.join(wd, "labels", "full", f"unseen{k}.lab"),
+                  "w") as f:
+            f.write("".join(
+                f"{40 * i * shift_100ns} {40 * (i + 1) * shift_100ns} "
+                f"{ph[i]}^{ph[i]}-{ph[i + 1]}+{ph[i + 2]}={ph[i + 2]}"
+                f"@{i + 1}_x/E:{names.get(p, 'xx')}]\n"
+                for i, p in enumerate(phones)))
     names_all = sorted(VOICE_PITCH) + ["sil"]
     conf = ([f"L-Phone_{p} {{*^{p}-*}}" for p in names_all]
             + [f"C-Phone_{p} {{*-{p}+*}}" for p in names_all]
@@ -942,7 +1059,7 @@ def pipeline_corpus(wd, wavio, n_utts=VOICE_UTTS):
                "Pos_C-Frame_in_Phone(Bw)  MIN=1 MAX=200"])
     with open(os.path.join(wd, "qconf.conf"), "w") as f:
         f.write("\n".join(conf) + "\n")
-    return out
+    return out, unseen[:DNN_UNSEEN]
 
 
 # tests/test_torch_pipeline.py's corpus and HALGN recipe (hard counts: the
@@ -1092,14 +1209,15 @@ def pipeline_lane(counted, profiled, device="cuda", n_utts=VOICE_UTTS):
     stage by stage, ANALYZE under the profiler; prints the stage seconds
     and what the vibrato scan found, holds every stage's files to their
     gates; returns the launch counts of ANALYZE, COMPOSE + STATS and
-    HALGN + MKDAT."""
+    HALGN + MKDAT, the pipeline (its workdir kept for phase 14), the
+    corpus and the unseen phrases."""
     from hts_train_world_tpu_torch import config as cfg
     from hts_train_world_tpu_torch.features import htk, qconf
     from hts_train_world_tpu_torch.io import rawio, wavio
     from hts_train_world_tpu_torch.runtime import pipeline as pl
     wd_p = tempfile.mkdtemp()
     t0 = time.perf_counter()
-    utts_p = pipeline_corpus(wd_p, wavio, n_utts)
+    utts_p, unseen_p = pipeline_corpus(wd_p, wavio, n_utts)
     audio_p = sum(len(x) for x, _ in utts_p) / 48000
     print(f"pipeline lane: corpus written in {time.perf_counter() - t0:.2f} "
           f"s: {len(utts_p)} phrases, {audio_p:.1f} s at 48 kHz, "
@@ -1196,13 +1314,7 @@ def pipeline_lane(counted, profiled, device="cuda", n_utts=VOICE_UTTS):
     if bad:
         raise RuntimeError(f"pipeline lane: files fail their gates: "
                            f"{bad[:8]}")
-    try:
-        pipe.run()
-        raise RuntimeError("pipeline lane: run() went past MKDAT")
-    except NotImplementedError:
-        pass
-    shutil.rmtree(wd_p)
-    return counts_pa, counts_pc, counts_ph
+    return counts_pa, counts_pc, counts_ph, pipe, utts_p, unseen_p
 
 
 def pipeline_card_vs_cpu(devices=("cuda", "cpu")):
@@ -1302,6 +1414,415 @@ def pipeline_card_vs_cpu(devices=("cuda", "cpu")):
         shutil.rmtree(wd)
 
 
+def _device_busy_s(prof):
+    """Device time of a profile's CUDA events in seconds, and the three
+    kernels that took most of it as (name, seconds).  User annotations
+    on the device's timeline (the "Optimizer.step#..." range that
+    torch.optim records) span kernels counted already and are left out."""
+    import torch
+    evs = sorted(((e.key, getattr(e, "self_device_time_total", getattr(
+        e, "self_cuda_time_total", 0.0)) / 1e6) for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False)
+        and not e.key.startswith("Optimizer.")),
+        key=lambda kv: -kv[1])
+    return sum(t for _, t in evs), evs[:3]
+
+
+def dnn_lanes(counted, device="cuda", frame_steps=DNN_FRAME_STEPS,
+              traj_steps=DNN_TRAJ_STEPS, hidden=(2048, 2048, 2048)):
+    """Phase 14 (a) and (b) through `training.train`: frame mode at the
+    reference's default recipe (n_in 1186, 3 x 2048 sigmoid, n_out 238,
+    batch 256, Adam 1e-3, variances 1e-5) on DNN_FRAMES frames from a
+    seed (y a noisy linear map of x, so the NLL falls), frames/s and step
+    ms over the steps from the 20th to the 240th (each log line syncs), 20
+    more under the profiler for the idle share; then trajectory mode on
+    32 utterances of DNN_T frames (dims DNN_DIMS, MSD DNN_MSD), counted
+    and recorded (K28, K29), frames/s over the steps from the 10th.
+    Returns (the trajectory run's counts, its first K28 and K29 launches'
+    recorded inputs)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from hts_train_world_tpu_torch.models import acoustic, dataio, training
+    rng = np.random.default_rng(DNN_SEED)
+    ncol = sum(DNN_MSD) + 3 * sum(DNN_DIMS)
+    W = (rng.standard_normal((1186, ncol)) / np.sqrt(1186)).astype(
+        np.float32)
+    T = DNN_T
+    pairs = []
+    for i in range(DNN_FRAMES // T):
+        x = rng.standard_normal((T, 1186)).astype(np.float32)
+        y = x @ W + 0.1 * rng.standard_normal((T, ncol)).astype(np.float32)
+        pairs.append(dataio.UtterancePair(f"u{i}", x, y))
+    cfg = acoustic.ModelConfig(n_in=1186, n_out=ncol, hidden=hidden)
+    tmp = tempfile.mkdtemp()
+
+    def run(tc, marks, window=None, **kw):
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        busy = []
+
+        def log(msg):
+            if not msg.startswith("step "):
+                return
+            step = int(msg.split()[1][:-1])
+            marks.append((step, time.perf_counter(),
+                          float(msg.split("cost=")[1].split()[0])))
+            if window and step == window[0]:
+                prof.__enter__()
+            elif window and step == window[1]:
+                prof.__exit__(None, None, None)
+                busy.append((*_device_busy_s(prof),
+                             marks[-1][1] - marks[-2][1]))
+        training.train(cfg, tc, pairs,
+                       os.path.join(tmp, str(tc.trajectory)), log=log,
+                       device=device, **kw)
+        return busy
+
+    def rate(marks, a, b, frames):
+        (sa, ta, _), (sb, tb, _) = (next(m for m in marks if m[0] == s)
+                                    for s in (a, b))
+        return (sb - sa) * frames / (tb - ta), 1e3 * (tb - ta) / (sb - sa)
+
+    fm = []
+    busy = run(training.TrainConfig(
+        num_steps=frame_steps, batch_size=256, log_interval=20,
+        save_interval=10 ** 9, valid_fraction=0.0), fm,
+        window=(frame_steps - 40, frame_steps - 20))
+    fps, step_ms = rate(fm, 20, frame_steps - 60, 256)
+    (b_s, top, w_s), = busy
+    print(f"DNN lane (a), frame mode at 3 x {hidden[0]} sigmoid, n_in 1186, "
+          f"n_out {ncol}, batch 256, Adam: {fps:.1f} frames/s, step "
+          f"{step_ms:.3f} ms over steps 20-{frame_steps - 60}; cost "
+          f"{fm[0][2]:.5f} at step {fm[0][0]} -> {fm[-1][2]:.5f} at step "
+          f"{fm[-1][0]}; 20 steps under the profiler: device busy "
+          f"{b_s:.4f} s of {w_s:.4f} s, idle {100 - 100 * b_s / w_s:.1f}%; "
+          f"most device time: " + "; ".join(f"{k[:60]} {1e3 * t:.2f} ms"
+                                             for k, t in top), flush=True)
+    if not fm[-1][2] < fm[0][2] or not np.isfinite(fm[-1][2]):
+        raise RuntimeError("DNN lane (a): the frame NLL did not fall")
+
+    tm = []
+    rec: list = []
+    tc = training.TrainConfig(num_steps=traj_steps, batch_size=1,
+                              log_interval=10, save_interval=10 ** 9,
+                              trajectory=True, valid_fraction=0.0)
+    _, counts, _ = counted("dnn_trajectory", lambda: run(
+        tc, tm, feature_dims=DNN_DIMS, msd_flags=DNN_MSD), record=rec)
+    tps, tstep = rate(tm, 10, traj_steps, T)
+    firsts = {}
+    for name, inp in rec:
+        firsts.setdefault(name, inp)
+    from hts_train_world_tpu_torch.ops import trajectory as tr
+    us = {"trajectory_nll": float("nan"), "trajectory_adjoint": float("nan")}
+    for name, inp in firsts.items():       # none on the CPU
+        f = tr.trajectory_forward if name == "trajectory_nll" \
+            else tr.trajectory_backward
+        f(**inp)
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(10):
+            f(**inp)
+        b.record()
+        b.synchronize()
+        us[name] = 1e3 * a.elapsed_time(b) / 10
+    print(f"DNN lane (b), trajectory mode, one utterance of {T} frames, dims "
+          f"{DNN_DIMS}, MSD {DNN_MSD}: {tps:.1f} frames/s, step {tstep:.3f} "
+          f"ms over steps 10-{traj_steps}; cost {tm[0][2]:.5f} -> "
+          f"{tm[-1][2]:.5f}; K28 {us['trajectory_nll']:.1f} us a launch, "
+          f"K29 {us['trajectory_adjoint']:.1f} us a launch "
+          f"({counts.get('trajectory_nll', 0)} and "
+          f"{counts.get('trajectory_adjoint', 0)} launches)", flush=True)
+    if not np.isfinite(tm[-1][2]):
+        raise RuntimeError("DNN lane (b): the trajectory cost is not finite")
+    shutil.rmtree(tmp)
+    return counts, list(firsts.items())
+
+
+def _traj_nll(pipe, model, bases):
+    """The trajectory NLL of `model` summed over `bases`' ffi/ffo (the
+    measure of tests/test_pipeline_bridge.py:87-112)."""
+    import torch
+    from hts_train_world_tpu_torch.models import acoustic, dataio
+    fd, mf, gv = pipe._traj_meta()
+    n_in = pipe._model_cfg().n_in
+    total = 0.0
+    with torch.no_grad():
+        for b in bases:
+            pr = dataio.load_pair(b, pipe._p("ffi", b, "ffi"),
+                                  pipe._p("ffo", b, "ffo"), n_in,
+                                  pipe.cfg.layout.ffo_dim)
+            x = torch.as_tensor(pr.ffi, device=pipe.dev)
+            pred, var = model(x, torch.zeros(len(x), dtype=torch.long,
+                                             device=pipe.dev))
+            c, _ = acoustic.trajectory_cost(
+                pred, torch.as_tensor(pr.ffo, device=pipe.dev), var[0],
+                torch.as_tensor(gv, dtype=torch.float32, device=pipe.dev),
+                fd, mf)
+            total += float(c)
+    return total
+
+
+def _frame_nll(pipe, model, bases):
+    """The frame NLL (acoustic.frame_cost) of `model` over `bases`'
+    frames."""
+    import torch
+    from hts_train_world_tpu_torch.models import acoustic, dataio
+    n_in = pipe._model_cfg().n_in
+    prs = [dataio.load_pair(b, pipe._p("ffi", b, "ffi"),
+                            pipe._p("ffo", b, "ffo"), n_in,
+                            pipe.cfg.layout.ffo_dim) for b in bases]
+    x = torch.as_tensor(np.concatenate([p.ffi for p in prs]),
+                        device=pipe.dev)
+    y = torch.as_tensor(np.concatenate([p.ffo for p in prs]),
+                        device=pipe.dev)
+    with torch.no_grad():
+        pred, var = model(x, torch.zeros(len(x), dtype=torch.long,
+                                         device=pipe.dev))
+        return float(acoustic.frame_cost(pred, y, var))
+
+
+def _captured(fn):
+    """Run fn with its stdout captured and echoed; returns the lines."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn()
+    out = buf.getvalue()
+    print(out, end="", flush=True)
+    return out.splitlines()
+
+
+def _log_costs(lines):
+    return [(int(ln.split()[1][:-1]), float(ln.split("cost=")[1].split()[0]))
+            for ln in lines if ln.startswith("step ")]
+
+
+def dnn_pipeline_lane(pipe, utts, unseen, counted, profiled,
+                      steps=DNN_TRDNN_STEPS, traj_steps=DNN_TRJGV_STEPS,
+                      hidden=(2048, 2048, 2048)):
+    """Phase 14 (c): the pipeline's DNN half on phase 13's workdir (64
+    phrases, D = 237, n_in from the lane's qconf) at hidden `hidden` and
+    TrainConfig()'s defaults but num_steps: TRDNN, TRJGV, MSPFD (use_mspf),
+    PGEN and WGEN counted stage by stage, WGEN under the profiler, then
+    synthesize_unseen of the unseen phrases.  Gates: the frame NLL falls
+    (over 8 phrases, from the initial model's by more than 0.1; and
+    from the first logged mean to the last),
+    the warm-started model's trajectory NLL below the frame model's, the
+    generated files finite, the unseen wavs audible (note_gates' RMS
+    gates); the unseen notes' F0 error is reported.  Returns the counts
+    by stage."""
+    import torch
+    from hts_train_world_tpu_torch.features import decode, qconf
+    from hts_train_world_tpu_torch.io import rawio, wavio
+    from hts_train_world_tpu_torch.models import acoustic, training
+    pipe.cfg.model = acoustic.ModelConfig(
+        n_in=pipe._model_cfg().n_in, n_out=pipe.cfg.layout.ffo_dim,
+        hidden=hidden)
+    pipe.cfg.train = training.TrainConfig(num_steps=steps)
+    pipe.cfg.trajectory_steps = traj_steps
+    pipe.cfg.use_mspf = True
+    pipe.cfg.mspf_weight = DNN_MSPF_WEIGHT
+    counts = {}
+    lines = _captured(pipe.train_dnn)
+    costs = _log_costs(lines)
+    lines_t = []
+    _, counts["pipeline_trjgv"], _ = counted(
+        "pipeline_trjgv", lambda: lines_t.extend(_captured(pipe.trjgv)))
+    _, counts["pipeline_mspfd"], _ = counted("pipeline_mspfd", pipe.mspfd)
+    _, counts["pipeline_pgen"], _ = counted("pipeline_pgen", pipe.generate)
+    (wall_w, busy_w, _), counts["pipeline_wgen"], _ = counted(
+        "pipeline_wgen", lambda: profiled(pipe.synthesize_stage))
+    bases = pipe.utterances()
+    t0 = time.perf_counter()
+    wavs, counts["pipeline_unseen"], _ = counted(
+        "pipeline_unseen", lambda: [pipe.synthesize_unseen(f"unseen{k}")
+                                    for k in range(len(unseen))])
+    t_unseen = time.perf_counter() - t0
+    secs = pipe.stage_seconds
+    audio = sum(len(x) for x, _ in utts) / 48000
+    print(f"DNN lane (c), the pipeline's DNN half ({len(bases)} phrases, 3 x "
+          f"{hidden[0]}): stage seconds " + ", ".join(
+              f"{k} {secs[k]:.3f}" for k in ("TRDNN", "TRJGV", "MSPFD",
+                                             "PGEN", "WGEN"))
+          + f" (WGEN under the profiler); TRDNN "
+          f"{steps * pipe.cfg.train.batch_size / secs['TRDNN']:.1f} "
+          f"frames/s; PGEN {len(bases) / secs['PGEN']:.2f} utterances/s; "
+          f"WGEN {audio / secs['WGEN']:.2f} audio-s/s, device busy "
+          f"{busy_w:.3f} s of {wall_w:.3f} s, idle "
+          f"{100 - 100 * busy_w / wall_w:.1f}%; synthesize_unseen "
+          f"{t_unseen / len(unseen):.3f} s a phrase", flush=True)
+
+    # gates
+    init = acoustic.init_params(torch.Generator().manual_seed(
+        pipe.cfg.train.seed), pipe.cfg.model).to(pipe.dev)
+    frame_nll = (_frame_nll(pipe, init, bases[:8]),
+                 _frame_nll(pipe, pipe._restore_params(os.path.join(
+                     pipe.wd, "model")), bases[:8]))
+    trj = _traj_nll(pipe, pipe._restore_params(os.path.join(
+        pipe.wd, "model_trj")), bases[:8])
+    frm = _traj_nll(pipe, pipe._restore_params(os.path.join(
+        pipe.wd, "model")), bases[:8])
+    lay = pipe.cfg.layout
+    bad = []
+    for b in bases:
+        st = {ext: rawio.read_f32(pipe._p("gen", b, ext), d) for ext, d in (
+            ("mgc", lay.mgc_dim), ("lf0", lay.lf0_dim), ("bap", lay.bap_dim),
+            ("vuv", 1))}
+        bad += [f"gen/{b}.{ext}" for ext, v in st.items()
+                if not np.isfinite(v).all()]
+        # the decode WGEN ran (an overflowing spectrum makes a NaN wave,
+        # which the int16 file no longer shows)
+        lf0_1 = np.where(st["lf0"][:, 0] < -1e9, 0.0, st["lf0"][:, 0])
+        dec = decode.decode_features(
+            *(torch.as_tensor(np.asarray(v, np.float32), device=pipe.dev)
+              for v in (lf0_1, st["mgc"], st["bap"])), 48000,
+            pipe.fft_size)
+        if not all(bool(torch.isfinite(v).all()) for v in dec):
+            bad.append(f"decode of gen/{b}")
+        y, _ = wavio.wavread(pipe._p("gen", b, "wav"))
+        if not np.abs(y).max() > 0:
+            bad.append(f"gen/{b}.wav")
+    # how well the generated pitch follows the sung one on the corpus:
+    # PGEN's files (TRJGV's model) and the frame model's generation
+    d_lf0 = {"trj": [], "frame": []}
+    frame_model = pipe._restore_params(os.path.join(pipe.wd, "model"))
+    var = pipe._ffo_var()
+    for b in bases[:8]:
+        nl = rawio.read_f32(pipe._p("lf0", b, "lf0"), lay.lf0_dim)[:, 0]
+        _, gf = pipe._gen_one(rawio.read_f32(pipe._p("ffi", b, "ffi"),
+                                             pipe.cfg.model.n_in),
+                              frame_model, var, pipe._alpha(), None)
+        for k, gl in (("trj", rawio.read_f32(pipe._p("gen", b, "lf0"),
+                                             lay.lf0_dim)[:, 0]),
+                      ("frame", gf.lf0[:, 0].cpu().numpy())):
+            both = (gl > -1e9) & (nl != 0)
+            d_lf0[k].append(np.abs(gl[both] - nl[both]))
+    d_lf0 = {k: np.concatenate(v) for k, v in d_lf0.items()}
+    feats = qconf.parse_config(open(os.path.join(pipe.wd,
+                                                 "qconf.conf")).read())
+    model = pipe._restore_params()
+    shift_100ns = int(pipe.cfg.frame_period * 1e4)
+    notes, audible = [], True
+    for k, (phones, wav) in enumerate(zip(unseen, wavs)):
+        lab = open(pipe._p("gen", f"unseen{k}", "lab")).read()
+        rows = [ln.split() for ln in lab.splitlines()]
+        durs = np.diff([0] + [int(r[1]) // shift_100ns for r in rows])
+        ffi = qconf.encode_labels(feats, qconf.parse_aligned_labels(
+            lab, shift_100ns))
+        mgc, g = pipe._gen_one(np.asarray(ffi), model, var, pipe._alpha(),
+                               pipe._load_mspf())
+        lf0 = g.lf0[:, 0]
+        lf0_1 = torch.where(lf0 > -1e9, lf0, torch.zeros_like(lf0))
+        dec = decode.decode_features(lf0_1.float(), mgc.float(),
+                                     g.bap.float(), 48000, pipe.fft_size)
+        f0 = dec[0].cpu().numpy()
+        y, _ = wavio.wavread(wav)
+        ok, sung, sil, worst = note_gates(y, durs, list(phones), 5, 48000,
+                                          f0)
+        audible &= (all(bool(torch.isfinite(v).all()) for v in dec)
+                    and sung > 0.01 and sil < 0.25 * sung)
+        notes.append((sung, sil, worst))
+    print(f"DNN lane (c) gates: frame NLL over 8 phrases, initial "
+          f"{frame_nll[0]:.5f} -> trained {frame_nll[1]:.5f} (logged "
+          f"{costs[0][1]:.5f} at step {costs[0][0]} -> {costs[-1][1]:.5f} "
+          f"at step {costs[-1][0]}); "
+          f"trajectory NLL over 8 phrases, frame model {frm:.4f} -> "
+          f"warm-started {trj:.4f} (TRJGV: "
+          + ", ".join(f"step {s} {c:.5f}" for s, c in _log_costs(lines_t))
+          + f"); generated files finite: {not bad}; corpus lf0 |gen - "
+          f"sung| where both voiced (8 phrases), median / 90th pct: PGEN "
+          f"(TRJGV's model) {np.median(d_lf0['trj']):.4f} / "
+          f"{np.percentile(d_lf0['trj'], 90):.4f} nats, the frame model "
+          f"{np.median(d_lf0['frame']):.4f} / "
+          f"{np.percentile(d_lf0['frame'], 90):.4f}; unseen phrases (sung "
+          f"RMS, sil RMS, worst note F0 error): "
+          + ", ".join(f"({a:.4f}, {b:.4f}, {100 * c:.1f}%)"
+                      for a, b, c in notes)
+          + f"; audible: {audible}", flush=True)
+    if not (frame_nll[1] < frame_nll[0] - 0.1 and costs[-1][1] < costs[0][1]
+            and trj < frm and not bad and audible):
+        raise RuntimeError("DNN lane (c): a gate failed")
+    return counts
+
+
+# phase 4 for the DNN half: tests/test_torch_pipeline_dnn.py's recipe
+DNN_TINY_TRAIN = dict(num_steps=100, batch_size=128, log_interval=50,
+                      save_interval=50, valid_fraction=0.0)
+# bounds on card vs CPU: the logged costs (absolute), the weights and
+# PGEN's mgc relative to each array's largest magnitude, lf0 and bap
+DNN_TINY_MAX = dict(cost=1e-4, weights=1e-4, mgc=2e-3, lf0=1e-5, bap=1e-5)
+
+
+def dnn_card_vs_cpu(devices=("cuda", "cpu")):
+    """Phase 4 for the DNN half: tests/test_torch_pipeline.py's corpus
+    (16 kHz) through the front half on the CPU, then HALGN (hard counts)
+    .. WGEN on the card and on the CPU from those files, hidden (32, 32),
+    100 frame steps and 10 trajectory steps, MSPF at weight 0.5: the
+    logged costs, the weights of both checkpoints and PGEN's files within
+    `DNN_TINY_MAX`, V/UV equal."""
+    from hts_train_world_tpu_torch.io import rawio, wavio
+    from hts_train_world_tpu_torch.models import acoustic, recipe, training
+    from hts_train_world_tpu_torch.runtime import pipeline as pl
+    base = tempfile.mkdtemp()
+    pipeline_tiny_corpus(base, wavio)
+    pl.SingingPipeline(pl.PipelineConfig(base, fs=16000, device="cpu")).run(
+        upto="STATS")
+    pipes, logs = {}, {}
+    for d in devices:
+        wd = os.path.join(base, d.replace(":", "_"))
+        shutil.copytree(base, wd, ignore=shutil.ignore_patterns(
+            *(x.replace(":", "_") for x in devices)))
+        p = pipes[d] = pl.SingingPipeline(pl.PipelineConfig(
+            wd, fs=16000, use_hmm_align=True,
+            hmm=recipe.RecipeConfig(**PIPELINE_TINY_HALGN),
+            model=acoustic.ModelConfig(n_in=8, n_out=238, hidden=(32, 32)),
+            train=training.TrainConfig(**DNN_TINY_TRAIN),
+            trajectory_steps=10, use_mspf=True, mspf_weight=0.5, device=d))
+        logs[d] = _log_costs(_captured(p.run))
+    g, c = (pipes[d] for d in devices)
+    e_cost = max(abs(a[1] - b[1]) for a, b in zip(logs[devices[0]],
+                                                 logs[devices[1]]))
+    e_w = 0.0
+    for sub in ("model", "model_trj"):
+        wg = acoustic.params_to_numpy(g._restore_params(os.path.join(
+            g.wd, sub)))
+        wc = acoustic.params_to_numpy(c._restore_params(os.path.join(
+            c.wd, sub)))
+        for lg, lc in zip(wg["layers"] + [wg["variance"]],
+                          wc["layers"] + [wc["variance"]]):
+            for k in lc:
+                e_w = max(e_w, float(np.abs(lg[k] - lc[k]).max()
+                                     / np.abs(lc[k]).max()))
+    lay = c.cfg.layout
+    e_f, vuv_same = {}, True
+    for u in range(3):
+        b = f"utt{u}"
+        vuv_same &= np.array_equal(rawio.read_f32(g._p("gen", b, "vuv")),
+                                   rawio.read_f32(c._p("gen", b, "vuv")))
+        for ext, dim in (("mgc", lay.mgc_dim), ("lf0", lay.lf0_dim),
+                         ("bap", lay.bap_dim)):
+            x = rawio.read_f32(g._p("gen", b, ext), dim)
+            w = rawio.read_f32(c._p("gen", b, ext), dim)
+            live = w > -1e9
+            vuv_same &= np.array_equal(x > -1e9, live)
+            e_f[ext] = max(e_f.get(ext, 0.0), float(
+                np.abs(x[live] - w[live]).max() / np.abs(w[live]).max()))
+    print(f"DNN half, card vs CPU path (tests/test_torch_pipeline.py's "
+          f"corpus, 16 kHz, hidden (32, 32)): logged costs max |d| "
+          f"{e_cost:.2e}, weights (model/, model_trj/) worst |d| / max "
+          f"{e_w:.2e}, PGEN " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                          e_f.items())
+          + f", V/UV and MAGIC equal {vuv_same} (bounds "
+          + ", ".join(f"{k} {v:.0e}" for k, v in DNN_TINY_MAX.items())
+          + ")", flush=True)
+    if not (e_cost <= DNN_TINY_MAX["cost"] and e_w <= DNN_TINY_MAX["weights"]
+            and all(e_f[k] <= DNN_TINY_MAX[k] for k in e_f) and vuv_same):
+        raise RuntimeError("the card's DNN half disagrees with the CPU path")
+    shutil.rmtree(base)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1334,6 +1855,7 @@ def main() -> int:
     from hts_train_world_tpu_torch.models import engine, pgen
     from hts_train_world_tpu_torch.ops import gv as gv_mod
     from hts_train_world_tpu_torch.ops import postfilter as pf_mod
+    from hts_train_world_tpu_torch.ops import trajectory as traj_mod
     from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda")
@@ -1534,6 +2056,11 @@ def main() -> int:
         "d4c_group_delay": (d4c_mod.group_delay, d4c_mod.group_delay_plain),
         "d4c_aperiodicity": (d4c_mod.aperiodicity,
                              d4c_mod.aperiodicity_plain),
+        "trajectory_nll": (traj_mod.trajectory_forward,
+                           traj_mod.trajectory_forward_plain),
+        "trajectory_adjoint": (traj_mod.trajectory_backward,
+                               traj_mod.trajectory_backward_plain),
+        "synth_midpass": (syn.midpass, syn.midpass_plain),
     }
 
     def nbytes(*ts):
@@ -1629,6 +2156,20 @@ def main() -> int:
                             + 3.0 * inp["fft_size"]) / F32_OPS_PER_S
         elif name == "synth_ola":
             t_o = 8.0 * inp["per_raw"].numel() / F32_OPS_PER_S
+        elif name in ("trajectory_nll", "trajectory_adjoint"):
+            # per (utterance, frame, dimension): the row build (~10 a
+            # window) and the recursions (~15) forward; the two sweeps,
+            # Takahashi, G's band and the window sums (~40 + 20 a window)
+            # in the adjoint; the saved planes and outputs written once
+            W_ = inp["mu"].shape[2]
+            per = (10.0 * W_ + 15.0) if name == "trajectory_nll" \
+                else (40.0 + 20.0 * W_)
+            t_o = per * inp["s"].numel() / (
+                F64_OPS_PER_S if inp["mu"].dtype == torch.float64
+                else F32_OPS_PER_S)
+        elif name == "synth_midpass":
+            # 2 exp, 5 cos/sin, 1 sqrt (~15 each) and 12 products a bin
+            t_o = 132.0 * inp["lpr"].numel() / F32_OPS_PER_S
         elif name == "codec_decode":
             rows = inp["lf0"].numel()
             H = inp["fft_size"] // 2 + 1
@@ -1812,6 +2353,42 @@ def main() -> int:
             x = inp["statics"]
             x = x if inp["mask"] is None else x[inp["mask"]]
             return lambda: torch.var_mean(x, dim=0, correction=0)
+        if name in ("trajectory_nll", "trajectory_adjoint"):
+            # the dense route: each (utterance, dimension)'s (T, T) normal
+            # matrix (built here, not timed), its Cholesky factor, the
+            # solve and the log-det (for the adjoint the inverse too)
+            mu, prec = inp["mu"].double(), inp["prec"].double()
+            diags, rhs = mlpg_mod.build_banded_normal(
+                mu, prec, mlpg_mod.DEFAULT_WINDOWS)
+            Tn = diags.shape[2]
+            A = torch.diag_embed(diags[:, 0].permute(0, 2, 1))
+            for off in (1, 2):
+                band = torch.diag_embed(
+                    diags[:, off, :Tn - off].permute(0, 2, 1), offset=off)
+                A = A + band + band.transpose(-1, -2)
+            A = A.to(inp["mu"].dtype)
+            b = rhs.permute(0, 2, 1)[..., None].to(inp["mu"].dtype)
+
+            def dense():
+                L, _ = torch.linalg.cholesky_ex(A)
+                c = torch.cholesky_solve(b, L)
+                ld = 2.0 * torch.log(torch.diagonal(L, dim1=-2,
+                                                    dim2=-1)).sum(-1)
+                if name == "trajectory_adjoint":
+                    return c, ld, torch.cholesky_inverse(L)
+                return c, ld
+            return dense
+        if name == "synth_midpass":
+            # the same products in complex library calls (sin for the
+            # delay's imaginary part, not synthesis.cpp's sqrt)
+            k = torch.arange(inp["lpr"].shape[-1], device=dev,
+                             dtype=torch.float32)
+            return lambda: (
+                torch.exp(torch.complex(inp["lpr"], inp["lpi"]))
+                * torch.exp(torch.complex(torch.zeros_like(inp["lpr"]),
+                                          -inp["coef"][..., None] * k)),
+                torch.exp(torch.complex(inp["lar"], inp["lai"]))
+                * torch.complex(inp["nre"], inp["nim"]))
         if name == "delta_window":
             x = inp["x"]
 
@@ -2142,6 +2719,12 @@ def main() -> int:
             return (rel <= 1e-6 and e_c <= 1e-4, float((ak - ap).abs().max()),
                     f"ap rel {rel:.2e} <= 1e-6, coarse |err| {e_c:.2e} dB "
                     f"<= 1e-4")
+        if name == "trajectory_nll":
+            return check_k28(inp, out_k, out_p)
+        if name == "trajectory_adjoint":
+            return check_k29(inp, out_k, out_p)
+        if name == "synth_midpass":
+            return check_k30(inp, out_k, out_p)
         if name == "hsmm_viterbi":
             return check_k20(inp, out_k, out_p)
         if name == "hsmm_fb":
@@ -2245,13 +2828,12 @@ def main() -> int:
     summary = {}
     heavy = ("fix_f0", "mlpg_solve", "dio_candidates", "harvest_candidates",
              "harvest_refine", "harvest_contour", "hsmm_loglik",
-             "hsmm_fb", "hsmm_viterbi")  # slow plain twins
+             "hsmm_fb", "hsmm_viterbi", "trajectory_nll",
+             "trajectory_adjoint")  # slow plain twins
     replays = ([("copy_synth", n, i) for n, i in rec_cs]
                + [("feature_lane", n, i) for n, i in rec_fl]
                + [("synth_lane", n, i) for n, i in rec_sl]
                + [("harvest_lane", n, i) for n, i in rec_hl])
-
-    pulse_bucket = [0]      # the synthesis paths' pulse bucket, from K10
 
     def replay(path, name, inp):
         """Hold one recorded launch against the plain version; time the
@@ -2265,8 +2847,6 @@ def main() -> int:
         out_k = out_k if isinstance(out_k, tuple) else (out_k,)
         out_p = out_p if isinstance(out_p, tuple) else (out_p,)
         ok, err, tol = check(name, inp, out_k, out_p)
-        if name == "synth_pulse_spectra":
-            pulse_bucket[:] = [out_k[0].shape[1]]
         ms = cuda_ms(lambda: kern(**inp), reps=10, warm=2)
         plain_ms = cuda_ms(lambda: plain(**inp),
                            reps=1 if name in heavy else 5)
@@ -2334,7 +2914,6 @@ def main() -> int:
     T1 = cfg.samples_for_dio(FS, L, 1.0)
     R, H = BATCH * T, half + 1
     n_ap = cfg.number_of_aperiodicities(FS)
-    P = pulse_bucket[0]
     print("plain-stage bounds (B=16 x 2.0 s @ 48 kHz): "
           # y in, the 152 band spectra, the filtered rows out; a real FFT
           # at 2.5 n log2 n, the complex product at 6 a bin
@@ -2350,11 +2929,6 @@ def main() -> int:
           + stage_bound(4 * BATCH * n_ch * T1
                         + 4 * BATCH * T1 * plan_h["nc_pad"],
                         8.0 * BATCH * n_ch * T1, 1.0 * BATCH * n_ch * T1)
-          # six (B, P, H) arrays in (two min-phase spectra, the noise
-          # spectrum), four out; exp, cos, sin, sqrt and ~12 products a bin
-          + f"; synthesis mid-pass ({BATCH}, {P}, {H}) x 10 "
-          + stage_bound(10 * 4 * BATCH * P * H, 25.0 * BATCH * P * H)
-
           # WORLD's coarse-band bap decode (ops/codec.py:150-165): the
           # n_ap bands in, the (R, H) aperiodicity out; a gather-lerp and
           # 10 ** (x / 20) (~15 operations) a bin
@@ -3255,8 +3829,33 @@ def main() -> int:
     shutil.rmtree(tmp_v)
 
     # ---- 13. the pipeline lane: the corpus pipeline's front half ----
-    counts_pa, counts_pc, counts_ph = pipeline_lane(counted, profiled)
+    counts_pa, counts_pc, counts_ph, pipe_p, utts_p, unseen_p = \
+        pipeline_lane(counted, profiled)
     pipeline_card_vs_cpu()
+
+    # ---- 14. the DNN lane: training throughput, then the pipeline's DNN
+    # half on phase 13's workdir ----
+    counts_dt, rec_dt = dnn_lanes(counted)
+    for name, inp in rec_dt:
+        replay("dnn_trajectory", name, inp)
+    # K28 and K29 in float64 on the card: gradcheck of TrajectoryNLL
+    rng_g = np.random.default_rng(29)
+    mu_g = torch.as_tensor(rng_g.standard_normal((2, 9, 3, 4)), device=dev
+                           ).requires_grad_(True)
+    prec_g = torch.as_tensor(np.exp(0.5 * rng_g.standard_normal(
+        (2, 9, 3, 4))), device=dev).requires_grad_(True)
+    s_g = torch.as_tensor(rng_g.standard_normal((2, 9, 4)), device=dev)
+    ok_g = torch.autograd.gradcheck(
+        lambda m, q: traj_mod.TrajectoryNLL.apply(m, q, s_g),
+        (mu_g, prec_g), raise_exception=False)
+    print(f"K28/K29 float64 gradcheck on the card (B 2, T 9, D 4): {ok_g}",
+          flush=True)
+    if not ok_g:
+        raise RuntimeError("K28/K29: the float64 gradcheck failed")
+    counts_dnn = dnn_pipeline_lane(pipe_p, utts_p, unseen_p, counted,
+                                   profiled)
+    shutil.rmtree(pipe_p.wd)
+    dnn_card_vs_cpu()
 
     print(smi)
     src = "hts_train_world_tpu_torch/csrc/"
@@ -3269,7 +3868,8 @@ def main() -> int:
                "voice_mcep": variants["voice_mcep"][0],
                "voice_pgtype1": variants["voice_pgtype1"][0],
                "voice_train": counts_vt, "pipeline_analyze": counts_pa,
-               "pipeline_compose": counts_pc, "pipeline_halgn": counts_ph}
+               "pipeline_compose": counts_pc, "pipeline_halgn": counts_ph,
+               "dnn_trajectory": counts_dt, **counts_dnn}
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": src + kernels.KERNELS[name][0],

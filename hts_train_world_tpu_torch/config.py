@@ -74,3 +74,13 @@ def grid_step(fs: int, frame_period: float) -> int:
     the windowed-frame kernel relies on)."""
     gs = fs * frame_period / 1000.0
     return int(gs) if float(gs).is_integer() else 0
+
+
+_FREQWARP_TABLE = {8000: 0.31, 10000: 0.35, 12000: 0.37, 16000: 0.42,
+                   20000: 0.44, 22050: 0.45, 32000: 0.50, 44100: 0.53,
+                   48000: 0.55}
+
+
+def freqwarp_for_fs(fs: int) -> float:
+    """configure.ac:556-569."""
+    return _FREQWARP_TABLE.get(fs, 0.0)

@@ -1,6 +1,6 @@
 """Build, load and launch the hand-written CUDA kernels.
 
-Twenty-seven kernels, K1-K27 (`KERNELS`).  Each source under `csrc/` is
+Thirty kernels, K1-K30 (`KERNELS`).  Each source under `csrc/` is
 compiled by `nvcc` for `sm_90a` into its own shared library with a plain
 C interface, loaded with `ctypes`.  Nothing
 happens at import time: the first launch builds every kernel (one `nvcc`
@@ -37,6 +37,7 @@ NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _D = ctypes.c_double
+_L = ctypes.c_longlong
 
 # kernel name -> (source file, C launcher, argtypes), or (source file,
 # {C launcher: argtypes}) for a kernel with a launcher for each stage
@@ -111,6 +112,13 @@ KERNELS = {
         "d4c_segments_launch": [_P, _P, _I, _I, _P, _I, _P, _I, _P]}),
     "d4c_aperiodicity": ("d4c_aperiodicity.cu", "d4c_aperiodicity_launch",
                          [_P, _P, _P, _P, _I, _I, _I, _F, _I, _F, _P, _P]),
+    "trajectory_nll": ("trajectory_nll.cu", "trajectory_nll_launch",
+                       [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P]),
+    "trajectory_adjoint": ("trajectory_adjoint.cu",
+                           "trajectory_adjoint_launch",
+                           [_P] * 8 + [_I, _I, _I, _I, _P, _I, _P, _P, _P]),
+    "synth_midpass": ("synth_midpass.cu", "synth_midpass_launch",
+                      [_P] * 7 + [_L, _I, _P, _P, _P, _P]),
 }
 
 launches: collections.Counter = collections.Counter()

@@ -127,11 +127,17 @@ def irfft_scaled_matmul(re, im, N: int):
     return matmul(re, A) + matmul(im, B)
 
 
+def minphase_log_matmul(log_half, N: int):
+    """log_half (..., N/2+1) -> (Re, Im) of D, the log of the min-phase
+    spectrum."""
+    R, I = _on(_minphase_mats_np, N, log_half.dtype, log_half.device)
+    return matmul(log_half, R), matmul(log_half, I)
+
+
 def minphase_matmul(log_half, N: int):
     """log_half (..., N/2+1) -> (Re, Im) of the min-phase spectrum exp(D)."""
-    R, I = _on(_minphase_mats_np, N, log_half.dtype, log_half.device)
-    mag = torch.exp(matmul(log_half, R))
-    dim = matmul(log_half, I)
+    dre, dim = minphase_log_matmul(log_half, N)
+    mag = torch.exp(dre)
     return mag * torch.cos(dim), mag * torch.sin(dim)
 
 

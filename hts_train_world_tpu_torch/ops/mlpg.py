@@ -63,17 +63,18 @@ def build_banded_normal(means, precisions, windows):
     return diags, rhs
 
 
-def banded_ldlt_solve(diags, rhs):
-    """Solve A c = rhs for SPD pentadiagonal A given as upper bands
-    (..., 3, T, D): unit-lower LDL^T by a forward recursion over frames,
-    then back substitution."""
+def ldlt_forward(diags, rhs):
+    """The forward recursion of the unit-lower LDL^T of the SPD
+    pentadiagonal A given as upper bands (..., 3, T, D), with the forward
+    substitution of rhs (..., T, D) -> (z = D^-1 L^-1 rhs, L[i,i-1],
+    L[i,i-2], d), each (..., T, D)."""
     if diags.shape[-3] != 3:
         raise ValueError("banded_ldlt_solve: 3-tap windows (bandwidth 1)")
     T = diags.shape[-2]
     zero = torch.zeros_like(rhs[..., 0, :])
     one = torch.ones_like(zero)
     d1, d2, y1, y2, lp = one, one, zero, zero, zero
-    zs, l1s, l2s = [], [], []
+    zs, l1s, l2s, ds = [], [], [], []
     for i in range(T):
         aii = diags[..., 0, i, :]
         ai1 = diags[..., 1, i - 1, :] if i >= 1 else zero
@@ -85,16 +86,32 @@ def banded_ldlt_solve(diags, rhs):
         zs.append(y_i / d_i)
         l1s.append(l1)
         l2s.append(l2)
+        ds.append(d_i)
         d1, d2, y1, y2, lp = d_i, d1, y_i, y1, l1
+    return tuple(torch.stack(v, dim=-2) for v in (zs, l1s, l2s, ds))
+
+
+def ldlt_back(z, l1, l2):
+    """The back substitution L^T c = z over frames in reverse."""
+    T = z.shape[-2]
+    zero = torch.zeros_like(z[..., 0, :])
     cs = [None] * T
     c1, c2 = zero, zero
     for i in range(T - 1, -1, -1):
-        ln1 = l1s[i + 1] if i + 1 < T else zero
-        ln2 = l2s[i + 2] if i + 2 < T else zero
-        c_i = zs[i] - ln1 * c1 - ln2 * c2
+        ln1 = l1[..., i + 1, :] if i + 1 < T else zero
+        ln2 = l2[..., i + 2, :] if i + 2 < T else zero
+        c_i = z[..., i, :] - ln1 * c1 - ln2 * c2
         cs[i] = c_i
         c1, c2 = c_i, c1
     return torch.stack(cs, dim=-2)
+
+
+def banded_ldlt_solve(diags, rhs):
+    """Solve A c = rhs for SPD pentadiagonal A given as upper bands
+    (..., 3, T, D): unit-lower LDL^T by a forward recursion over frames,
+    then back substitution."""
+    z, l1, l2, _ = ldlt_forward(diags, rhs)
+    return ldlt_back(z, l1, l2)
 
 
 def _statics_only(means, variances):

@@ -1,7 +1,7 @@
 """WORLD waveform synthesis, fast path (cumsum phase), batched.
 
 Counterpart of `hts_train_world_tpu/ops/synthesis.py` with
-exact_phase=False (externs/WORLD_v2/src/synthesis.cpp).  Three kernels
+exact_phase=False (externs/WORLD_v2/src/synthesis.cpp).  Four kernels
 carry it on the card, each with its plain PyTorch twin here, which runs
 for CPU tensors:
 
@@ -22,10 +22,10 @@ for CPU tensors:
   each response, and the overlap-add as a gather that sums each output
   sample's responses in pulse order (the order the twin's `index_add_`
   adds them on the CPU): no atomics, the same result on every run.
-
-Between K10 and K11 the min-phase spectra (exp/cos/sin), the
-fractional-delay phase and the noise products stay plain PyTorch around
-the DFT matmuls of `fftmat`, as the JAX package leaves them to XLA.
+- K30 `midpass` (csrc/synth_midpass.cu): between K10 and K11, the
+  min-phase spectra (exp/cos/sin), the fractional-delay factor and the
+  noise product, one fused pass between the DFT matmuls of `fftmat`
+  (which stay `torch.matmul`, as the JAX package leaves them to XLA).
 
 Every twin is dtype-generic (float32 on the card, float64 in the tests
 against the JAX package); the kernels take float32.
@@ -399,25 +399,59 @@ def overlap_add(per_raw, aper_raw, unvoiced, pidx, noise_size, n,
 # ---------------------------------------------------------------------------
 
 
-def responses(log_p, log_a, noise, time_shift, fs: int, fft_size: int):
-    """The plain mid-pass: min-phase spectra x fractional-delay phase and
-    x noise spectrum, through the DFT matmuls -> (per_raw, aper_raw)
-    (B, P, N), irfft * N before fftshift (synthesis.cpp:38-138)."""
-    dtype, dev = log_p.dtype, log_p.device
-    N = fft_size
-    half = N // 2
-    coef = prims.exact_div(2.0 * np.pi * time_shift * fs, N)
-    re2 = torch.cos(coef[..., None]
-                    * torch.arange(half + 1, dtype=dtype, device=dev))
+def midpass_plain(lpr, lpi, lar, lai, nre, nim, coef):
+    """K30's twin.  lpr, lpi = log_p @ (R, I) and lar, lai = log_a @ (R, I)
+    (the min-phase tables), nre, nim the noise spectrum, each (B, P, H);
+    coef (B, P) = 2 pi shift fs / N -> (sre, sim, pre, pim), the periodic
+    spectrum times the conjugate fractional delay (re2 = cos(coef k), im2 =
+    sqrt(1 - re2^2), synthesis.cpp:105-138) and the aperiodic spectrum
+    times the noise spectrum (synthesis.cpp:38-68)."""
+    k = torch.arange(lpr.shape[-1], dtype=lpr.dtype, device=lpr.device)
+    re2 = torch.cos(coef[..., None] * k)
     im2 = torch.sqrt(1.0 - re2 * re2)
-    re, im = fftmat.minphase_matmul(log_p, N)
-    per_raw = fftmat.irfft_scaled_matmul(re * re2 + im * im2,
-                                         im * re2 - re * im2, N)
+    mag = torch.exp(lpr)
+    re, im = mag * torch.cos(lpi), mag * torch.sin(lpi)
+    amag = torch.exp(lar)
+    are, aim = amag * torch.cos(lai), amag * torch.sin(lai)
+    return (re * re2 + im * im2, im * re2 - re * im2,
+            are * nre - aim * nim, are * nim + aim * nre)
+
+
+def midpass(lpr, lpi, lar, lai, nre, nim, coef):
+    """K30: `midpass_plain`'s contract in one fused pass (f32)."""
+    if not lpr.is_cuda:
+        return midpass_plain(lpr, lpi, lar, lai, nre, nim, coef)
+    ins = (lpr, lpi, lar, lai, nre, nim)
+    if (any(t.dtype != torch.float32 or t.shape != lpr.shape for t in ins)
+            or coef.dtype != torch.float32
+            or coef.shape != lpr.shape[:-1]):
+        raise ValueError("midpass: six f32 (..., H) spectra of one shape "
+                         "and f32 coef (...)")
+    H = lpr.shape[-1]
+    ins = tuple(t.contiguous() for t in ins)
+    coef = coef.contiguous()
+    kernels.check_cuda("midpass", *ins, coef)
+    outs = tuple(torch.empty_like(lpr) for _ in range(4))
+    kernels.launch("synth_midpass", [
+        *(t.data_ptr() for t in ins), coef.data_ptr(), coef.numel(), H,
+        *(t.data_ptr() for t in outs)],
+        dict(lpr=lpr, lpi=lpi, lar=lar, lai=lai, nre=nre, nim=nim,
+             coef=coef))
+    return outs
+
+
+def responses(log_p, log_a, noise, time_shift, fs: int, fft_size: int):
+    """The mid-pass: min-phase spectra x fractional-delay phase and x
+    noise spectrum (K30), between the DFT matmuls -> (per_raw, aper_raw)
+    (B, P, N), irfft * N before fftshift (synthesis.cpp:38-138)."""
+    N = fft_size
+    coef = prims.exact_div(2.0 * np.pi * time_shift * fs, N)
+    lpr, lpi = fftmat.minphase_log_matmul(log_p, N)
     nre, nim = fftmat.rfft_matmul(noise, N)
-    are, aim = fftmat.minphase_matmul(log_a, N)
-    aper_raw = fftmat.irfft_scaled_matmul(are * nre - aim * nim,
-                                          are * nim + aim * nre, N)
-    return per_raw, aper_raw
+    lar, lai = fftmat.minphase_log_matmul(log_a, N)
+    sre, sim, pre, pim = midpass(lpr, lpi, lar, lai, nre, nim, coef)
+    return (fftmat.irfft_scaled_matmul(sre, sim, N),
+            fftmat.irfft_scaled_matmul(pre, pim, N))
 
 
 def synthesis(f0, spectrogram, aperiodicity, fft_size: int,

@@ -1,4 +1,4 @@
-"""Corpus pipeline orchestrator, front half: the port's counterpart of
+"""Corpus pipeline orchestrator: the port's counterpart of
 `hts_train_world_tpu/runtime/pipeline.py` (the Training.pl equivalent for
 the DNN singing-synthesis path, SURVEY.md T3-T7, §3.4), restartable per
 stage.
@@ -14,12 +14,24 @@ Stages (each idempotent, tracked by the StageManifest):
            labels/fal phone-level alignments + the duration model
            (FALGN + convert_state2phone, Training.pl:601-618, 1604-1635)
   MKDAT    aligned labels + question config -> ffi inputs (makefeature.pl)
-  TRDNN, TRJGV, MSPFD, PGEN, WGEN: the DNN half, not in the port yet
-           (ROADMAP Queue A 4); each raises NotImplementedError.
+  TRDNN    frame-mode acoustic training with checkpoints (DNNTraining.py)
+  TRJGV    trajectory fine-tuning with the GV term (K28/K29), warm-started
+           from the frame checkpoint, Adam moments and step included
+           (Training.pl:930-940)
+  MSPFD    modulation-spectrum postfilter statistics from aligned DNN
+           generations (MSPF1 dnn branch, Training.pl:842-882; K8, K21)
+  PGEN     forward + MLPG generation (K8 in float64) + the MSPF (K21) or
+           mcep (K22) postfilter (gen_param)
+  WGEN     decode (K12) and WORLD synthesis (K9, K10, K30, K11) -> wav
 
+synthesize_unseen() is PGEND/WGEND (Training.pl:885-928): durations from
+the HALGN duration model -> convert_dur2lab -> DNN -> MLPG -> WORLD.
+
+Every stage runs on `PipelineConfig.device` (the card by default).
 `stage_seconds` keeps each stage's wall seconds and ANALYZE's parts
 (loader, extract, vibrato, writes); `halgn_seconds` keeps `train_voice`'s
-own stage seconds.
+own stage seconds.  Synthesis is fast mode (float32); `parity=True`
+raises (ROADMAP Queue A 5).
 """
 from __future__ import annotations
 
@@ -27,11 +39,14 @@ import dataclasses
 import glob
 import os
 import pickle
+import shutil
 import time
 from typing import List, Optional
 
 import numpy as np
+import torch
 
+from hts_train_world_tpu_torch import config as cfg_mod
 from hts_train_world_tpu_torch import device as device_mod
 from hts_train_world_tpu_torch import vocoder
 from hts_train_world_tpu_torch.features import compose, encode, htk
@@ -39,15 +54,16 @@ from hts_train_world_tpu_torch.features import labels as labels_mod
 from hts_train_world_tpu_torch.features import qconf as qconf_mod
 from hts_train_world_tpu_torch.features import vibrato
 from hts_train_world_tpu_torch.io import loader as nloader
-from hts_train_world_tpu_torch.io import rawio
+from hts_train_world_tpu_torch.io import rawio, wavio
+from hts_train_world_tpu_torch.models import acoustic, dataio, training
+from hts_train_world_tpu_torch.ops import generation, postfilter
 from hts_train_world_tpu_torch.parallel import bucketing
-from hts_train_world_tpu_torch.runtime.checkpoint import StageManifest
+from hts_train_world_tpu_torch.parallel import features as feat_mod
+from hts_train_world_tpu_torch.runtime.checkpoint import (Checkpointer,
+                                                          StageManifest)
 
 STAGES = ["ANALYZE", "COMPOSE", "STATS", "HALGN", "MKDAT", "TRDNN",
           "TRJGV", "MSPFD", "PGEN", "WGEN"]
-
-_DNN = ("the DNN half of the pipeline (TRDNN, TRJGV, MSPFD, PGEN, WGEN, "
-        "synthesize_unseen) is not in the port yet (ROADMAP Queue A 4)")
 
 
 @dataclasses.dataclass
@@ -58,12 +74,20 @@ class PipelineConfig:
     layout: compose.StreamLayout = dataclasses.field(
         default_factory=compose.StreamLayout)
     parity: bool = False                 # exact reference noise streams
-    model: object = None                 # the DNN's config (Queue A 4)
-    train: object = None                 # the DNN's training (Queue A 4)
+    model: acoustic.ModelConfig = None   # filled at MKDAT (n_in known)
+    train: training.TrainConfig = dataclasses.field(
+        default_factory=training.TrainConfig)
+    postfilter_mcp: float = 0.0          # 0 = off; reference default 1.4
+    alpha: float = 0.0                   # 0 -> freqwarp_for_fs(fs)
     # HALGN (HSMM alignment + duration model)
     use_hmm_align: bool = False
     hmm: object = None                   # models/recipe.RecipeConfig
-    device: str = "cuda"                 # where analysis and HALGN run
+    # TRJGV
+    trajectory_steps: int = 0            # extra trajectory-mode steps
+    # MSPF postfilter ($useMSPF)
+    use_mspf: bool = False
+    mspf_weight: float = 1.0
+    device: str = "cuda"                 # where every stage runs
 
 
 class SingingPipeline:
@@ -72,10 +96,11 @@ class SingingPipeline:
         self.dev = device_mod.resolve(pcfg.device)
         self.wd = os.path.abspath(pcfg.workdir)
         self.manifest = StageManifest(self.wd)
+        self.fft_size = cfg_mod.cheaptrick_fft_size(pcfg.fs)
         self.stage_seconds: dict = {}
         self.halgn_seconds: dict = {}
         for d in ("lf0", "mgc", "bap", "vib", "cmp", "ffo", "ffi", "stats",
-                  "model"):
+                  "model", "gen"):
             os.makedirs(os.path.join(self.wd, d), exist_ok=True)
 
     # -- corpus discovery --
@@ -276,24 +301,226 @@ class SingingPipeline:
         self.manifest.mark("HALGN", n=len(bases))
         self._lap("HALGN", t0)
 
-    # -- the DNN half (ROADMAP Queue A 4) -------------------------------
+    def _load_hmm(self):
+        with open(os.path.join(self.wd, "model", "hmm.pkl"), "rb") as f:
+            return pickle.load(f)
+
+    # -- TRDNN: frame-mode training ---------------------------------------
+    def _pairs(self) -> List[dataio.UtterancePair]:
+        lay = self.cfg.layout
+        n_in = self._model_cfg().n_in
+        return [dataio.load_pair(b, self._p("ffi", b, "ffi"),
+                                 self._p("ffo", b, "ffo"), n_in,
+                                 lay.ffo_dim) for b in self.utterances()]
+
+    def _model_cfg(self) -> acoustic.ModelConfig:
+        if self.cfg.model is not None:
+            return self.cfg.model
+        conf = open(os.path.join(self.wd, "qconf.conf")).read()
+        n_in = len(qconf_mod.parse_config(conf))
+        self.cfg.model = acoustic.ModelConfig(
+            n_in=n_in, n_out=self.cfg.layout.ffo_dim)
+        return self.cfg.model
+
     def train_dnn(self) -> None:
-        raise NotImplementedError(_DNN)
+        if self.manifest.done("TRDNN"):
+            return
+        t0 = time.perf_counter()
+        training.train(self._model_cfg(), self.cfg.train, self._pairs(),
+                       os.path.join(self.wd, "model"), device=self.dev)
+        self.manifest.mark("TRDNN", steps=self.cfg.train.num_steps)
+        self._lap("TRDNN", t0)
+
+    # -- TRJGV: trajectory fine-tuning with the GV term -----------------
+    def _traj_meta(self):
+        lay = self.cfg.layout
+        feature_dims = (lay.mgc_dim, lay.lf0_dim, lay.bap_dim, lay.vib_dim)
+        msd_flags = (0, 1, 0, 0)   # ffo carries one lf0 flag (compose.py)
+        gv = rawio.read_f32(os.path.join(self.wd, "stats", "gv.var"))
+        # gv.var covers [mgc | lf0 | bap] (data/Makefile.in:441-456);
+        # vib gets unit variance
+        gv_var = np.concatenate([gv, np.ones(lay.vib_dim)])
+        return feature_dims, msd_flags, np.maximum(gv_var, 1e-8)
 
     def trjgv(self) -> None:
-        raise NotImplementedError(_DNN)
+        if self.manifest.done("TRJGV"):
+            return
+        if self.cfg.trajectory_steps <= 0:
+            self.manifest.mark("TRJGV", skipped=True)
+            return
+        t0 = time.perf_counter()
+        # warm start: copy the frame-mode checkpoints (Training.pl:936-938)
+        src = os.path.join(self.wd, "model")
+        dst = os.path.join(self.wd, "model_trj")
+        if not os.path.isdir(dst):
+            shutil.copytree(src, dst, ignore=shutil.ignore_patterns(
+                "hmm.pkl"))
+        feature_dims, msd_flags, gv_var = self._traj_meta()
+        tcfg = dataclasses.replace(
+            self.cfg.train, trajectory=True,
+            num_steps=self.cfg.train.num_steps + self.cfg.trajectory_steps,
+            batch_size=1)
+        training.train(self._model_cfg(), tcfg, self._pairs(), dst,
+                       feature_dims=feature_dims, msd_flags=msd_flags,
+                       gv_variances=gv_var, device=self.dev)
+        self.manifest.mark("TRJGV", steps=self.cfg.trajectory_steps)
+        self._lap("TRJGV", t0)
+
+    def _params_dir(self) -> str:
+        trj = os.path.join(self.wd, "model_trj")
+        return trj if os.path.isdir(trj) else os.path.join(self.wd,
+                                                           "model")
+
+    def _restore_params(self, ckpt_dir: Optional[str] = None
+                        ) -> acoustic.AcousticModel:
+        """The latest checkpoint's model (TRJGV's when it ran) on the
+        pipeline's device."""
+        restored = Checkpointer(ckpt_dir or self._params_dir()).restore(
+            map_location=self.dev)
+        if restored is None:
+            raise RuntimeError("no trained checkpoint")
+        return acoustic.from_state_dict(self._model_cfg(), restored["params"])
+
+    # -- parameter generation ------------------------------------------
+    def _alpha(self) -> float:
+        return self.cfg.alpha or cfg_mod.freqwarp_for_fs(self.cfg.fs)
+
+    def _gen_one(self, ffi, params, var, alpha, mspf):
+        """forward -> MLPG -> postfilter for one utterance's inputs."""
+        ffo = training.forward_corpus(params, ffi)
+        g = generation.generate_parameters(ffo, var, self.cfg.layout)
+        mgc = g.mgc
+        if mspf is not None:
+            nat, gen = mspf
+            mgc = postfilter.apply_mspf(mgc, nat, gen,
+                                        self.cfg.mspf_weight)
+        elif self.cfg.postfilter_mcp > 0:
+            mgc = postfilter.mcep_postfilter(
+                mgc, alpha, self.cfg.postfilter_mcp, self.fft_size)
+        return mgc, g
+
+    def _load_mspf(self):
+        path = os.path.join(self.wd, "stats", "mspf.npz")
+        if not os.path.exists(path):
+            return None
+        z = np.load(path)
+        return (postfilter.MspfStats(z["nat_mean"], z["nat_std"]),
+                postfilter.MspfStats(z["gen_mean"], z["gen_std"]))
+
+    def _ffo_var(self) -> torch.Tensor:
+        return torch.as_tensor(rawio.read_f32(os.path.join(
+            self.wd, "stats", "ffo.var")), dtype=torch.float64,
+            device=self.dev)
 
     def mspfd(self) -> None:
-        raise NotImplementedError(_DNN)
+        """MSPF statistics for the DNN path (Training.pl:842-882): the
+        natural mgc statics vs generations from the ALIGNED training
+        inputs (the tdn scp is the aligned ffi set)."""
+        if self.manifest.done("MSPFD"):
+            return
+        if not self.cfg.use_mspf:
+            self.manifest.mark("MSPFD", skipped=True)
+            return
+        t0 = time.perf_counter()
+        lay = self.cfg.layout
+        params = self._restore_params()
+        var = self._ffo_var()
+        mcfg = self._model_cfg()
+        nat_trajs, gen_trajs = [], []
+        for base in self.utterances():
+            ffi = rawio.read_f32(self._p("ffi", base, "ffi"), mcfg.n_in)
+            _, g = self._gen_one(ffi, params, var, self._alpha(), mspf=None)
+            gen_trajs.append(g.mgc)
+            nat_trajs.append(rawio.read_f32(
+                self._p("mgc", base, "mgc"),
+                lay.mgc_dim).astype(np.float64))
+        nat = postfilter.mspf_stats(nat_trajs, device=self.dev)
+        gen = postfilter.mspf_stats(gen_trajs, device=self.dev)
+        np.savez(os.path.join(self.wd, "stats", "mspf.npz"),
+                 nat_mean=nat.mean, nat_std=nat.std,
+                 gen_mean=gen.mean, gen_std=gen.std)
+        self.manifest.mark("MSPFD")
+        self._lap("MSPFD", t0)
 
     def generate(self) -> None:
-        raise NotImplementedError(_DNN)
+        if self.manifest.done("PGEN"):
+            return
+        t0 = time.perf_counter()
+        params = self._restore_params()
+        mcfg = self._model_cfg()
+        var = self._ffo_var()
+        mspf = self._load_mspf() if self.cfg.use_mspf else None
+        for base in self.utterances():
+            ffi = rawio.read_f32(self._p("ffi", base, "ffi"), mcfg.n_in)
+            mgc, g = self._gen_one(ffi, params, var, self._alpha(), mspf)
+            for ext, v in (("mgc", mgc), ("lf0", g.lf0), ("bap", g.bap),
+                           ("vuv", g.vuv.to(torch.float32))):
+                rawio.write_f32(self._p("gen", base, ext), v.cpu().numpy())
+        self.manifest.mark("PGEN")
+        self._lap("PGEN", t0)
+
+    # -- WGEN: decode + WORLD synthesis ----------------------------------
+    def _synthesize(self, mgc, lf0, bap, noise=None, seed: int = 0):
+        """(T, mgc_dim), (T, lf0_dim) with MAGIC unvoiced, (T, bap_dim) ->
+        the waveform (y_length,) float32 on the device: K12's decode and
+        fast-mode synthesis (the synth lane), on `noise` (1, y_length+16)
+        or noise drawn from `seed`."""
+        if self.cfg.parity:
+            raise NotImplementedError(vocoder._PARITY)
+        lf0 = torch.as_tensor(lf0, device=self.dev)
+        lf0_1 = torch.where(lf0[:, 0] == generation.MAGIC,
+                            torch.zeros_like(lf0[:, 0]), lf0[:, 0])
+        return feat_mod.synth_lane(lf0_1[None], torch.as_tensor(mgc)[None],
+                                   torch.as_tensor(bap)[None], self.cfg.fs,
+                                   self.cfg.frame_period, noise=noise,
+                                   seed=seed, device=self.dev)[0]
 
     def synthesize_stage(self) -> None:
-        raise NotImplementedError(_DNN)
+        if self.manifest.done("WGEN"):
+            return
+        t0 = time.perf_counter()
+        lay = self.cfg.layout
+        for base in self.utterances():
+            y = self._synthesize(
+                rawio.read_f32(self._p("gen", base, "mgc"), lay.mgc_dim),
+                rawio.read_f32(self._p("gen", base, "lf0"), lay.lf0_dim),
+                rawio.read_f32(self._p("gen", base, "bap"), lay.bap_dim))
+            wavio.wavwrite(y.cpu().numpy(), self.cfg.fs,
+                           self._p("gen", base, "wav"))
+        self.manifest.mark("WGEN")
+        self._lap("WGEN", t0)
 
+    # -- PGEND/WGEND: unseen labels via the HSMM duration model ---------
     def synthesize_unseen(self, base: str, rho: float = 0.0) -> str:
-        raise NotImplementedError(_DNN)
+        """Synthesize labels/full/<base>.lab with durations PREDICTED by
+        the HALGN duration model (HMGenS -> convert_dur2lab ->
+        DNNSynthesis -> gen_param -> gen_wave; Training.pl:885-928).
+        Returns the wav path."""
+        from hts_train_world_tpu_torch.models import context_clustered
+        from hts_train_world_tpu_torch.models import pgen as pgen_mod
+        hmm = self._load_hmm()
+        model = context_clustered.clustered_from_plain(hmm["clustered"])
+        rcfg = hmm["cfg"]
+        ctx_seq, _ = self._full_label(base)
+        if ctx_seq is None:
+            raise FileNotFoundError(f"labels/full/{base}.lab")
+        shift_100ns = int(self.cfg.frame_period * 1e4)
+        durs = pgen_mod.state_durations(model, ctx_seq, rho)
+        lab = labels_mod.durations_to_state_lines(
+            ctx_seq, durs, rcfg.n_states, shift_100ns)
+        with open(self._p("gen", base, "lab"), "w") as f:
+            f.write(lab)
+        feats = qconf_mod.parse_config(
+            open(os.path.join(self.wd, "qconf.conf")).read())
+        labs = qconf_mod.parse_aligned_labels(lab, shift_100ns)
+        ffi = qconf_mod.encode_labels(feats, labs)
+        mspf = self._load_mspf() if self.cfg.use_mspf else None
+        mgc, g = self._gen_one(np.asarray(ffi), self._restore_params(),
+                               self._ffo_var(), self._alpha(), mspf)
+        y = self._synthesize(mgc.float(), g.lf0, g.bap.float())
+        out = self._p("gen", base, "wav")
+        wavio.wavwrite(y.cpu().numpy(), self.cfg.fs, out)
+        return out
 
     def run(self, upto: Optional[str] = None) -> None:
         for stage, fn in zip(STAGES, (

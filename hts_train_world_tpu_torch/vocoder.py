@@ -23,7 +23,7 @@ from hts_train_world_tpu_torch.ops import synthesis as syn
 from hts_train_world_tpu_torch.parallel import batch as batch_mod
 
 _PARITY = ("parity=True (the f64 path with the reference's PRNG streams) is "
-           "not ported yet; see ROADMAP.md.  Pass parity=False.")
+           "not ported yet; see ROADMAP.md, Queue A 5.  Pass parity=False.")
 
 
 @dataclasses.dataclass

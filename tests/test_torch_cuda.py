@@ -1397,3 +1397,126 @@ def test_d4c_at_8k_without_bands_matches_the_cpu_path(cuda):
     H = cfg.cheaptrick_fft_size(fs) // 2 + 1
     assert g[3].shape == c[3].shape == (1, c[1].shape[1], H)
     assert float((g[3].cpu() - c[3]).abs().max()) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# K28-K30: the trajectory cost's banded solve and its adjoint, synthesis's
+# mid-pass
+# ---------------------------------------------------------------------------
+
+
+def _traj_case(B, T, D, dtype, dev, seed=28):
+    rng = np.random.default_rng(seed)
+    mu = torch.as_tensor(rng.standard_normal((B, T, 3, D)), dtype=dtype,
+                         device=dev)
+    prec = torch.as_tensor(np.exp(0.5 * rng.standard_normal((B, T, 3, D))),
+                           dtype=dtype, device=dev)
+    s = torch.as_tensor(rng.standard_normal((B, T, D)), dtype=dtype,
+                        device=dev)
+    g = [torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
+                         device=dev) for shape in ((B, T, D), (B, D),
+                                                   (B, D))]
+    return mu, prec, s, g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,T,D", [(1, 512, 79), (3, 17, 5), (2, 1, 4),
+                                   (1, 2, 3)])
+def test_k28_k29_kernels_match_plain(cuda, dtype, B, T, D):
+    """K28 and K29 against their twins on the card, at the trajectory
+    lane's shape (1, 512, 79) and at band edges, within
+    chip_smoke.check_k28 / check_k29's bounds (1e-5 of a column's largest
+    magnitude in float32, 1e-12 in float64)."""
+    from hts_train_world_tpu_torch.ops import trajectory as tr
+    mu, prec, s, (gc, gq, gl) = _traj_case(B, T, D, dtype, cuda)
+    kernels.reset_counts()
+    fk = tr.trajectory_forward(mu, prec, s)
+    fp = tr.trajectory_forward_plain(mu, prec, s)
+    ok, err, text = chip_smoke.check_k28({}, fk, fp)
+    assert ok, text
+    bk = tr.trajectory_backward(mu, prec, s, fk[0], fk[3], gc, gq, gl)
+    bp = tr.trajectory_backward_plain(mu, prec, s, fp[0], fp[3], gc, gq, gl)
+    ok, err, text = chip_smoke.check_k29({}, bk, bp)
+    assert ok, text
+    assert kernels.launches["trajectory_nll"] == 1
+    assert kernels.launches["trajectory_adjoint"] == 1
+
+
+def test_k28_k29_float64_gradcheck_on_the_card(cuda):
+    """torch.autograd.gradcheck of TrajectoryNLL through K28 and K29 in
+    float64 on the card, every output's cotangent live."""
+    from hts_train_world_tpu_torch.ops import trajectory as tr
+    mu, prec, s, _ = _traj_case(2, 9, 3, torch.float64, cuda, seed=29)
+    mu.requires_grad_(True)
+    prec.requires_grad_(True)
+    kernels.reset_counts()
+    assert torch.autograd.gradcheck(
+        lambda m, p: tr.TrajectoryNLL.apply(m, p, s), (mu, prec))
+    assert kernels.launches["trajectory_nll"] > 0
+    assert kernels.launches["trajectory_adjoint"] > 0
+
+
+def test_trajectory_cost_matches_the_cpu_path(cuda):
+    """acoustic.trajectory_cost and its gradient through K28/K29 on the
+    card against the CPU twins, float32 at the lane's dims (50, 2, 25, 2)
+    over 128 frames: cost within 1e-5 relative, gradients within 1e-4 of
+    their largest magnitude."""
+    from hts_train_world_tpu_torch.models import acoustic
+    fd, mf = (50, 2, 25, 2), (0, 1, 0, 0)
+    ncol = sum(mf) + 3 * sum(fd)
+    rng = np.random.default_rng(3)
+    pred = rng.standard_normal((128, ncol)).astype(np.float32)
+    target = rng.standard_normal((128, ncol)).astype(np.float32)
+    logv = (0.3 * rng.standard_normal(ncol)).astype(np.float32)
+    gv = np.exp(0.2 * rng.standard_normal(sum(fd))).astype(np.float32)
+    out = {}
+    for d in (cuda, torch.device("cpu")):
+        p = torch.tensor(pred, device=d, requires_grad=True)
+        lv = torch.tensor(logv, device=d, requires_grad=True)
+        cost, _ = acoustic.trajectory_cost(
+            p, torch.tensor(target, device=d), torch.exp(lv),
+            torch.tensor(gv, device=d), fd, mf)
+        cost.backward()
+        out[d.type] = (float(cost.detach()), p.grad.cpu(), lv.grad.cpu())
+    (c, gp, gl), (cc, gpc, glc) = out["cuda"], out["cpu"]
+    assert abs(c - cc) <= 1e-5 * abs(cc)
+    assert float((gp - gpc).abs().max()) <= 1e-4 * float(gpc.abs().max())
+    assert float((gl - glc).abs().max()) <= 1e-4 * float(glc.abs().max())
+
+
+def test_k30_kernel_matches_plain_on_the_headline_batch(cuda):
+    """K30 on the inputs copy-synthesis of the headline batch (16 x 2.0 s
+    at 48 kHz) gave it, against `midpass_plain` on the card within
+    chip_smoke.check_k30's per-element bounds."""
+    xs = torch.as_tensor(chip_smoke.corpus(16, 96000), dtype=torch.float32,
+                         device=cuda)
+    kernels.record = []
+    try:
+        batch.batch_copy_synth(xs, 48000, seed=1)
+        recs = [i for n, i in kernels.record if n == "synth_midpass"]
+    finally:
+        kernels.record = None
+    assert len(recs) == 1
+    inp = recs[0]
+    out_k = syn.midpass(**inp)
+    out_p = syn.midpass_plain(**inp)
+    ok, err, text = chip_smoke.check_k30(inp, out_k, out_p)
+    assert ok, text
+
+
+def test_trajectory_and_midpass_wrappers_reject_what_the_kernels_do_not_take(
+        cuda):
+    from hts_train_world_tpu_torch.ops import trajectory as tr
+    mu, prec, s, _ = _traj_case(1, 6, 2, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        tr.trajectory_forward(mu, prec.double(), s)
+    with pytest.raises(ValueError):
+        tr.trajectory_forward(mu, prec, s[:, :4])
+    with pytest.raises(ValueError):
+        tr.trajectory_forward(mu, prec, s, windows=((1.0,),) * 3)
+    x = torch.zeros((2, 3, 9), device=cuda)
+    with pytest.raises(ValueError):
+        syn.midpass(x, x, x, x, x, x.double(), torch.zeros((2, 3),
+                                                           device=cuda))
+    with pytest.raises(ValueError):
+        syn.midpass(x, x, x, x, x, x, torch.zeros((2, 4), device=cuda))

@@ -469,16 +469,28 @@ def test_soft_counts_part_the_packages_at_a_min_occupancy_tie(runs):
     assert ties[0]["distance"] <= 1e-9
 
 
-def test_run_raises_at_trdnn_after_mkdat(runs):
+def test_run_raises_at_trdnn_after_mkdat(runs, tmp_path):
+    """Past MKDAT the DNN half runs (tests/test_torch_pipeline_dnn.py);
+    here TRDNN refuses an ffi file whose size is not a whole number of
+    the question set's frames, leaving MKDAT done and TRDNN not; before
+    any training synthesize_unseen finds no checkpoint; parity=True
+    raises, naming its ROADMAP item."""
     _, wt, _, _ = runs
-    p = pl.SingingPipeline(pl.PipelineConfig(wt, fs=FS, use_hmm_align=True,
+    wd = str(tmp_path / "copy")
+    shutil.copytree(wt, wd)
+    ffi = os.path.join(wd, "ffi", "utt1.ffi")
+    with open(ffi, "rb") as f:
+        data = f.read()
+    with open(ffi, "wb") as f:
+        f.write(data[:-4])
+    p = pl.SingingPipeline(pl.PipelineConfig(wd, fs=FS, use_hmm_align=True,
                                              device="cpu"))
-    with pytest.raises(NotImplementedError, match="Queue A 4"):
+    with pytest.raises(ValueError, match="reshape"):
         p.run()
     assert p.manifest.done("MKDAT") and not p.manifest.done("TRDNN")
     assert all(os.path.exists(p._p("ffi", f"utt{u}", "ffi"))
                for u in range(3))
-    with pytest.raises(NotImplementedError, match="Queue A 4"):
+    with pytest.raises(RuntimeError, match="no trained checkpoint"):
         p.synthesize_unseen("utt0")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pl.SingingPipeline(pl.PipelineConfig(
