@@ -45,9 +45,18 @@ Drives the port's paths at full size on a corpus made from a seed:
   and in trajectory mode (one utterance of 512 frames, dims (50, 2, 25,
   2)), then the pipeline's DNN half on the pipeline lane's workdir
   (TRDNN -> TRJGV -> MSPFD -> PGEN -> WGEN, and `synthesize_unseen` of 4
-  phrases outside the corpus).
+  phrases outside the corpus);
+- the parity lane, float64 synthesis on the reference's reseeded noise
+  stream: the feature lane's features of the headline batch decoded and
+  synthesised by the exact path (`ops/synthesis.synthesis(...,
+  exact=True)`, vocoder.synthesize(parity=True)'s path), the synth CLI at
+  its default (no --f32) and the `StreamingSynthesizer` on one 2.0 s
+  utterance at buffer sizes 64, 256 and 1024.
 
-Thirty kernels, K1-K30, are built, driven and held to their twins.
+Thirty kernels, K1-K30, are built, driven and held to their twins; K9-K12
+and K30 also in float64, and K9 in its chunk mode (the streaming
+synthesizer's), counted and reported as `name[f64]` and
+`synth_time_base[chunk]`.
 
 Phases (any failure raises):
 
@@ -135,7 +144,21 @@ Phases (any failure raises):
    model's, the generated files finite, the unseen phrases audible (their
    note F0 error reported); and on tests/test_torch_pipeline.py's corpus
    the DNN half on the card and on the CPU at hidden (32, 32) (logged
-   costs, weights and PGEN files within `DNN_TINY_MAX`).
+   costs, weights and PGEN files within `DNN_TINY_MAX`);
+15. the parity lane: (a) K12 and the exact path in float64 on the
+   headline batch's features, counted and recorded: audio-s/s over five
+   batches after one, the idle share of one under the profiler, every
+   float64 launch replayed against its twin (K9 and K11 bit for bit
+   against the twin on the CPU, K10 within 4 float64 ulps, K12 and K30
+   within 1e-12) and timed; (a') vocoder.synthesize(parity=True) of a
+   16 kHz utterance with long unvoiced runs on the card and on the CPU:
+   the same pulses, the waveforms within 1e-10; (b) the synth command
+   without --f32 on one utterance's mgc 50 / bap 25 files, the card's wav
+   against --device cpu's; (c) the StreamingSynthesizer at buffer sizes
+   64, 256 and 1024: ms per read() (median, p99), the real-time factor,
+   the stream against the batch parity synthesis within 1e-10, K9's chunk
+   mode replayed against its twin on the CPU chunk by chunk (and K11's
+   accumulate mode once).
 
 Prints each measurement, the card's name and power limit, a `kernels`
 JSON line, and as the last line {"ok": true, "device": {...}}.  Exits
@@ -199,6 +222,17 @@ REPLACES = {
     "trajectory_adjoint": ("K29",
                            "hts_train_world_tpu/models/acoustic.py:103"),
     "synth_midpass": ("K30", "hts_train_world_tpu/ops/synthesis.py:195"),
+    # the float64 instantiations (the exact path) and K9's chunk mode
+    "synth_time_base[f64]": ("K9 f64",
+                             "hts_train_world_tpu/ops/synthesis.py:70"),
+    "synth_pulse_spectra[f64]": ("K10 f64",
+                                 "hts_train_world_tpu/ops/synthesis.py:180"),
+    "synth_midpass[f64]": ("K30 f64",
+                           "hts_train_world_tpu/ops/synthesis.py:195"),
+    "synth_ola[f64]": ("K11 f64", "hts_train_world_tpu/ops/synthesis.py:268"),
+    "codec_decode[f64]": ("K12 f64", "hts_train_world_tpu/cli.py:58"),
+    "synth_time_base[chunk]": ("K9 chunk",
+                               "hts_train_world_tpu/ops/synthesis_rt.py:38"),
 }
 BODY = ("cheaptrick_lifter", "d4c_group_delay", "d4c_aperiodicity")
 ANALYSIS = ("frame_window", "spectral_smooth", "topk_sum", "fix_f0",
@@ -247,6 +281,14 @@ PATHS = {
     "pipeline_pgen": ("mlpg_solve", "mspf"),
     "pipeline_wgen": ("codec_decode",) + SYNTHESIS,
     "pipeline_unseen": ("mlpg_solve", "mspf", "codec_decode") + SYNTHESIS,
+    # the parity lane: decode and the exact path in float64, the synth
+    # CLI at its default, the streaming synthesizer (K9's chunk mode)
+    "parity_lane": ("codec_decode[f64]",) + tuple(f"{k}[f64]"
+                                                  for k in SYNTHESIS),
+    "parity_cli": ("codec_decode[f64]",) + tuple(f"{k}[f64]"
+                                                 for k in SYNTHESIS),
+    "streaming": ("synth_time_base[chunk]", "synth_pulse_spectra[f64]",
+                  "synth_midpass[f64]", "synth_ola[f64]"),
 }
 # the HSMM lane: RecipeConfig's defaults (models/recipe.py:45-47)
 HSMM_MODELS, HSMM_STATES, HSMM_MAX_DUR, HSMM_UTTS = 40, 5, 60, 128
@@ -1823,6 +1865,252 @@ def dnn_card_vs_cpu(devices=("cuda", "cpu")):
     shutil.rmtree(base)
 
 
+# the parity lane (phase 15): the exact path in float64 on the reference's
+# noise stream, the synth CLI at its default and the streaming synthesizer
+STREAM_SIZES = (64, 256, 1024)
+PARITY_CV_FS, PARITY_CV_T = 16000, 241
+
+
+def parity_params(T: int, fs: int, seed: int = 15):
+    """f0 / sp / ap (numpy float64) of one utterance with long unvoiced
+    runs (at 16 kHz the 500 Hz default wraps on sample boundaries) and ap
+    at its 0.999999999999 clip near Nyquist."""
+    from hts_train_world_tpu_torch import config as cfg
+    rng = np.random.default_rng(seed)
+    N = cfg.cheaptrick_fft_size(fs)
+    f0 = 150.0 + 60.0 * np.sin(np.arange(T) / 7.0)
+    f0[T // 8:T // 8 + 40] = 0.0
+    f0[T // 2:T // 2 + 30] = 0.0
+    f0[-6:] = 0.0
+    freq = np.arange(N // 2 + 1) / N * fs
+    sp = (np.exp(-freq[None, :] / 1500.0)
+          * (1.0 + 0.5 * rng.random((T, 1))) + 1e-6)
+    ap = np.clip(freq[None, :] / (fs / 2) + 0.1 * rng.random((T, 1)),
+                 0.0, 1.0)
+    return f0, sp, ap
+
+
+def parity_lane(counted, profiled, feats, device="cuda", timed=ITERS):
+    """Phase 15 (a): the headline batch's features (the feature lane's
+    lf0 / mgc / bap) read into float64, decoded by K12 and synthesised by
+    the exact path (K9, K10, the min-phase FFTs, K30, irfft, K11) on one
+    view of the reseeded stream: counted and recorded, then audio-s/s over
+    `timed` batches after one warm batch and one batch under the profiler.
+    Returns (counts, recorded launches, waveforms)."""
+    import torch
+    from hts_train_world_tpu_torch import config as cfg
+    from hts_train_world_tpu_torch.features import decode
+    from hts_train_world_tpu_torch.ops import rand
+    from hts_train_world_tpu_torch.ops import synthesis as syn
+    lf0, mgc, bap = (v.to(device=device, dtype=torch.float64) for v in feats)
+    B, T = lf0.shape
+    N = cfg.cheaptrick_fft_size(FS)
+    yl = cfg.y_length_for(T, FRAME_PERIOD, FS)
+    stream = rand.randn_stream(syn.synthesis_stream_len(yl),
+                               device)[None].expand(B, -1)
+
+    def lane():
+        f0, sp, ap = decode.decode_features(lf0, mgc, bap, FS, N)
+        return syn.synthesis(f0, sp, ap, N, FRAME_PERIOD, FS, yl, stream,
+                             exact=True)
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    lane()                                           # warm-up
+    y, counts, rec = counted("parity_lane", lane, record=True)
+    if y.shape != (B, yl) or y.dtype != torch.float64 \
+            or not bool(torch.isfinite(y).all()):
+        raise RuntimeError("parity lane: unexpected shape, dtype or "
+                           "non-finite waveform")
+    rms = float(y.pow(2).mean().sqrt())
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        lane()
+    sync()
+    dt = time.perf_counter() - t0
+    wall, busy, _ = profiled(lane)
+    peak = 0.0
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        lane()
+        sync()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    f0 = decode.decode_features(lf0, mgc, bap, FS, N)[0]
+    pl = syn.time_base(f0, FRAME_PERIOD, FS, yl, N,
+                       syn.default_max_pulses(yl, FS))
+    print(f"parity lane ({B} x {yl / FS:.1f} s at {FS} Hz, float64, exact "
+          f"path): {B * yl / FS * timed / dt:.2f} audio-s/s over {timed} "
+          f"batches ({1e3 * dt / timed:.1f} ms a batch); under the profiler "
+          f"{1e3 * wall:.1f} ms, device busy {1e3 * busy:.1f} ms, idle "
+          f"{100 * (1 - busy / wall):.1f}%; peak device memory of a batch "
+          f"{peak:.2f} GiB; pulses {pl.n.tolist()} (cap "
+          f"{pl.pidx.shape[1]}); y rms {rms:.4f}", flush=True)
+    if not 0.01 <= rms <= 1.0:
+        raise RuntimeError("parity lane: implausible output level")
+    return counts, rec, y
+
+
+def parity_card_vs_cpu(devices=("cuda", "cpu")):
+    """Phase 15 (a'): vocoder.synthesize(parity=True) of one 16 kHz
+    utterance with long unvoiced runs on the card and on the CPU: the
+    same pulses, the waveforms within 1e-10."""
+    import torch
+    from hts_train_world_tpu_torch import config as cfg
+    from hts_train_world_tpu_torch import vocoder
+    from hts_train_world_tpu_torch.ops import synthesis as syn
+    fs, T = PARITY_CV_FS, PARITY_CV_T
+    N = cfg.cheaptrick_fft_size(fs)
+    yl = cfg.y_length_for(T, FRAME_PERIOD, fs)
+    f0, sp, ap = parity_params(T, fs)
+    ys, pulses = [], []
+    for d in devices:
+        ys.append(vocoder.synthesize(f0, sp, ap, fs, N, FRAME_PERIOD,
+                                     device=d).cpu())
+        pl = syn.time_base(torch.as_tensor(f0, device=d)[None], FRAME_PERIOD,
+                           fs, yl, N, syn.default_max_pulses(yl, fs))
+        pulses.append(pl.pidx[0, :int(pl.n[0])].cpu())
+    same = torch.equal(*pulses)
+    err = float((ys[0] - ys[1]).abs().max())
+    print(f"parity synthesis, {devices[0]} vs {devices[1]} ({T} frames at "
+          f"{fs} Hz, unvoiced runs): pulses equal {same} ({len(pulses[0])} "
+          f"pulses), max |dy| {err:.3e} (<= 1e-10), peak "
+          f"{float(ys[1].abs().max()):.3f}", flush=True)
+    if not (same and err <= 1e-10):
+        raise RuntimeError("parity synthesis: the card disagrees with the "
+                           "CPU path")
+
+
+def parity_cli(counted, feats, devices=("cuda", "cpu")):
+    """Phase 15 (b): `synth` at its default (no --f32) on one utterance's
+    compressed features (mgc 50, bap 25) written as float32 files, on the
+    card (counted) and with --device cpu: the int16 samples of the two
+    wavs.  Returns the card run's counts."""
+    from hts_train_world_tpu_torch import cli
+    from hts_train_world_tpu_torch import config as cfg
+    from hts_train_world_tpu_torch.io import rawio, wavio
+    d = tempfile.mkdtemp()
+    try:
+        paths = [os.path.join(d, f"in.{k}") for k in ("lf0", "mgc", "bap")]
+        for path, v in zip(paths, feats):
+            rawio.write_f32(path, v[0].cpu().numpy())
+        N = cfg.cheaptrick_fft_size(FS)
+        outs, counts = [], None
+        for dev in devices:
+            out = os.path.join(d, f"{dev}.wav")
+            argv = ["synth", *paths, out, str(FRAME_PERIOD), str(N), str(FS),
+                    "50", "25", "--device", dev]
+            t0 = time.perf_counter()
+            if counts is None:
+                _, counts, _ = counted("parity_cli", lambda: cli.main(argv))
+            else:
+                cli.main(argv)
+            secs = time.perf_counter() - t0
+            outs.append((wavio.float_to_int16(wavio.wavread(out)[0]), secs))
+        (a, ta), (b, tb) = outs
+        diff = np.abs(a.astype(np.int64) - b.astype(np.int64))
+        print(f"synth CLI at its default (parity), {devices[0]} vs "
+              f"{devices[1]}: {len(a)} samples, {int((diff > 0).sum())} "
+              f"differ, max {int(diff.max())} LSB; {ta:.2f} s vs {tb:.2f} s "
+              f"(a process's first call)", flush=True)
+        if len(a) != len(b) or diff.max() > 1 or np.abs(a).max() < 1000:
+            raise RuntimeError("synth CLI: the card's wav disagrees with the "
+                               "CPU's or is silent")
+        return counts
+    finally:
+        shutil.rmtree(d)
+
+
+def streaming_lane(counted, profiled, params, device="cuda",
+                   sizes=STREAM_SIZES):
+    """Phase 15 (c): the StreamingSynthesizer on one 2.0 s utterance at
+    48 kHz (float64 f0 / sp / ap on the device), all frames added, read
+    chunk by chunk at each buffer size after three warm reads: ms per
+    read() to a synchronize (median, p99), the real-time factor (chunk
+    seconds over wall seconds) and the concatenated stream against the
+    batch parity synthesis within 1e-10; 20 reads at the smallest size
+    under the profiler; one more pass at the largest size counted and
+    recorded.  Returns (counts, recorded launches)."""
+    import torch
+    from hts_train_world_tpu_torch import config as cfg
+    from hts_train_world_tpu_torch.ops import rand
+    from hts_train_world_tpu_torch.ops import synthesis as syn
+    from hts_train_world_tpu_torch.ops.synthesis_rt import (
+        StreamingSynthesizer)
+    f0, sp, ap = params
+    T = f0.shape[0]
+    N = cfg.cheaptrick_fft_size(FS)
+    yl = cfg.y_length_for(T, FRAME_PERIOD, FS)
+    stream = rand.randn_stream(syn.synthesis_stream_len(yl), device)
+    ref = syn.synthesis(f0[None], sp[None], ap[None], N, FRAME_PERIOD, FS,
+                        yl, stream[None], exact=True)[0]
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def fresh(s):
+        s.refresh()
+        s.add_parameters(f0, sp, ap)
+        return s
+
+    def drain(s):
+        out = []
+        while not s.starved:
+            out.append(s.read())
+        return out
+
+    counts, rec = None, []
+    for bs in sizes:
+        s = StreamingSynthesizer(FS, FRAME_PERIOD, N, buffer_size=bs,
+                                 noise_stream=stream, device=device)
+        fresh(s)
+        for _ in range(3):                           # warm-up (FFT plans)
+            s.read()
+        fresh(s)
+        times, out = [], []
+        sync()
+        while not s.starved:
+            t0 = time.perf_counter()
+            out.append(s.read())
+            sync()
+            times.append(time.perf_counter() - t0)
+        y = torch.cat(out)
+        err = float((y - ref[:len(y)]).abs().max())
+        ms = 1e3 * np.asarray(times)
+        rtf = len(times) * bs / FS / float(np.sum(times))
+        print(f"streaming, buffer {bs}: {len(times)} reads, {len(y)} "
+              f"samples emitted (latency {N}); ms per read median "
+              f"{np.median(ms):.3f}, p99 {np.percentile(ms, 99):.3f}; "
+              f"real-time factor {rtf:.2f}; vs batch parity max |dy| "
+              f"{err:.3e} (<= 1e-10)", flush=True)
+        if err > 1e-10 or len(y) < yl - N - bs:
+            raise RuntimeError(f"streaming (buffer {bs}) disagrees with "
+                               f"the batch parity synthesis")
+        if bs == sizes[0]:
+            fresh(s)
+            wall, busy, evs = profiled(lambda: [s.read()
+                                                for _ in range(20)])
+            top = ", ".join(
+                f"{e.key[:40]} " + "{:.1f} us".format(getattr(
+                    e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0)) / 20)
+                for e in evs[:3])
+            print(f"streaming, buffer {bs}, 20 reads under the profiler: "
+                  f"{1e3 * wall / 20:.3f} ms a read, device busy "
+                  f"{1e3 * busy / 20:.3f} ms, idle "
+                  f"{100 * (1 - busy / wall):.1f}%; top a read: {top}",
+                  flush=True)
+        if bs == sizes[-1]:
+            fresh(s)
+            _, counts, _ = counted("streaming", lambda: drain(s), record=rec)
+    return counts, rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2067,9 +2355,14 @@ def main() -> int:
         return sum(t.numel() * t.element_size() for t in ts
                    if isinstance(t, torch.Tensor))
 
+    def rate(t):
+        """The card's peak operation rate for t's type."""
+        return F64_OPS_PER_S if t.dtype == torch.float64 else F32_OPS_PER_S
+
     def bound_of(name, inp, outs):
         """(bound ms, 'bytes' | 'operations') for one launch: each input
         the function needs read once, each output written once."""
+        name = kernels.base_name(name)
         moved = nbytes(*inp.values(), *outs)
         t_o = 0.0
         if name == "frame_window":
@@ -2144,18 +2437,18 @@ def main() -> int:
             # per bin the segment search, the lerp and powf (~30)
             t_o = 30.0 * outs[0].numel() / F32_OPS_PER_S
         elif name == "synth_time_base":
-            # ~40 f32 operations a sample (search, lerp, increment, wrap,
+            # ~40 operations a sample (search, lerp, increment, wrap,
             # jump) and one float64 add; the serial sum is not counted
             samples = inp["f0"].shape[0] * inp["y_length"]
-            t_o = max(40.0 * samples / F32_OPS_PER_S,
+            t_o = max(40.0 * samples / rate(inp["f0"]),
                       samples / F64_OPS_PER_S)
         elif name == "synth_pulse_spectra":
             # per bin the lerps and two logs (~60), per noise sample 3
             pulses = inp["pulse_time"].numel()
             t_o = pulses * (60.0 * inp["sp"].shape[-1]
-                            + 3.0 * inp["fft_size"]) / F32_OPS_PER_S
+                            + 3.0 * inp["fft_size"]) / rate(inp["sp"])
         elif name == "synth_ola":
-            t_o = 8.0 * inp["per_raw"].numel() / F32_OPS_PER_S
+            t_o = 8.0 * inp["per_raw"].numel() / rate(inp["per_raw"])
         elif name in ("trajectory_nll", "trajectory_adjoint"):
             # per (utterance, frame, dimension): the row build (~10 a
             # window) and the recursions (~15) forward; the two sweeps,
@@ -2169,13 +2462,13 @@ def main() -> int:
                 else F32_OPS_PER_S)
         elif name == "synth_midpass":
             # 2 exp, 5 cos/sin, 1 sqrt (~15 each) and 12 products a bin
-            t_o = 132.0 * inp["lpr"].numel() / F32_OPS_PER_S
+            t_o = 132.0 * inp["lpr"].numel() / rate(inp["lpr"])
         elif name == "codec_decode":
             rows = inp["lf0"].numel()
             H = inp["fft_size"] // 2 + 1
             db = inp["bap"].shape[-1]
             t_o = rows * (2.0 * inp["mgc"].shape[-1] * (H - 1) + 30.0 * H
-                          + 2.0 * db * decode.ap_order(db)) / F32_OPS_PER_S
+                          + 2.0 * db * decode.ap_order(db)) / rate(inp["mgc"])
         elif name == "harvest_decimate":
             # the order-3 recurrence and its output taps, twice, in f64
             x = inp["x"]
@@ -2227,13 +2520,14 @@ def main() -> int:
         t_b = moved / HBM_BYTES_PER_S
         return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
-    def library(name, inp):
+    def library(key, inp):
         """One PyTorch call for the same job, where there is one.  K2's is
         `torch.cumsum` of the mirrored rows alone (no DC fold, no reads,
         no division): the whole cumsum-based smoothing in library calls
         is the plain version.  K6's is log + gather-lerp + matmul of the
         scaled spectra (no zero floor, no c0 fixes); K7's the shifted adds
         (no -1e10 propagation)."""
+        name = kernels.base_name(key)
         if name == "topk_sum":
             return lambda: torch.topk(inp["p"], inp["k"], dim=1).values.sum(1)
         if name == "d4c_group_delay" and inp["stage"] == d4c_mod.LOVE:
@@ -2263,13 +2557,13 @@ def main() -> int:
             at, Lb = syn.ola_index(inp["pidx"], inp["per_raw"].shape[-1],
                                    inp["y_length"])
             B = inp["pidx"].shape[0]
-            return lambda: torch.zeros(B * Lb, device=dev).index_add_(
-                0, at, resp)
+            return lambda: torch.zeros(B * Lb, dtype=resp.dtype,
+                                       device=dev).index_add_(0, at, resp)
         if name == "codec_decode":
             m, b, fs_, N_ = inp["mgc"], inp["bap"], inp["fs"], inp["fft_size"]
             m0 = torch.cat([m[..., :1] - 12.0, m[..., 1:]], dim=-1)
             W = torch.as_tensor(decode._ap_matrix_np(b.shape[-1], N_),
-                                dtype=torch.float32, device=dev)
+                                dtype=m.dtype, device=dev)
             b0 = torch.cat([b[..., :1] + encode.LN_1E4, b[..., 1:]],
                            dim=-1)[..., :W.shape[0]]
             return lambda: (
@@ -2382,7 +2676,7 @@ def main() -> int:
             # the same products in complex library calls (sin for the
             # delay's imaginary part, not synthesis.cpp's sqrt)
             k = torch.arange(inp["lpr"].shape[-1], device=dev,
-                             dtype=torch.float32)
+                             dtype=inp["lpr"].dtype)
             return lambda: (
                 torch.exp(torch.complex(inp["lpr"], inp["lpi"]))
                 * torch.exp(torch.complex(torch.zeros_like(inp["lpr"]),
@@ -2629,9 +2923,57 @@ def main() -> int:
                 f"equal: {pad}; vs the card twin: ends equal {card[0]}, "
                 f"best_ll rel {card[1]:.2e}")
 
+    def check_f64(name, inp, out_k, out_p):
+        """The float64 instantiations (the exact path) against their
+        twins: K9 and K11 bit for bit against the twin on the CPU, K10's
+        logs within 4 float64 ulps, the rest within 1e-12 relative."""
+        base = kernels.base_name(name)
+        eps = torch.finfo(torch.float64).eps
+        if base == "synth_time_base":
+            return check_k9(inp, out_k)
+        if base == "synth_ola":
+            return check_k11(inp, out_k)
+        if base == "synth_pulse_spectra":
+            worst = max(float(((k - p).abs() / (4 * eps * (p.abs() + 1.0)))
+                              .max()) for k, p in zip(out_k[:2], out_p[:2]))
+            e_n = float((out_k[2] - out_p[2]).abs().max())
+            lim = 1e-12 * float(inp["stream"].abs().max())
+            same_unv = torch.equal(out_k[3], out_p[3])
+            return (worst <= 1.0 and e_n <= lim and same_unv,
+                    max_err(zip(out_k[:3], out_p)),
+                    f"float64, fma lerps: logs within 4 ulps (+4 ulps of "
+                    f"1), worst err/limit {worst:.3f}; noise |err| "
+                    f"{e_n:.1e} <= 1e-12 x stream peak; unvoiced flags "
+                    f"equal: {same_unv}")
+        if base == "synth_midpass":
+            ms = inp["lpr"].exp()
+            mp = inp["lar"].exp() * (inp["nre"].abs() + inp["nim"].abs())
+            worst = max(float(((k - p).abs() / (1e-12 * m).clamp(
+                min=1e-300)).max()) for k, p, m in zip(out_k, out_p,
+                                                        (ms, ms, mp, mp)))
+            return (worst <= 1.0, max_err(zip(out_k, out_p)),
+                    f"float64: per element err / (1e-12 x magnitude) "
+                    f"worst {worst:.3f}")
+        # codec_decode
+        f0_c = decode.decode_features_plain(**on_cpu(inp))[0]
+        apl = decode.ap_order(inp["bap"].shape[-1])
+        r_f0 = float(((out_k[0].cpu() - f0_c).abs()
+                      / f0_c.abs().clamp(min=1e-300)).max())
+        r_sp = float(((out_k[1] - out_p[1]).abs() / out_p[1].abs()).max())
+        r_ap = float(((out_k[2][..., :apl] - out_p[2][..., :apl]).abs()
+                      / out_p[2][..., :apl].abs()).max())
+        tail = bool((out_k[2][..., apl:] == 0).all())
+        return (r_f0 <= eps and tail and max(r_sp, r_ap) <= 1e-12,
+                max_err(zip(out_k, out_p)),
+                f"float64: f0 within an ulp of the CPU's (rel {r_f0:.1e}); "
+                f"sp rel {r_sp:.1e}, ap rel {r_ap:.1e} (<= 1e-12); ap zero "
+                f"past bin {apl}: {tail}")
+
     def check(name, inp, out_k, out_p):
         """(passed, max abs err against the reference, what was held and
         what was read)."""
+        if name.endswith("[f64]"):
+            return check_f64(name, inp, out_k, out_p)
         if name == "hsmm_loglik":
             # non-finite frames (a NaN in bap, weight 0) are NaN in both
             k, p = out_k[0], out_p[0]
@@ -2838,7 +3180,7 @@ def main() -> int:
     def replay(path, name, inp):
         """Hold one recorded launch against the plain version; time the
         kernel, the plain version, the bound and the library call."""
-        kern, plain = twins[name]
+        kern, plain = twins[kernels.base_name(name)]
         debug = (dict(crossings=True)
                  if name in ("dio_candidates", "harvest_candidates") else {})
         out_k = kern(**inp, **debug)
@@ -2856,7 +3198,8 @@ def main() -> int:
                 else out_k[:1] if name == "harvest_candidates" else out_k)
         bms, by = bound_of(name, inp, outs)
         shape = "x".join(str(s) for s in out_k[
-            1 if name in ("synth_time_base", "hsmm_fb") else 0].shape)
+            1 if kernels.base_name(name) in ("synth_time_base", "hsmm_fb")
+            else 0].shape)
         print(f"{REPLACES[name][0]} {name} ({path}) out {shape}: max_abs_err "
               f"{err:.3e} ({tol}) {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bms:.4f} ms ({by})"
@@ -2877,6 +3220,65 @@ def main() -> int:
         s["by"][by] = s["by"].get(by, 0.0) + bms
         if lib_ms is not None:
             s["lib_ms"] = (s["lib_ms"] or 0.0) + lib_ms
+
+    def replay_chunks(rec):
+        """K9's chunk mode: every launch the streaming lane recorded
+        against the twin on the CPU from the same carried state, bit for
+        bit (its outputs and the state it hands on); µs a launch on the
+        middle chunk; and one accumulate-mode K11 launch against its twin
+        on the CPU."""
+        chunks = [i for n, i in rec if n == "synth_time_base[chunk]"]
+        bad, err = 0, 0.0
+        for inp in chunks:
+            args = {k: v for k, v in inp.items() if not k.startswith("state")}
+            sk = (inp["state_d"].clone(), inp["state_i"].clone())
+            sc = (inp["state_d"].cpu(), inp["state_i"].cpu())
+            out_k = syn.chunk_pulses(**args, state_d=sk[0], state_i=sk[1])
+            out_c = syn.chunk_pulses_plain(**on_cpu(args), state_d=sc[0],
+                                           state_i=sc[1])
+            same = (all(bit_same(a, b) for a, b in zip(out_k, out_c))
+                    and bit_same(sk[0], sc[0]) and bit_same(sk[1], sc[1]))
+            bad += not same
+            err = max(err, max_err(zip(out_k, out_c)))
+        inp = chunks[len(chunks) // 2]
+        args = {k: v for k, v in inp.items() if not k.startswith("state")}
+        sd, si = inp["state_d"].clone(), inp["state_i"].clone()
+        ms = cuda_ms(lambda: syn.chunk_pulses(**args, state_d=sd,
+                                              state_i=si), reps=10, warm=2)
+        pd, pi = inp["state_d"].clone(), inp["state_i"].clone()
+        plain_ms = cuda_ms(lambda: syn.chunk_pulses_plain(
+            **args, state_d=pd, state_i=pi), reps=3)
+        s0, n = args["s0"], args["n"]
+        inc = syn.phase_increments(args["f0"][None], args["frame_period"],
+                                   args["fs"], s0 + n,
+                                   args["fft_size"])[0, s0:].contiguous()
+        lib_ms = cuda_ms(lambda: torch.cumsum(inc, 0), reps=10, warm=2)
+        P = args["max_pulses"]
+        moved = 8 * args["f0"].numel() + 8 * 7 * P + 8 * 4
+        t_b, t_o = moved / HBM_BYTES_PER_S, 60.0 * n / F64_OPS_PER_S
+        bms = 1e3 * max(t_b, t_o)
+        by = "bytes" if t_b >= t_o else "operations"
+        acc_recs = [i for nm, i in rec
+                    if nm == "synth_ola[f64]" and i.get("acc") is not None]
+        a_inp = acc_recs[len(acc_recs) // 2]
+        a_k = syn.overlap_add(**{**a_inp, "acc": a_inp["acc"].clone()})
+        a_c = syn.overlap_add_plain(**on_cpu(a_inp))
+        acc_same = bit_same(a_k, a_c)
+        print(f"K9 chunk synth_time_base[chunk] (streaming) {len(chunks)} "
+              f"chunks of {n} samples, cap {P}: bit-equal to the plain "
+              f"version on the CPU (pulses, per-pulse values, the carried "
+              f"state): {len(chunks) - bad} of {len(chunks)}; "
+              f"{ms:.4f} ms a launch, plain {plain_ms:.4f} ms, bound "
+              f"{bms:.6f} ms ({by}), library cumsum {lib_ms:.4f} ms; K11 "
+              f"f64 accumulate mode (window {a_inp['y_length']} at "
+              f"{a_inp['y0']}) bit-equal to the CPU: {acc_same}",
+              flush=True)
+        if bad or not acc_same:
+            raise RuntimeError("K9's chunk mode or K11's accumulate mode "
+                               "disagrees with its plain version")
+        summary["synth_time_base[chunk]"] = dict(
+            err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, lib_ms=lib_ms,
+            by={by: bms})
 
     for path, name, inp in replays:
         replay(path, name, inp)
@@ -3131,7 +3533,6 @@ def main() -> int:
         *feats, FS, seed=30 + s).pow(2).sum()), "synth lane")
     report_profile("synth lane",
                    lambda: feat_mod.synth_lane(*feats, FS, seed=40))
-    del feats
     torch.cuda.empty_cache()
 
     # ---- 8. corpus extraction (corpus500) ----
@@ -3857,6 +4258,22 @@ def main() -> int:
     shutil.rmtree(pipe_p.wd)
     dnn_card_vs_cpu()
 
+    # ---- 15. the parity lane: float64 synthesis on the reference's noise
+    # stream (the exact path, the synth CLI's default, streaming) ----
+    t15 = time.perf_counter()
+    counts_pl, rec_pl, _ = parity_lane(counted, profiled, feats)
+    for name, inp in rec_pl:
+        replay("parity_lane", name, inp)
+    del rec_pl
+    torch.cuda.empty_cache()
+    parity_card_vs_cpu()
+    counts_pc = parity_cli(counted, feats)
+    params_s = decode.decode_features(*(v[0].double() for v in feats), FS, N)
+    counts_st, rec_st = streaming_lane(counted, profiled, params_s)
+    replay_chunks(rec_st)
+    del rec_st, params_s
+    print(f"phase 15: {time.perf_counter() - t15:.1f} s", flush=True)
+
     print(smi)
     src = "hts_train_world_tpu_torch/csrc/"
     by_path = {"copy_synth": counts_cs, "feature_lane": counts_fl,
@@ -3869,10 +4286,12 @@ def main() -> int:
                "voice_pgtype1": variants["voice_pgtype1"][0],
                "voice_train": counts_vt, "pipeline_analyze": counts_pa,
                "pipeline_compose": counts_pc, "pipeline_halgn": counts_ph,
-               "dnn_trajectory": counts_dt, **counts_dnn}
+               "dnn_trajectory": counts_dt, **counts_dnn,
+               "parity_lane": counts_pl, "parity_cli": counts_pc,
+               "streaming": counts_st}
     line = {"kernels": [
         {"name": name, "route": "cuda",
-         "source": src + kernels.KERNELS[name][0],
+         "source": src + kernels.KERNELS[kernels.base_name(name)][0],
          "replaces": REPLACES[name][1],
          "launches": by_path[primary(name)][name],
          "max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain_ms"],

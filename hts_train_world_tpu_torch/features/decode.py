@@ -16,7 +16,9 @@ and in its twin, so the card and the CPU decode the same contour (and fire
 the same pulses in synthesis).
 
 The whole decode runs as kernel K12 (csrc/codec_decode.cu) for CUDA
-tensors: one launch reads (lf0, mgc, bap) once and writes (f0, sp, ap).
+tensors, in float32 (the fast path) or float64 (the parity path, the
+synth CLI's default): one launch reads (lf0, mgc, bap) once and writes
+(f0, sp, ap).
 The IDCT, the boundary-padded Hz lerp and exp are fused per frame; for the
 aperiodicity, freqt and the real part of the FFT are two linear maps, so
 the kernel applies their product W (apl + 1, apl) and needs no FFT.
@@ -99,44 +101,48 @@ def decode_limit(lf0, mgc, bap, fs: int, fft_size: int):
 
 @functools.lru_cache(maxsize=None)
 def _kernel_tables(fs: int, fft_size: int, mgc_dim: int, bap_dim: int,
-                   device):
+                   dtype, device):
     """K12's tables on the card: the Hz lerp's k (int32) and s, Dinv
-    (mgc_dim, M) and W (m + 1, apl), all f32 but k."""
+    (mgc_dim, M) and W (m + 1, apl), all in `dtype` but k."""
     k, s, dinv = codec._decoding_tables(fs, fft_size, mgc_dim)
-    f32 = dict(dtype=torch.float32, device=device)
+    fl = dict(dtype=dtype, device=device)
     return (torch.as_tensor(k, dtype=torch.int32, device=device),
-            torch.as_tensor(s, **f32), torch.as_tensor(dinv, **f32),
-            torch.as_tensor(_ap_matrix_np(bap_dim, fft_size), **f32))
+            torch.as_tensor(s, **fl), torch.as_tensor(dinv, **fl),
+            torch.as_tensor(_ap_matrix_np(bap_dim, fft_size), **fl))
 
 
 def decode_features(lf0, mgc, bap, fs: int, fft_size: int):
-    """K12: the synth CLI's decode of f32 features, batched over leading
-    axes (see `decode_features_plain`)."""
+    """K12: the synth CLI's decode of f32 or f64 features (one dtype),
+    batched over leading axes (see `decode_features_plain`)."""
     if not lf0.is_cuda:
         return decode_features_plain(lf0, mgc, bap, fs, fft_size)
     lead = lf0.shape
-    if (lf0.dtype != torch.float32 or mgc.dtype != torch.float32
-            or bap.dtype != torch.float32 or mgc.shape[:-1] != lead
+    dt = lf0.dtype
+    if (dt not in (torch.float32, torch.float64) or mgc.dtype != dt
+            or bap.dtype != dt or mgc.shape[:-1] != lead
             or bap.shape[:-1] != lead or bap.shape[-1] < 2
             or mgc.shape[-1] < 1 or fft_size % 4):
-        raise ValueError("decode_features: f32 lf0 (..., T), mgc (..., T, "
-                         "D) and bap (..., T, >= 2), N a multiple of 4")
+        raise ValueError("decode_features: f32 or f64 lf0 (..., T), mgc "
+                         "(..., T, D) and bap (..., T, >= 2) of one dtype, "
+                         "N a multiple of 4")
     H = fft_size // 2 + 1
     Dm, Db = mgc.shape[-1], bap.shape[-1]
     l2 = lf0.reshape(-1).contiguous()
     m2 = mgc.reshape(-1, Dm).contiguous()
     b2 = bap.reshape(-1, Db).contiguous()
-    k, s, dinv, w = _kernel_tables(fs, fft_size, Dm, Db, lf0.device)
+    k, s, dinv, w = _kernel_tables(fs, fft_size, Dm, Db, dt, lf0.device)
     kernels.check_cuda("decode_features", l2, m2, b2, k, s, dinv, w)
     R = l2.shape[0]
-    f0 = torch.empty(R, dtype=torch.float32, device=lf0.device)
-    sp = torch.empty((R, H), dtype=torch.float32, device=lf0.device)
-    ap = torch.empty((R, H), dtype=torch.float32, device=lf0.device)
+    f64 = dt == torch.float64
+    f0 = torch.empty(R, dtype=dt, device=lf0.device)
+    sp = torch.empty((R, H), dtype=dt, device=lf0.device)
+    ap = torch.empty((R, H), dtype=dt, device=lf0.device)
     kernels.launch("codec_decode", [
         l2.data_ptr(), m2.data_ptr(), b2.data_ptr(), R, Dm, Db, H,
         k.data_ptr(), s.data_ptr(), dinv.data_ptr(), w.data_ptr(),
-        w.shape[0], w.shape[1], f0.data_ptr(), sp.data_ptr(),
+        w.shape[0], w.shape[1], int(f64), f0.data_ptr(), sp.data_ptr(),
         ap.data_ptr()],
-        dict(lf0=lf0, mgc=mgc, bap=bap, fs=fs, fft_size=fft_size))
+        dict(lf0=lf0, mgc=mgc, bap=bap, fs=fs, fft_size=fft_size),
+        variant="f64" if f64 else None)
     return (f0.reshape(lead), sp.reshape(*lead, H),
             ap.reshape(*lead, H))

@@ -60,18 +60,21 @@ KERNELS = {
                      [_P, _I, _I, _I, _P, _P, _I, _I, _I, _P]),
     "mlpg_solve": ("mlpg_solve.cu", "mlpg_solve_launch",
                    [_P, _P, _I, _I, _I, _I, _P, _I, _P, _P]),
-    "synth_time_base": ("synth_time_base.cu", "synth_time_base_launch",
-                        [_P, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P, _P, _P,
-                         _P, _P]),
+    "synth_time_base": ("synth_time_base.cu", {
+        "synth_time_base_launch": [_P, _I, _I, _I, _I, _D, _D, _D, _I]
+        + [_P] * 7,
+        "synth_time_base_chunk_launch": [_P, _I, _L, _I, _I, _D, _D, _D]
+        + [_P] * 9}),
     "synth_pulse_spectra": ("synth_pulse_spectra.cu",
                             "synth_pulse_spectra_launch",
-                            [_P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _I,
-                             _I, _F, _F, _P, _P, _P, _P]),
+                            [_P, _P, _I, _I, _I, _P, _I, _L, _P, _P, _P, _P,
+                             _I, _I, _D, _D, _I, _I, _P, _P, _P, _P]),
     "synth_ola": ("synth_ola.cu", "synth_ola_launch",
-                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P]),
+                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _L, _I, _I,
+                   _P, _P]),
     "codec_decode": ("codec_decode.cu", "codec_decode_launch",
-                     [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P,
-                      _P, _P]),
+                     [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I,
+                      _P, _P, _P]),
     "harvest_decimate": ("harvest_decimate.cu", "harvest_decimate_launch",
                          [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
     "harvest_candidates": ("harvest_candidates.cu",
@@ -118,7 +121,7 @@ KERNELS = {
                            "trajectory_adjoint_launch",
                            [_P] * 8 + [_I, _I, _I, _I, _P, _I, _P, _P, _P]),
     "synth_midpass": ("synth_midpass.cu", "synth_midpass_launch",
-                      [_P] * 7 + [_L, _I, _P, _P, _P, _P]),
+                      [_P] * 7 + [_L, _I, _I, _P, _P, _P, _P]),
 }
 
 launches: collections.Counter = collections.Counter()
@@ -197,12 +200,14 @@ def build() -> str:
         return d
 
 
-def launch(name: str, args: list, inputs: dict, fn: str | None = None
-           ) -> None:
+def launch(name: str, args: list, inputs: dict, fn: str | None = None,
+           variant: str | None = None) -> None:
     """Launch kernel `name` on the current stream with C arguments
     `args`, through its launcher `fn` where it has one for each stage;
     `inputs` (the wrapper's tensors and scalars) is what `record` keeps
-    for a replay."""
+    for a replay.  A `variant` (the float64 instantiation of a kernel
+    that also runs in float32, K9's chunk mode) is counted and recorded
+    as `name[variant]`."""
     build()
     fns, err = _libs[name]
     stream = torch.cuda.current_stream().cuda_stream
@@ -210,9 +215,15 @@ def launch(name: str, args: list, inputs: dict, fn: str | None = None
     if rc != 0:
         raise RuntimeError(f"{name}: launch failed: "
                            f"{err(rc).decode()} ({rc})")
-    launches[name] += 1
+    key = name if variant is None else f"{name}[{variant}]"
+    launches[key] += 1
     if record is not None:
-        record.append((name, inputs))
+        record.append((key, inputs))
+
+
+def base_name(key: str) -> str:
+    """The kernel of a launch count's key (`name` or `name[variant]`)."""
+    return key.split("[", 1)[0]
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:

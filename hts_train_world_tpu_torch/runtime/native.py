@@ -2,7 +2,8 @@
 
 The port's own counterpart of `hts_train_world_tpu/runtime/native.py`:
 the sources live in `hts_train_world_tpu_torch/native/`, and each library
-is built on first use with `g++ -O2 -shared -fPIC` into the gitignored
+is built on first use with `g++ -O2 -shared -fPIC` (`gcc` for C sources,
+so their symbols keep C linkage) into the gitignored
 `<repo>/.torch_ext_build/native/<hash>/`, keyed by a hash of its sources
 and flags, never beside the sources.  A build that fails raises: nothing
 falls back to a Python reader.
@@ -36,13 +37,16 @@ def _build(name: str, sources: list) -> str:
     so = os.path.join(d, f"lib{name}.so")
     if os.path.exists(so):
         return so
-    cxx = shutil.which("g++")
+    c_only = all(s.endswith(".c") for s in sources)
+    tool = "gcc" if c_only else "g++"
+    cxx = shutil.which(tool)
     if cxx is None:
-        raise RuntimeError(f"g++ not found: the native {name} library "
-                           "builds with the system C++ compiler")
+        raise RuntimeError(f"{tool} not found: the native {name} library "
+                           "builds with the system compiler")
     os.makedirs(d, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    r = subprocess.run([cxx, *FLAGS, "-o", tmp, *srcs, "-lpthread"],
+    r = subprocess.run([cxx, *FLAGS, "-o", tmp, *srcs]
+                       + ([] if c_only else ["-lpthread"]),
                        capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"g++ failed for {name}:\n{r.stderr}")

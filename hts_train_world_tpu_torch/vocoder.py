@@ -1,9 +1,12 @@
-"""High-level WORLD vocoder API of the port (fast mode).
+"""High-level WORLD vocoder API of the port.
 
 Counterpart of `hts_train_world_tpu/vocoder.py`.  parity=False is the f32
 fast path: noise-free analysis on the regular frame grid, cumsum phase and
-`torch.Generator` noise in synthesis.  parity=True (the f64 path with the
-reference's PRNG streams) is a later slice of the port and raises.
+`torch.Generator` noise in synthesis.  parity=True is the f64 path with
+the reference's PRNG streams: `synthesize(parity=True)` runs the exact
+path (the sequential phase fold, FFT responses, the reseeded stream)
+through K9-K11 and K30 in float64; parity analysis (`analyze`,
+`copy_synthesis`) is a later slice of the port and raises.
 """
 from __future__ import annotations
 
@@ -17,13 +20,14 @@ from hts_train_world_tpu_torch.ops import cheaptrick as ct
 from hts_train_world_tpu_torch.ops import d4c as d4c_mod
 from hts_train_world_tpu_torch.ops import dio as dio_mod
 from hts_train_world_tpu_torch.ops import harvest as hv
-from hts_train_world_tpu_torch.ops import prims
+from hts_train_world_tpu_torch.ops import prims, rand
 from hts_train_world_tpu_torch.ops import stonemask as sm
 from hts_train_world_tpu_torch.ops import synthesis as syn
 from hts_train_world_tpu_torch.parallel import batch as batch_mod
 
-_PARITY = ("parity=True (the f64 path with the reference's PRNG streams) is "
-           "not ported yet; see ROADMAP.md, Queue A 5.  Pass parity=False.")
+_PARITY = ("parity=True analysis (the f64 path with the reference's PRNG "
+           "streams in CheapTrick and D4C) is not ported yet; see "
+           "ROADMAP.md, Queue A 5's analysis half.  Pass parity=False.")
 
 
 @dataclasses.dataclass
@@ -67,16 +71,21 @@ def synthesize(f0, spectrogram, aperiodicity, fs: int, fft_size: int = 0,
                frame_period: float = 5.0, y_length: int = 0,
                parity: bool = True, seed: int = 0, device="cuda"):
     """Synthesis (synth.cpp:97-108) of one utterance; y_length 0 ->
-    (T-1)*fp*fs+1.  The noise is drawn from `seed` on the device."""
-    if parity:
-        raise NotImplementedError(_PARITY)
+    (T-1)*fp*fs+1.  parity=True: float64, the exact path on the
+    reference's reseeded noise stream; parity=False: the fast path in the
+    input's dtype, the noise drawn from `seed` on the device."""
     dev = device_mod.resolve(device)
-    sp = torch.as_tensor(spectrogram, device=dev)
+    sp = torch.as_tensor(spectrogram, device=dev,
+                         dtype=torch.float64 if parity else None)
     f0 = torch.as_tensor(f0, dtype=sp.dtype, device=dev)
     ap = torch.as_tensor(aperiodicity, dtype=sp.dtype, device=dev)
     N = fft_size or cfg.cheaptrick_fft_size(fs)
     if not y_length:
         y_length = cfg.y_length_for(f0.shape[0], frame_period, fs)
+    if parity:
+        stream = rand.randn_stream(syn.synthesis_stream_len(y_length), dev)
+        return syn.synthesis(f0[None], sp[None], ap[None], N, frame_period,
+                             fs, y_length, stream[None], exact=True)[0]
     gen = torch.Generator(device=dev).manual_seed(seed)
     stream = batch_mod.synthesis_noise_batch(gen, 1, y_length, sp.dtype)
     return syn.synthesis(f0[None], sp[None], ap[None], N, frame_period, fs,

@@ -478,7 +478,7 @@ def test_synth_lane_and_batch_synth_match_the_cpu_path(cuda):
 def test_synth_wrappers_reject_what_the_kernels_do_not_take(cuda):
     f0 = torch.full((2, 10), 150.0, device=cuda)
     with pytest.raises(ValueError):
-        syn.time_base(f0.double(), 5.0, 16000, 800, 1024, 32)
+        syn.time_base(f0.half(), 5.0, 16000, 800, 1024, 32)
     with pytest.raises(ValueError):
         syn.time_base(f0[:, :1], 5.0, 16000, 800, 1024, 32)
     pl = syn.time_base(f0, 5.0, 16000, 721, 1024, 32)
@@ -493,6 +493,9 @@ def test_synth_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         syn.pulse_spectra(sp, sp, noise.cpu(), pl.pulse_time, pl.vuv,
                           pl.noise_size, pl.noise_off, 5.0, 1024)
+    with pytest.raises(ValueError):      # the exact path is float64
+        syn.pulse_spectra(sp, sp, noise, pl.pulse_time, pl.vuv,
+                          pl.noise_size, pl.noise_off, 5.0, 1024, exact=True)
     resp = torch.zeros((2, 32, 1024), device=cuda)
     unv = torch.zeros((2, 32), dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError):
@@ -511,6 +514,156 @@ def test_synth_wrappers_reject_what_the_kernels_do_not_take(cuda):
                                                          device=cuda),
                                torch.zeros((2, 10, 25), device=cuda), 16000,
                                1024)
+
+
+# ---------------------------------------------------------------------------
+# the parity path: K9-K12 and K30 in float64, K9's chunk mode
+# ---------------------------------------------------------------------------
+
+
+def _parity_inputs(cuda, fs, T, kind="unvoiced", B=2, seed=0):
+    """float64 f0 / sp / ap on the card (ap at its clip near Nyquist) and
+    the reseeded stream's prefix."""
+    from hts_train_world_tpu_torch.ops import rand
+    rng = np.random.default_rng(seed)
+    N = cfg.cheaptrick_fft_size(fs)
+    yl = cfg.y_length_for(T, 5.0, fs)
+    freq = np.arange(N // 2 + 1) / N * fs
+    sp = np.exp(-freq / 1500.0)[None, None] * (1 + rng.random((B, T, 1)))
+    ap = np.clip(freq / (fs / 2) + 0.1 * rng.random((B, T, 1)), 0, 1)
+    f0 = np.stack([_contour(T, seed + s, kind) for s in range(B)])
+    f64 = dict(dtype=torch.float64, device=cuda)
+    stream = rand.randn_stream(syn.synthesis_stream_len(yl), cuda)
+    return ([torch.as_tensor(v, **f64) for v in (f0, sp, ap)], stream, N,
+            yl)
+
+
+@pytest.mark.parametrize("fs,T", [(16000, 60), (48000, 401)])
+@pytest.mark.parametrize("kind", ["voiced", "unvoiced", "boundary"])
+def test_k9_float64_bit_equal_to_cpu_twin(cuda, fs, T, kind):
+    """The float64 instantiation: counts, pulses and every per-pulse value
+    equal to the twin run on the CPU (the JAX exact path's left fold)."""
+    (f0, _, _), _, N, yl = _parity_inputs(cuda, fs, T, kind, B=3)
+    P = syn.default_max_pulses(yl, fs)
+    got = syn.time_base(f0, 5.0, fs, yl, N, P)
+    want = syn.time_base_plain(f0.cpu(), 5.0, fs, yl, N, P)
+    for name, g, w in zip(syn.Pulses._fields, got, want):
+        assert _same(g, w), name
+
+
+@pytest.mark.parametrize("fs,chunk", [(16000, 64), (16000, 2000),
+                                      (48000, 1024)])
+def test_k9_chunk_mode_matches_cpu_twin_over_an_utterance(cuda, fs, chunk):
+    """Chunk by chunk over a whole utterance with unvoiced runs, the card
+    and the CPU twin give the same pulses, per-pulse values and carried
+    state, bit for bit."""
+    (f0, _, _), _, N, yl = _parity_inputs(cuda, fs, 80, "boundary", B=1)
+    P = int(chunk * 1200.0 / fs) + 18
+    sk, sc = syn.chunk_state(cuda), syn.chunk_state("cpu")
+    for s0 in range(0, yl - chunk, chunk):
+        got = syn.chunk_pulses(f0[0], s0, chunk, P, 5.0, fs, N, *sk)
+        want = syn.chunk_pulses_plain(f0[0].cpu(), s0, chunk, P, 5.0, fs, N,
+                                      *sc)
+        for name, g, w in zip(syn.ChunkPulses._fields, got, want):
+            assert _same(g, w), (s0, name)
+        assert _same(sk[0], sc[0]) and _same(sk[1], sc[1])
+
+
+def test_parity_kernels_match_their_twins(cuda):
+    """One exact-path synthesis at 48 kHz: K10 (float64, fma lerps)
+    within 4 float64 ulps of the logs' magnitude (+4 ulps of 1), the
+    noise within 1e-12 of the stream's scale, flags equal; K30 within
+    1e-12 of the spectra's magnitude; K11 bit-equal to the twin's
+    index_add_ on the CPU, and in accumulate mode over a window."""
+    (f0, sp, ap), stream, N, yl = _parity_inputs(cuda, 48000, 60)
+    B = f0.shape[0]
+    pl = syn.trim_pulses(syn.time_base(f0, 5.0, 48000, yl, N,
+                                       syn.default_max_pulses(yl, 48000)))
+    args = (sp, ap, stream[None].expand(B, -1), pl.pulse_time, pl.vuv,
+            pl.noise_size, pl.noise_off, 5.0, N, True)
+    got = syn.pulse_spectra(*args)
+    want = syn.pulse_spectra_plain(*args)
+    eps = torch.finfo(torch.float64).eps
+    for g, w in zip(got[:2], want[:2]):
+        assert ((g - w).abs() <= 4 * eps * (w.abs() + 1.0)).all()
+    assert ((got[2] - want[2]).abs() <= 1e-12 * 6.0).all()
+    assert torch.equal(got[3], want[3])
+    lp, la, nz, unv = want
+    coef = prims.exact_div(2.0 * np.pi * pl.time_shift * 48000, N)
+    lpr, lpi = prims.minimum_phase_log(lp, N)
+    lar, lai = prims.minimum_phase_log(la, N)
+    ns = torch.fft.rfft(nz, dim=-1)
+    ins = (lpr, lpi, lar, lai, ns.real.contiguous(), ns.imag.contiguous(),
+           coef)
+    gk, gp = syn.midpass(*ins), syn.midpass_plain(*ins)
+    ms = lpr.exp()
+    mp = lar.exp() * (ins[4].abs() + ins[5].abs())
+    for k, p, m in zip(gk, gp, (ms, ms, mp, mp)):
+        assert ((k - p).abs() <= 1e-12 * m).all()
+    per, aper = syn.responses_exact(lp, la, nz, pl.time_shift, 48000, N)
+    oargs = (per, aper, unv, pl.pidx, pl.noise_size, pl.n, yl)
+    a = syn.overlap_add(*oargs)
+    cpu = [v.cpu() if torch.is_tensor(v) else v for v in oargs]
+    assert torch.equal(a.cpu(), syn.overlap_add_plain(*cpu))
+    acc = torch.randn((B, 3000), dtype=torch.float64, device=cuda)
+    want_acc = syn.overlap_add_plain(*cpu[:6], 3000, 5000, acc.cpu().clone())
+    syn.overlap_add(*oargs[:6], 3000, 5000, acc)
+    assert torch.equal(acc.cpu(), want_acc)
+
+
+@pytest.mark.parametrize("bap_dim", [24, 25])
+def test_k12_float64_kernel_matches_plain(cuda, bap_dim):
+    """The float64 decode: f0 within an ulp of the CPU twin's (CUDA's exp
+    and the CPU's may part by one); sp and ap within 1e-12 relative of the
+    twin (the composed W and the IDCT sums round in another order); ap
+    zero past apl."""
+    rng = np.random.default_rng(bap_dim)
+    mgc = rng.standard_normal((3, 50, 50)) / (1.0 + np.arange(50)) ** 1.2
+    mgc[..., 0] += 13.0
+    bap = 0.5 * rng.standard_normal((3, 50, bap_dim)) \
+        / (1.0 + np.arange(bap_dim))
+    bap[..., 0] -= 2.0
+    lf0 = np.log(100.0 + 200.0 * rng.random((3, 50)))
+    lf0[:, 10:15] = 0.0
+    ins = [torch.as_tensor(v, dtype=torch.float64, device=cuda)
+           for v in (lf0, mgc, bap)]
+    got = decode.decode_features(*ins, 48000, 2048)
+    want = decode.decode_features_plain(*(v.cpu() for v in ins), 48000, 2048)
+    eps = torch.finfo(torch.float64).eps
+    assert ((got[0].cpu() - want[0]).abs() <= eps * want[0].abs()).all()
+    apl = decode.ap_order(bap_dim)
+    for g, w in ((got[1], want[1]), (got[2][..., :apl], want[2][..., :apl])):
+        assert ((g.cpu() - w).abs() <= 1e-12 * w.abs()).all()
+    assert (got[2][..., apl:] == 0).all()
+
+
+def test_parity_synthesis_and_streaming_match_the_cpu_path(cuda):
+    """vocoder.synthesize(parity=True) on the card fires the CPU path's
+    pulses and its waveform is within 1e-10 of the CPU's; the streaming
+    synthesizer's stream on the card is within 1e-10 of both."""
+    from hts_train_world_tpu_torch import vocoder
+    from hts_train_world_tpu_torch.ops import rand
+    from hts_train_world_tpu_torch.ops.synthesis_rt import (
+        StreamingSynthesizer)
+    (f0, sp, ap), _, N, yl = _parity_inputs(cuda, 16000, 80, "boundary",
+                                            B=1)
+    kernels.reset_counts()
+    y = vocoder.synthesize(f0[0], sp[0], ap[0], 16000, N, device="cuda")
+    for k in ("synth_time_base[f64]", "synth_pulse_spectra[f64]",
+              "synth_midpass[f64]", "synth_ola[f64]"):
+        assert kernels.launches[k] == 1, k
+    c = vocoder.synthesize(f0[0].cpu(), sp[0].cpu(), ap[0].cpu(), 16000, N,
+                           device="cpu")
+    assert float((y.cpu() - c).abs().max()) <= 1e-10
+    s = StreamingSynthesizer(16000, 5.0, N, buffer_size=256, device=cuda,
+                             noise_stream=rand.randn_stream(yl + 16, cuda))
+    s.add_parameters(f0[0], sp[0], ap[0])
+    out = []
+    while not s.starved:
+        out.append(s.read())
+    st = torch.cat(out).cpu()
+    assert len(st) > yl // 2
+    assert float((st - c[:len(st)]).abs().max()) <= 1e-10
 
 
 # ---------------------------------------------------------------------------

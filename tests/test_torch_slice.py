@@ -175,13 +175,22 @@ def test_analyze_options_match_jax():
 
 @pytest.mark.parametrize("call", ["analyze", "synthesize", "copy_synthesis"])
 def test_parity_mode_is_a_later_slice(call):
+    """Parity analysis is a later slice (ROADMAP Queue A 5's analysis
+    half): analyze and copy_synthesis raise.  Parity synthesis is ported:
+    vocoder.synthesize's default (parity=True) is the JAX package's, on
+    the reference's noise stream, within 1e-10."""
     x = np.zeros(1600, np.float32)
+    if call == "synthesize":
+        args = (np.full(11, 100.0), np.ones((11, 513)),
+                np.full((11, 513), 0.5), FS)
+        y = vocoder.synthesize(*args, device="cpu")
+        want = np.asarray(jvocoder.synthesize(*(jnp.asarray(a)
+                                                for a in args[:3]), FS))
+        assert y.dtype == torch.float64 and np.abs(want).max() > 0.01
+        np.testing.assert_allclose(y.numpy(), want, rtol=0, atol=1e-10)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if call == "synthesize":
-            vocoder.synthesize(np.full(11, 100.0), np.ones((11, 513)),
-                               np.ones((11, 513)), FS, device="cpu")
-        else:
-            getattr(vocoder, call)(x, FS, device="cpu")
+        getattr(vocoder, call)(x, FS, device="cpu")
 
 
 ENTRY_POINTS = {
@@ -191,6 +200,8 @@ ENTRY_POINTS = {
     "SingingPipeline": lambda d: pipeline.SingingPipeline(
         pipeline.PipelineConfig(str(d))),
     "mspf_stats": lambda d: postfilter.mspf_stats([np.zeros((30, 2))]),
+    "synthesize_parity": lambda d: vocoder.synthesize(
+        np.full(11, 100.0), np.ones((11, 513)), np.ones((11, 513)), FS),
 }
 
 
@@ -222,7 +233,8 @@ def test_port_imports_nothing_of_jax():
                 "features/labelgen.py", "io/loader.py", "runtime/native.py",
                 "runtime/checkpoint.py", "runtime/pipeline.py",
                 "ops/stonemask.py", "ops/cheaptrick.py", "ops/d4c.py",
-                "ops/postfilter.py"):
+                "ops/postfilter.py", "ops/rand.py", "ops/synthesis_rt.py",
+                "io/worldparam.py"):
         assert os.path.join(REPO, "hts_train_world_tpu_torch", mod) in files
     for f in files:
         with open(f) as fh:
