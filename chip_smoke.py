@@ -51,11 +51,17 @@ Drives the port's paths at full size on a corpus made from a seed:
   synthesised by the exact path (`ops/synthesis.synthesis(...,
   exact=True)`, vocoder.synthesize(parity=True)'s path), the synth CLI at
   its default (no --f32) and the `StreamingSynthesizer` on one 2.0 s
-  utterance at buffer sizes 64, 256 and 1024.
+  utterance at buffer sizes 64, 256 and 1024;
+- the parity analysis lane, float64 analysis on the reference's reseeded
+  noise streams (`parallel.batch.parity_stages`, vocoder.analyze(parity=
+  True)'s path): the headline batch in float64 through DIO, StoneMask's
+  bucket path, CheapTrick and D4C, `copy_synthesis` at its default at 16
+  kHz and 44.1 kHz, and the analysis CLI at its default.
 
-Thirty kernels, K1-K30, are built, driven and held to their twins; K9-K12
-and K30 also in float64, and K9 in its chunk mode (the streaming
-synthesizer's), counted and reported as `name[f64]` and
+Thirty-one kernels, K1-K31, are built, driven and held to their twins;
+K9-K12 and K30 also in float64 for the parity synthesis, K1, K2, K4-K6
+and K24-K27 in float64 for the parity analysis, and K9 in its chunk mode
+(the streaming synthesizer's), counted and reported as `name[f64]` and
 `synth_time_base[chunk]`.
 
 Phases (any failure raises):
@@ -158,7 +164,24 @@ Phases (any failure raises):
    64, 256 and 1024: ms per read() (median, p99), the real-time factor,
    the stream against the batch parity synthesis within 1e-10, K9's chunk
    mode replayed against its twin on the CPU chunk by chunk (and K11's
-   accumulate mode once).
+   accumulate mode once);
+16. the parity analysis lane: (a) the headline batch in float64 through
+   DIO (K5, K4), StoneMask's bucket path (K1, K24 a bucket), CheapTrick
+   (K1, K2, K25) and D4C (K1, K26, K2, K31, K27) on the noise streams,
+   counted and recorded: stage ms (CUDA events), audio-s/s over five
+   batches after one, the idle share and peak memory of one, every
+   float64 launch and K31 replayed against its twin (K31 bit for bit
+   against its twin on the CPU, the rest within 1e-12-1e-13) and timed,
+   then the lane's spectra (16, 401, 1025) through the analysis command's
+   encode (K6 in float64, mgc 50 / bap 25), counted, replayed and timed;
+   (b) `copy_synthesis` at its default on a 16 kHz utterance of 1.2 s
+   with unvoiced runs and a 44.1 kHz one of 0.5 s (a 220.5-sample frame
+   grid), card against CPU: f0 within 1e-9 rel, sp 1.5e-8 rel, ap 1e-9,
+   the waveform 1e-8; (c) the analysis command without --f32, raw and
+   encoded (mgc 50 / bap 25, K6 in float64), the card's float32 files
+   against --device cpu's, the differing words counted (one ulp apart, or
+   rounding-noise coefficients among the bap coefficients past c0 of the
+   unvoiced frames).
 
 Prints each measurement, the card's name and power limit, a `kernels`
 JSON line, and as the last line {"ok": true, "device": {...}}.  Exits
@@ -173,6 +196,7 @@ import copy
 import cProfile
 import filecmp
 import json
+import math
 import os
 import pstats
 import shutil
@@ -233,8 +257,26 @@ REPLACES = {
     "codec_decode[f64]": ("K12 f64", "hts_train_world_tpu/cli.py:58"),
     "synth_time_base[chunk]": ("K9 chunk",
                                "hts_train_world_tpu/ops/synthesis_rt.py:38"),
+    # the parity analysis: float64 instantiations and K31
+    "frame_window[f64]": ("K1 f64", "hts_train_world_tpu/ops/d4c.py:35"),
+    "spectral_smooth[f64]": ("K2 f64",
+                             "hts_train_world_tpu/ops/prims.py:487"),
+    "fix_f0[f64]": ("K4 f64", "hts_train_world_tpu/ops/dio.py:137"),
+    "dio_candidates[f64]": ("K5 f64", "hts_train_world_tpu/ops/dio.py:88"),
+    "codec_encode[f64]": ("K6 f64", "hts_train_world_tpu/cli.py:42"),
+    "stonemask_if[f64]": ("K24 f64",
+                          "hts_train_world_tpu/ops/stonemask.py:40"),
+    "cheaptrick_lifter[f64]": ("K25 f64",
+                               "hts_train_world_tpu/ops/cheaptrick.py:161"),
+    "d4c_group_delay[f64]": ("K26 f64", "hts_train_world_tpu/ops/d4c.py:122"),
+    "d4c_aperiodicity[f64]": ("K27 f64",
+                              "hts_train_world_tpu/ops/d4c.py:196"),
+    "d4c_band_sort": ("K31", "hts_train_world_tpu/ops/d4c.py:190"),
 }
 BODY = ("cheaptrick_lifter", "d4c_group_delay", "d4c_aperiodicity")
+PARITY_ANALYSIS = tuple(f"{k}[f64]" for k in (
+    "frame_window", "spectral_smooth", "fix_f0", "dio_candidates",
+    "stonemask_if") + BODY) + ("d4c_band_sort",)
 ANALYSIS = ("frame_window", "spectral_smooth", "topk_sum", "fix_f0",
             "dio_candidates", "stonemask_if") + BODY
 SYNTHESIS = ("synth_time_base", "synth_pulse_spectra", "synth_midpass",
@@ -289,6 +331,11 @@ PATHS = {
                                                  for k in SYNTHESIS),
     "streaming": ("synth_time_base[chunk]", "synth_pulse_spectra[f64]",
                   "synth_midpass[f64]", "synth_ola[f64]"),
+    # the parity analysis lane: DIO, StoneMask's bucket path, CheapTrick
+    # and D4C in float64 on the noise streams; the analysis CLI's encode
+    "parity_analysis": PARITY_ANALYSIS,
+    "parity_analysis_encode": ("codec_encode[f64]",),
+    "parity_analysis_cli": PARITY_ANALYSIS + ("codec_encode[f64]",),
 }
 # the HSMM lane: RecipeConfig's defaults (models/recipe.py:45-47)
 HSMM_MODELS, HSMM_STATES, HSMM_MAX_DUR, HSMM_UTTS = 40, 5, 60, 128
@@ -2111,6 +2158,219 @@ def streaming_lane(counted, profiled, params, device="cuda",
     return counts, rec
 
 
+# the parity analysis lane (phase 16): DIO, StoneMask's bucket path,
+# CheapTrick and D4C in float64 on the reference's noise streams
+PARITY_AN_CASES = ((16000, 1.2), (44100, 0.5))
+
+
+def parity_signal(fs: int, dur: float, seed: int = 16):
+    """Two harmonics of a pitch gliding 140 -> 260 Hz with two unvoiced
+    runs of noise (at 25-35 % and 60-70 % of the duration), float64."""
+    rng = np.random.default_rng(seed)
+    n = int(fs * dur)
+    ph = 2 * np.pi * np.cumsum(np.linspace(140.0, 260.0, n)) / fs
+    x = 0.5 * np.sin(ph) + 0.2 * np.sin(2 * ph) + 0.005 * rng.standard_normal(n)
+    for a, b in ((0.25, 0.35), (0.60, 0.70)):
+        x[int(a * n):int(b * n)] = 0.05 * rng.standard_normal(
+            int(b * n) - int(a * n))
+    return x
+
+
+def parity_analysis_lane(counted, profiled, device="cuda", batch=BATCH,
+                         dur=DUR, timed=ITERS):
+    """Phase 16 (a): the headline batch (bench.py's corpus, 48 kHz) in
+    float64 through `parallel.batch.parity_stages` (DIO, StoneMask's
+    bucket path, CheapTrick and D4C on the reseeded streams): counted and
+    recorded, stage ms, audio-s/s over `timed` batches after one warm
+    batch, the idle share of one batch under the profiler and its peak
+    device memory.  Returns (counts, recorded launches, (t, f0, sp, ap))."""
+    import torch
+    from hts_train_world_tpu_torch.parallel import batch as batch_mod
+    xs = torch.as_tensor(corpus(batch, int(FS * dur)), dtype=torch.float64,
+                         device=device)
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def lane():
+        *_, (_, out) = batch_mod.parity_stages(xs, FS, FRAME_PERIOD)
+        return out
+
+    lane()                                           # warm-up
+    out, counts, rec = counted("parity_analysis", lane, record=True)
+    t, f0, sp, ap = out
+    B, T = f0.shape
+    if sp.shape != (B, T, sp.shape[-1]) or ap.shape != sp.shape \
+            or f0.dtype != torch.float64:
+        raise RuntimeError("parity analysis lane: unexpected shapes/dtype")
+    if not all(bool(torch.isfinite(v).all()) for v in (f0, sp, ap)) \
+            or not bool((sp > 0).all()) or ap.min() < 0 or ap.max() > 1:
+        raise RuntimeError("parity analysis lane: non-finite or out-of-"
+                           "range output")
+    voiced = float((f0 > 0).double().mean())
+    med = float(f0[f0 > 0].median()) if voiced else 0.0
+    # stage by stage: events (or the host clock without a card)
+    names, marks = [], []
+    clock = (lambda: torch.cuda.Event(enable_timing=True)) if on_card \
+        else None
+    sync()
+    t0 = time.perf_counter()
+    first = clock() if clock else None
+    if first is not None:
+        first.record()
+    for name, _ in batch_mod.parity_stages(xs, FS, FRAME_PERIOD):
+        if clock:
+            e = clock()
+            e.record()
+            marks.append(e)
+        else:
+            marks.append(time.perf_counter())
+        names.append(name)
+    sync()
+    if clock:
+        edges = [first] + marks
+        stage_ms = {n: edges[i].elapsed_time(edges[i + 1])
+                    for i, n in enumerate(names)}
+    else:
+        edges = [t0] + marks
+        stage_ms = {n: 1e3 * (edges[i + 1] - edges[i])
+                    for i, n in enumerate(names)}
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        lane()
+    sync()
+    dt = time.perf_counter() - t0
+    wall, busy, _ = profiled(lane)
+    peak = 0.0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        lane()
+        sync()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    print(f"parity analysis lane ({B} x {dur:.1f} s at {FS} Hz, float64 on "
+          f"the noise streams): {B * dur * timed / dt:.2f} audio-s/s over "
+          f"{timed} batches ({1e3 * dt / timed:.1f} ms a batch); stages "
+          + ", ".join(f"{n} {v:.1f} ms" for n, v in stage_ms.items())
+          + f"; under the profiler {1e3 * wall:.1f} ms, device busy "
+          f"{1e3 * busy:.1f} ms, idle {100 * (1 - busy / wall):.1f}%; peak "
+          f"device memory of a batch {peak:.2f} GiB; voiced rate "
+          f"{voiced:.3f}, median f0 {med:.1f} Hz", flush=True)
+    if not (0.8 <= voiced <= 1.0 and 150.0 <= med <= 250.0):
+        raise RuntimeError("parity analysis lane: implausible V/UV rate or "
+                           "f0")
+    return counts, rec, out
+
+
+def parity_analysis_card_vs_cpu(devices=("cuda", "cpu"),
+                                cases=PARITY_AN_CASES):
+    """Phase 16 (b): `vocoder.copy_synthesis` at its default (parity) on
+    one 16 kHz utterance of 1.2 s with unvoiced runs and one 44.1 kHz
+    utterance of 0.5 s (a frame grid of 220.5 samples), on the card and on
+    the CPU: f0 at rel 1e-9, sp at rel 1.5e-8, ap at 1e-9 and the waveform
+    within 1e-8, the bounds the CPU tests hold against the JAX package."""
+    import torch
+    from hts_train_world_tpu_torch import vocoder
+    for fs, dur in cases:
+        x = parity_signal(fs, dur)
+        runs = [vocoder.copy_synthesis(x, fs, device=d) for d in devices]
+        (a, ya), (b, yb) = [(r[0], r[1].cpu()) for r in runs]
+
+        def rel(u, v):
+            u, v = u.cpu(), v.cpu()
+            return float(((u - v).abs() / v.abs().clamp(min=1e-300))
+                         [(u != v)].max()) if bool((u != v).any()) else 0.0
+        r_f0, r_sp = rel(a.f0, b.f0), rel(a.spectrogram, b.spectrogram)
+        e_ap = float((a.aperiodicity.cpu() - b.aperiodicity).abs().max())
+        e_y = float((ya - yb).abs().max())
+        vuv = bool(torch.equal(a.f0.cpu() > 0, b.f0 > 0))
+        print(f"parity copy-synthesis, {devices[0]} vs {devices[1]} ({fs} "
+              f"Hz, {dur} s, {int((b.f0 > 0).sum())} of {b.f0.numel()} "
+              f"frames voiced): V/UV equal {vuv}; f0 rel {r_f0:.2e} (<= "
+              f"1e-9), sp rel {r_sp:.2e} (<= 1.5e-8), ap |err| {e_ap:.2e} "
+              f"(<= 1e-9), y |err| {e_y:.2e} (<= 1e-8), peak "
+              f"{float(yb.abs().max()):.3f}", flush=True)
+        if not (vuv and r_f0 <= 1e-9 and r_sp <= 1.5e-8 and e_ap <= 1e-9
+                and e_y <= 1e-8):
+            raise RuntimeError(f"parity copy-synthesis at {fs} Hz: the card "
+                               "disagrees with the CPU path")
+
+
+def float32_words(a, b, noise_at=None, noise: float = 1e-9):
+    """(words that differ, of them one ulp apart, of them rounding noise:
+    both |values| <= noise, at a place `noise_at` (bool, a's shape)
+    allows) between two float32 arrays."""
+    ai = a.view(np.int32).astype(np.int64)
+    bi = b.view(np.int32).astype(np.int64)
+    differ = ai != bi
+    noisy = differ & (np.abs(a) <= noise) & (np.abs(b) <= noise)
+    noisy &= noise_at if noise_at is not None else False
+    ulp = differ & ~noisy & (np.abs(ai - bi) <= 1)
+    return int(differ.sum()), int(ulp.sum()), int(noisy.sum())
+
+
+def parity_analysis_cli(counted, devices=("cuda", "cpu"), fs=16000,
+                        dur=0.6):
+    """Phase 16 (c): `analysis` at its default (float64 parity, float32
+    files) on one wav, raw (mgcdim 0) and encoded (mgc 50 / bap 25, K6 in
+    float64, counted), on the card and with --device cpu: the float32
+    words that differ, each one ulp apart or a rounding-noise coefficient,
+    and those only among the bap coefficients past c0 of the frames the
+    CPU's lf0 marks unvoiced (their flat aperiodicity codes to zero but
+    for rounding).  Returns the encoded card run's counts and recorded
+    launches."""
+    from hts_train_world_tpu_torch import cli
+    from hts_train_world_tpu_torch.io import wavio
+    d = tempfile.mkdtemp()
+    try:
+        wav = os.path.join(d, "in.wav")
+        wavio.wavwrite(parity_signal(fs, dur), fs, wav)
+        counts = rec = None
+        for dims in (("0",), ("0", "50", "25")):
+            files = {}
+            for dev in devices:
+                outs = [os.path.join(d, f"{dev}.{k}")
+                        for k in ("lf0", "mgc", "bap")]
+                argv = ["analysis", wav, *outs, str(FRAME_PERIOD), *dims,
+                        "--device", dev]
+                if len(dims) > 1 and counts is None:
+                    _, counts, rec = counted("parity_analysis_cli",
+                                             lambda: cli.main(argv),
+                                             record=True)
+                else:
+                    cli.main(argv)
+                files[dev] = [np.fromfile(o, dtype=np.float32) for o in outs]
+            tot = [0, 0, 0, 0]
+            unvoiced = files[devices[1]][0] == 0.0
+            bap_dim = int(dims[-1]) if len(dims) > 1 else 0
+            at = (unvoiced[:, None] & (np.arange(bap_dim) >= 1)).reshape(-1)
+            for a, b, ext in zip(*files.values(), ("lf0", "mgc", "bap")):
+                if a.shape != b.shape or not np.isfinite(a).all():
+                    raise RuntimeError("analysis CLI: shapes differ or "
+                                       "non-finite output")
+                n, ulp, noisy = float32_words(
+                    a, b, at if bap_dim and ext == "bap" else None)
+                tot = [tot[0] + a.size, tot[1] + n, tot[2] + ulp,
+                       tot[3] + noisy]
+            words, n, ulp, noisy = tot
+            kind = "raw" if len(dims) == 1 else "mgc 50 / bap 25"
+            print(f"analysis CLI at its default ({kind}), {devices[0]} vs "
+                  f"{devices[1]}: {n} of {words} float32 words differ ({ulp} "
+                  f"by one ulp, {noisy} rounding-noise coefficients <= "
+                  f"1e-9, all among the {int(at.sum())} bap coefficients "
+                  f"past c0 of the {int(unvoiced.sum())} unvoiced frames)",
+                  flush=True)
+            if n != ulp + noisy or ulp > words // 1000:
+                raise RuntimeError("analysis CLI: the card's files disagree "
+                                   "with the CPU's")
+        return counts, rec
+    finally:
+        shutil.rmtree(d)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2349,6 +2609,8 @@ def main() -> int:
         "trajectory_adjoint": (traj_mod.trajectory_backward,
                                traj_mod.trajectory_backward_plain),
         "synth_midpass": (syn.midpass, syn.midpass_plain),
+        "d4c_band_sort": (d4c_mod.band_sort_sums,
+                          d4c_mod.band_sort_sums_plain),
     }
 
     def nbytes(*ts):
@@ -2367,7 +2629,7 @@ def main() -> int:
         t_o = 0.0
         if name == "frame_window":
             t_o = 12.0 * sum(o.numel() for o in outs
-                             if o is not None) / F32_OPS_PER_S
+                             if o is not None) / rate(outs[0])
         elif name == "spectral_smooth":     # scan, reads, divide in f64
             t_o = 8.0 * inp["ps"].numel() / F64_OPS_PER_S
         elif name == "topk_sum":
@@ -2377,13 +2639,14 @@ def main() -> int:
             # four streams' crossing tests (12 operations a sample)
             fb = inp["filt_bands"]
             samples = fb.shape[0] * fb.shape[1] * inp["plan"]["y_length"]
-            moved = 4 * samples + nbytes(*outs)
-            t_o = 12.0 * samples / F32_OPS_PER_S
+            moved = fb.element_size() * samples + nbytes(*outs)
+            t_o = 12.0 * samples / rate(fb)
         elif name == "codec_encode":
-            rows = inp["sp"].numel() // inp["sp"].shape[-1]
+            n_bins = inp["sp"].shape[-1]
+            rows = inp["sp"].numel() // n_bins
             dims = inp["mgc_dim"] + inp["bap_dim"]
-            t_o = rows * (2.0 * half * dims + 2 * 5.0 * (half + 1)) \
-                / F32_OPS_PER_S
+            t_o = rows * (2.0 * (n_bins - 1) * dims + 2 * 5.0 * n_bins) \
+                / rate(inp["sp"])
         elif name == "delta_window":
             t_o = 2.0 * 3 * outs[0].numel() / (
                 F64_OPS_PER_S if outs[0].dtype == torch.float64
@@ -2414,28 +2677,36 @@ def main() -> int:
             # the 2 + 6 harmonic bins of four spectra a frame, its f0, h,
             # gate and result; ~30 operations a bin
             R_ = inp["f0s"].numel()
-            moved = R_ * (8 * 4 * 4 + 4 + 4 + 1 + 4)
-            t_o = 8 * 30.0 * R_ / F32_OPS_PER_S
+            w_ = inp["smr"].element_size()
+            moved = R_ * (8 * 4 * w_ + w_ + 4 + 1 + w_)
+            t_o = 8 * 30.0 * R_ / rate(inp["smr"])
         elif name == "cheaptrick_lifter":
             # a sin, a cos (~20 each) and ~10 more a bin in the lifter;
             # log or exp (~10) and a compare in the others
             t_o = (50.0 if inp["stage"] == ct_mod.LIFTER else 12.0) \
-                * inp["x"].numel() / F32_OPS_PER_S
+                * inp["x"].numel() / rate(inp["x"])
         elif name == "d4c_group_delay":
             st = inp["stage"]
             if st == d4c_mod.LOVE:      # the bins (b0, b2] of each row
                 R_ = inp["p"].shape[0]
-                moved = 4 * R_ * (inp["b2"] - inp["b0"]) + 4 * R_ * 4
+                w_ = inp["p"].element_size()
+                moved = w_ * R_ * (inp["b2"] - inp["b0"]) + 4 * R_ * w_
                 t_o = 2.0 * R_ * (inp["b2"] - inp["b0"]) / F64_OPS_PER_S
             elif st == d4c_mod.SEGMENTS:   # the band spans of a and b
                 seg = outs[0].numel()
-                moved = 3 * 4 * seg + nbytes(inp["window"])
-                t_o = 2.0 * seg / F32_OPS_PER_S
+                moved = 3 * outs[0].element_size() * seg \
+                    + nbytes(inp["window"])
+                t_o = 2.0 * seg / rate(outs[0])
             else:
-                t_o = 4.0 * outs[0].numel() / F32_OPS_PER_S
+                t_o = 4.0 * outs[0].numel() / rate(outs[0])
         elif name == "d4c_aperiodicity":
             # per bin the segment search, the lerp and powf (~30)
-            t_o = 30.0 * outs[0].numel() / F32_OPS_PER_S
+            t_o = 30.0 * outs[0].numel() / rate(outs[0])
+        elif name == "d4c_band_sort":
+            # what the function needs, not this kernel's network: a sort
+            # of each unpadded row (H log2 H compares) and its sum
+            R_, H_ = inp["p"].shape
+            t_o = R_ * H_ * (math.log2(H_) + 1.0) / F64_OPS_PER_S
         elif name == "synth_time_base":
             # ~40 operations a sample (search, lerp, increment, wrap,
             # jump) and one float64 add; the serial sum is not counted
@@ -2530,6 +2801,9 @@ def main() -> int:
         name = kernels.base_name(key)
         if name == "topk_sum":
             return lambda: torch.topk(inp["p"], inp["k"], dim=1).values.sum(1)
+        if name == "d4c_band_sort":
+            return lambda: torch.cumsum(torch.sort(inp["p"], dim=1).values,
+                                        dim=1)
         if name == "d4c_group_delay" and inp["stage"] == d4c_mod.LOVE:
             # LoveTrain's band sums as the twin takes them: one cumsum
             return lambda: torch.cumsum(inp["p"], dim=1)
@@ -2923,12 +3197,108 @@ def main() -> int:
                 f"equal: {pad}; vs the card twin: ends equal {card[0]}, "
                 f"best_ll rel {card[1]:.2e}")
 
+    PARITY_BASES = tuple(kernels.base_name(k) for k in PARITY_ANALYSIS
+                         + ("codec_encode[f64]",))
+
+    def check_parity(base, inp, out_k, out_p):
+        """The parity analysis' float64 kernels against their twins on
+        the card (sums in other orders, so within a few float64
+        roundings of the scale they round at); K31 bit for bit against its
+        twin on the CPU (the same values sorted, the same sequential
+        sum)."""
+        if base == "d4c_band_sort":
+            num_c, den_c = d4c_mod.band_sort_sums_plain(**on_cpu(inp))
+            same = bit_same(out_k[0], num_c) and bit_same(out_k[1], den_c)
+            return (same, max_err(zip(out_k, (num_c, den_c))),
+                    f"bit-equal to the plain version on the CPU "
+                    f"(sort + sequential sum): {same}")
+        if base == "frame_window":
+            pairs = [((k - p).abs(), p) for k, p in zip(out_k, out_p)
+                     if p is not None]
+            worst = max(row_rel(e, p) for e, p in pairs)
+            return (worst <= 1e-12, max(float(e.max()) for e, _ in pairs),
+                    f"float64: per row |err| <= 1e-12 row max |plain|: "
+                    f"worst row {worst:.2e}")
+        if base == "spectral_smooth":
+            k, p = out_k[0], out_p[0]
+            worst = row_rel((k - p).abs(), p)
+            return (worst <= 1e-12, float((k - p).abs().max()),
+                    f"float64 parity order: worst row |err| / row max "
+                    f"{worst:.2e} <= 1e-12")
+        if base == "fix_f0":
+            err = (out_k[0] - out_p[0]).abs()
+            ok = bool(torch.equal(out_k[0] > 0, out_p[0] > 0)
+                      and (err <= 1e-12 * out_p[0].abs()).all())
+            return (ok, float(err.max()),
+                    "float64: V/UV equal, |err| <= 1e-12 |plain|")
+        if base == "dio_candidates":
+            same = bool(torch.equal(out_k[2], out_p[2])
+                        and torch.equal(out_k[3], out_p[3]))
+            ck, cp = out_k[0], out_p[0]
+            both = (ck > 0) & (cp > 0)
+            rel = float(((ck - cp).abs() / cp)[both].max()) \
+                if bool(both.any()) else 0.0
+            agree = float(((ck > 0) == (cp > 0)).double().mean())
+            return (same and rel <= 1e-12 and agree >= 0.999,
+                    float((ck - cp).abs().max()),
+                    f"float64 at the worst-case cap: positions and n equal: "
+                    f"{same}; candidates rel {rel:.2e} <= 1e-12; zero/"
+                    f"nonzero agreement {agree:.5f} >= 0.999")
+        if base == "codec_encode":
+            worst, err = 0.0, 0.0
+            for k, p, off in zip(out_k, out_p, (12.0, -encode.LN_1E4)):
+                raw = torch.cat([p[..., :1] - off, p[..., 1:]], dim=-1)
+                lim = 1e-12 * (p.abs() + raw.abs().amax(-1, keepdim=True))
+                e = (k - p).abs()
+                worst = max(worst, float((e / lim).max()))
+                err = max(err, float(e.max()))
+            return (worst <= 1.0, err,
+                    f"float64: |err| <= 1e-12 (|plain| + row max before the "
+                    f"c0 offsets): worst err/limit {worst:.3f}")
+        if base == "stonemask_if":
+            k, p = out_k[0], out_p[0]
+            rel = float(((k - p).abs() / p.abs().clamp(min=1e-300)).max())
+            return (rel <= 1e-13 and torch.equal(k == 0, p == 0),
+                    float((k - p).abs().max()),
+                    f"float64 at stride 1: rel {rel:.2e} <= 1e-13 (bit-"
+                    f"equal {bit_same(k, p)}); {int(inp['gate'].sum())} of "
+                    f"{inp['gate'].numel()} rows gated")
+        if base == "cheaptrick_lifter":
+            k, p = out_k[0], out_p[0]
+            scale = (p.abs().amax(1, keepdim=True)
+                     if inp["stage"] == ct_mod.LOG else p.abs())
+            worst = float(((k - p).abs() / scale.clamp(min=1e-300)).max())
+            return (worst <= 1e-13, float((k - p).abs().max()),
+                    f"float64 stage {inp['stage']}: worst |err| / |plain| "
+                    f"{worst:.2e} <= 1e-13")
+        if base == "d4c_group_delay":
+            if inp["stage"] == d4c_mod.LOVE:
+                (ak, pk, ck), (ap, pp, cp) = out_k, out_p
+                rel = float(((ak - ap).abs() / ap.abs().clamp(
+                    min=1e-300)).max())
+                same = bool(torch.equal(pk, pp) and torch.equal(ck, cp))
+                return (rel <= 1e-13 and same, float((ak - ap).abs().max()),
+                        f"float64 LoveTrain: ap0 rel {rel:.2e} <= 1e-13; "
+                        f"process and cf0 equal: {same} ({int(pk.sum())} "
+                        f"of {pk.numel()} processed)")
+            k, p = out_k[0], out_p[0]
+            return (bit_same(k, p), max_err([(k, p)]),
+                    f"float64 stage {inp['stage']}: bit-equal")
+        (ak, ck), (ap, cp) = out_k, out_p     # d4c_aperiodicity
+        rel = float(((ak - ap).abs() / ap.abs()).max())
+        e_c = float((ck - cp).abs().max())
+        return (rel <= 1e-13 and e_c <= 1e-11, float((ak - ap).abs().max()),
+                f"float64, sorted numerators: ap rel {rel:.2e} <= 1e-13, "
+                f"coarse |err| {e_c:.2e} dB <= 1e-11")
+
     def check_f64(name, inp, out_k, out_p):
         """The float64 instantiations (the exact path) against their
         twins: K9 and K11 bit for bit against the twin on the CPU, K10's
         logs within 4 float64 ulps, the rest within 1e-12 relative."""
         base = kernels.base_name(name)
         eps = torch.finfo(torch.float64).eps
+        if base in PARITY_BASES:
+            return check_parity(base, inp, out_k, out_p)
         if base == "synth_time_base":
             return check_k9(inp, out_k)
         if base == "synth_ola":
@@ -2972,7 +3342,7 @@ def main() -> int:
     def check(name, inp, out_k, out_p):
         """(passed, max abs err against the reference, what was held and
         what was read)."""
-        if name.endswith("[f64]"):
+        if name.endswith("[f64]") or name == "d4c_band_sort":
             return check_f64(name, inp, out_k, out_p)
         if name == "hsmm_loglik":
             # non-finite frames (a NaN in bap, weight 0) are NaN in both
@@ -3146,7 +3516,8 @@ def main() -> int:
         # for comparison, how far the JAX package's f32 sums land from it
         k, p = out_k[0], out_p[0]
         err = (k - p).abs()
-        lim = prims.smooth_spectrum_limit(out=p, **inp)
+        lim = prims.smooth_spectrum_limit(
+            out=p, **{k: v for k, v in inp.items() if k != "parity"})
         ok = bool((err <= lim).all())
         live = p != 0
         text = (f"|err| <= limit per element: worst err/limit "
@@ -3182,7 +3553,9 @@ def main() -> int:
         kernel, the plain version, the bound and the library call."""
         kern, plain = twins[kernels.base_name(name)]
         debug = (dict(crossings=True)
-                 if name in ("dio_candidates", "harvest_candidates") else {})
+                 if kernels.base_name(name) in ("dio_candidates",
+                                                "harvest_candidates")
+                 else {})
         out_k = kern(**inp, **debug)
         out_p = plain(**inp, **debug)
         sync()
@@ -3194,8 +3567,9 @@ def main() -> int:
                            reps=1 if name in heavy else 5)
         lib = library(name, inp)
         lib_ms = cuda_ms(lib, reps=10, warm=2) if lib else None
-        outs = (out_k[:2] if name == "dio_candidates"
-                else out_k[:1] if name == "harvest_candidates" else out_k)
+        base = kernels.base_name(name)
+        outs = (out_k[:2] if base == "dio_candidates"
+                else out_k[:1] if base == "harvest_candidates" else out_k)
         bms, by = bound_of(name, inp, outs)
         shape = "x".join(str(s) for s in out_k[
             1 if kernels.base_name(name) in ("synth_time_base", "hsmm_fb")
@@ -3335,7 +3709,24 @@ def main() -> int:
           # n_ap bands in, the (R, H) aperiodicity out; a gather-lerp and
           # 10 ** (x / 20) (~15 operations) a bin
           + f"; coarse-band bap decode ({R}, {n_ap}) -> ({R}, {H}) "
-          + stage_bound(4 * R * n_ap + 4 * R * H, 15.0 * R * H),
+          + stage_bound(4 * R * n_ap + 4 * R * H, 15.0 * R * H)
+          # gv_refine (ops/gv.py:30-68) at a generated utterance's shape,
+          # T 530, D 50, 3 windows, 10 iterations: means and variances in,
+          # the statics out once (float64); a step's window products (3
+          # taps, 2 operations each) and squared residuals (4) forward,
+          # twice that for the gradient, and the variance term
+          + f"; gv_refine (530, 3, 50) x 10 iterations "
+          + stage_bound(8 * (2 * 530 * 3 * 50 + 530 * 50),
+                        ops64=10 * 530 * 50 * 3 * (3 * (6 + 4) + 8))
+          # the SPTK engine (ops/excitation.py, excite + mglsa_synthesis)
+          # for the same utterance at 48 kHz (shift 240, fft 2048): mgc
+          # in, the excitation and the waveform once; a frame's freqt
+          # product (50 x 1025 multiply-adds), two real FFTs at 2.5 n log2
+          # n, the exp (~20 a bin) and the complex product (6 a bin)
+          + f"; SPTK engine (530, 50) -> {530 * 240} samples "
+          + stage_bound(4 * (530 * 50 + 2 * 530 * 240),
+                        530 * (2.0 * 50 * 1025 + 2 * 2.5 * 2048 * 11
+                               + 26.0 * 1025)),
           flush=True)
 
     # ---- 4. the card against the CPU (plain) path, small input ----
@@ -4274,6 +4665,32 @@ def main() -> int:
     del rec_st, params_s
     print(f"phase 15: {time.perf_counter() - t15:.1f} s", flush=True)
 
+    # ---- 16. the parity analysis lane: DIO, StoneMask's bucket path,
+    # CheapTrick and D4C in float64 on the reference's noise streams ----
+    t16 = time.perf_counter()
+    counts_pa16, rec_pa16, (_, _, sp16, ap16) = parity_analysis_lane(
+        counted, profiled)
+    for name, inp in rec_pa16:
+        replay("parity_analysis", name, inp)
+    del rec_pa16
+    # K6 in float64 at the headline shape: the lane's spectra through the
+    # analysis command's encode (mgc 50, bap 25)
+    _, counts_pe16, rec_pe16 = counted(
+        "parity_analysis_encode",
+        lambda: encode.encode_spectra(sp16, ap16, FS, N, 50, 25),
+        record=True)
+    for name, inp in rec_pe16:
+        replay("parity_analysis_encode", name, inp)
+    del rec_pe16, sp16, ap16
+    torch.cuda.empty_cache()
+    parity_analysis_card_vs_cpu()
+    counts_pac, rec_pac = parity_analysis_cli(counted)
+    for name, inp in rec_pac:
+        if name == "codec_encode[f64]":
+            replay("parity_analysis_cli", name, inp)
+    del rec_pac
+    print(f"phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
+
     print(smi)
     src = "hts_train_world_tpu_torch/csrc/"
     by_path = {"copy_synth": counts_cs, "feature_lane": counts_fl,
@@ -4288,7 +4705,9 @@ def main() -> int:
                "pipeline_compose": counts_pc, "pipeline_halgn": counts_ph,
                "dnn_trajectory": counts_dt, **counts_dnn,
                "parity_lane": counts_pl, "parity_cli": counts_pc,
-               "streaming": counts_st}
+               "streaming": counts_st, "parity_analysis": counts_pa16,
+               "parity_analysis_encode": counts_pe16,
+               "parity_analysis_cli": counts_pac}
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": src + kernels.KERNELS[kernels.base_name(name)][0],

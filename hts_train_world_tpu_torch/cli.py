@@ -6,17 +6,20 @@ scaling quirks of the compressed (lf0/mgc/bap) files; the encode is
 `features.encode.encode_features`, the decode `decode_features`
 (`features/decode.py`, re-exported here).
 
-`synth` runs the parity path by default, as the JAX CLI does under x64:
-the float32 files read into float64, decoded by K12 in float64 and
-synthesised by `vocoder.synthesize(parity=True)` (the exact path on the
-reference's noise stream); `--f32` picks the fast path.  `analysis` has
-the fast path only: without `--f32` it raises (parity analysis is
-ROADMAP Queue A 5's analysis half).  `--harvest` picks Harvest for F0
-(the JAX CLI's extension), and `--device` (default `cuda`) picks the
-device; a missing card is an error.
+Both commands run the parity path by default, as the JAX CLI does under
+x64.  `analysis` reads the wav into float64, analyses it with
+`vocoder.analyze(parity=True)` (float64 on the reference's noise
+streams) and, with mgcdim > 0, encodes it by K6 in float64; `synth`
+reads the float32 files into float64, decodes them by K12 in float64 and
+synthesises by `vocoder.synthesize(parity=True)` (the exact path on the
+reference's noise stream).  Both write float32 files, as the reference
+binaries do.  `--f32` picks the fast path.  `--harvest` picks Harvest
+for F0 (the JAX CLI's extension), with `--f32` only: Harvest in float64
+is ROADMAP.md's Harvest-f64 item and raises.  `--device` (default
+`cuda`) picks the device; a missing card is an error.
 
 Run: python -m hts_train_world_tpu_torch.cli analysis in.wav out.lf0 \\
-         out.mgc out.bap [fp fftlen mgcdim bapdim] [--harvest] --f32 \\
+         out.mgc out.bap [fp fftlen mgcdim bapdim] [--f32 [--harvest]] \\
          [--device cpu]
      python -m hts_train_world_tpu_torch.cli synth in.lf0 in.mgc in.bap \\
          out.wav fp fftlen fs [mgcdim bapdim] [--f32] [--device cpu]
@@ -36,7 +39,7 @@ from hts_train_world_tpu_torch.io import rawio, wavio
 __all__ = ["decode_features", "analysis_main", "synth_main", "main"]
 
 
-def analysis_main(argv, device="cuda"):
+def analysis_main(argv, device="cuda", parity=True):
     algorithm = "dio"
     if "--harvest" in argv:        # extension: Harvest F0 (harvest.cpp)
         argv = [a for a in argv if a != "--harvest"]
@@ -47,7 +50,7 @@ def analysis_main(argv, device="cuda"):
     mgc_dim = int(argv[6]) if len(argv) > 6 else 0
     bap_dim = int(argv[7]) if len(argv) > 7 else 24
     x, fs = wavio.wavread(wav)
-    a = vocoder.analyze(x, fs, fp, parity=False, fft_size=fftlen,
+    a = vocoder.analyze(x, fs, fp, parity=parity, fft_size=fftlen,
                         algorithm=algorithm, device=device)
     if mgc_dim:
         outs = encode_features(a.f0, a.spectrogram, a.aperiodicity, fs,
@@ -101,9 +104,7 @@ def main(argv=None):
     argv = [a for a in argv if a != "--f32"]
     cmd = argv[0]
     if cmd == "analysis":
-        if parity:
-            raise NotImplementedError(vocoder._PARITY)
-        analysis_main(argv[1:], device)
+        analysis_main(argv[1:], device, parity)
     elif cmd == "synth":
         synth_main(argv[1:], device, parity)
     else:

@@ -15,6 +15,7 @@ K_FLOOR_F0 = 71.0
 K_CEIL_F0 = 800.0
 K_DEFAULT_F0 = 500.0
 K_LOG2 = 0.69314718055994529
+K_EPS = 2.220446049250313e-16
 K_MAXIMUM_VALUE = 100000.0
 K_FLOOR_F0_STONEMASK = 40.0
 K_FREQUENCY_INTERVAL = 3000.0

@@ -19,14 +19,38 @@
 //
 // Bound: bytes.  Each mode reads one (R, N/2+1) array and writes one;
 // mode 1 adds a sin, a cos and ~10 operations a bin.
+//
+// A template on the scalar type.  float64 is the parity analysis
+// (cheaptrick.py:161-191, the JAX package's f64 frame): there mode 0 is
+// the parity log, which adds AddInfinitesimalNoise's |randn| * eps, read
+// from the reseeded stream at each row's offset, and floors at the
+// absolute tiny (the fast path's peak-relative floor is for float32's
+// cancellation); modes 1 and 2 take pi and 2 pi in double.  The caller
+// asks for the parity log by name and the wrapper gives it float64 rows,
+// the fast log float32 rows: each instantiation carries one of the two.
 #include "common.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr float PI_F32 = 3.1415927f;          // float32(pi)
-constexpr float TWO_PI_F32 = 6.2831855f;      // float32(2 pi)
 constexpr unsigned NEG_INF = 0xff800000u;
+constexpr double K_EPS = 2.220446049250313e-16;
+
+// pi and 2 pi in each type (float: the float32 roundings)
+template <typename T> struct Pi;
+template <> struct Pi<float> {
+  static constexpr float one = 3.1415927f, two = 6.2831855f;
+};
+template <> struct Pi<double> {
+  static constexpr double one = 3.141592653589793, two = 6.283185307179586;
+};
+
+__device__ __forceinline__ float sin_t(float a) { return sinf(a); }
+__device__ __forceinline__ double sin_t(double a) { return sin(a); }
+__device__ __forceinline__ float cos_t(float a) { return cosf(a); }
+__device__ __forceinline__ double cos_t(double a) { return cos(a); }
+__device__ __forceinline__ float exp_t(float a) { return expf(a); }
+__device__ __forceinline__ double exp_t(double a) { return exp(a); }
 
 __global__ void __launch_bounds__(THREADS)
 log_floor_kernel(const float* __restrict__ ps, int H, float tiny,
@@ -53,49 +77,90 @@ log_floor_kernel(const float* __restrict__ ps, int H, float tiny,
     o[j] = logf(fmaxf(row[j], fl));
 }
 
+// the parity log: log(max(ps + |noise| * eps, tiny)), one thread a bin
 __global__ void __launch_bounds__(THREADS)
-lifter_kernel(const float* __restrict__ c, const float* __restrict__ cf0,
-              long long n, int H, float fsf, float nf, float c0, float c1,
-              float* __restrict__ out) {
+log_noise_kernel(const double* __restrict__ ps, long long n, int H,
+                 double tiny, const double* __restrict__ noise,
+                 const long long* __restrict__ noff,
+                 double* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= n) return;
+  double v = ps[i];
+  if (noise) v = v + fabs(noise[noff[i / H] + i % H]) * K_EPS;
+  out[i] = log(fmax(v, tiny));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+lifter_kernel(const T* __restrict__ c, const T* __restrict__ cf0,
+              long long n, int H, T fsf, T nf, T c0, T c1,
+              T* __restrict__ out) {
   const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (i >= n) return;
   const int k = (int)(i % H);
-  const float f0 = cf0[i / H];
-  const float q = (float)k / fsf;
-  const float qf = (PI_F32 * f0) * q;
-  const float sl = k == 0 ? 1.f : sinf(qf) / qf;
-  const float cl = c0 + c1 * cosf((TWO_PI_F32 * q) * f0);
+  const T f0 = cf0[i / H];
+  const T q = (T)k / fsf;
+  const T qf = (Pi<T>::one * f0) * q;
+  const T sl = k == 0 ? T(1) : sin_t(qf) / qf;
+  const T cl = c0 + c1 * cos_t((Pi<T>::two * q) * f0);
   out[i] = ((c[i] * sl) * cl) / nf;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-exp_kernel(const float* __restrict__ x, long long n, float* __restrict__ out) {
+exp_kernel(const T* __restrict__ x, long long n, T* __restrict__ out) {
   const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (i < n) out[i] = expf(x[i]);
+  if (i < n) out[i] = exp_t(x[i]);
+}
+
+template <typename T>
+int launch(int mode, const void* x, const void* cf0, int R, int H,
+           double fs, int fft_size, double c0, double c1, double tiny,
+           const void* noise, const long long* noff, void* out,
+           cudaStream_t s) {
+  const long long n = (long long)R * H;
+  if (n <= 0) return (int)cudaGetLastError();
+  const int blocks = (int)((n + THREADS - 1) / THREADS);
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  if (mode == 0) {
+    if (sizeof(T) == 8)
+      log_noise_kernel<<<blocks, THREADS, 0, s>>>(
+          static_cast<const double*>(x), n, H, tiny,
+          static_cast<const double*>(noise), noff,
+          static_cast<double*>(out));
+    else
+      log_floor_kernel<<<R, THREADS, 0, s>>>(
+          static_cast<const float*>(x), H, (float)tiny,
+          static_cast<float*>(out));
+  } else if (mode == 1) {
+    lifter_kernel<T><<<blocks, THREADS, 0, s>>>(
+        xt, static_cast<const T*>(cf0), n, H, (T)fs, (T)fft_size, (T)c0,
+        (T)c1, ot);
+  } else if (mode == 2) {
+    exp_kernel<T><<<blocks, THREADS, 0, s>>>(xt, n, ot);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// mode 0: x = power rows -> log of the floored rows; mode 1: x = real
+// mode 0: x = power rows -> log of the floored rows (float32: the floor
+// relative to the row's peak; float64: + |noise[noff[r] + k]| * eps where
+// noise is given, then the absolute floor `tiny`); mode 1: x = real
 // cepstrum -> liftered cepstrum (cf0, fs, N, c0 = 1 - 2 q1, c1 = 2 q1);
-// mode 2: x -> exp(x).
-extern "C" int cheaptrick_lifter_launch(int mode, const float* x,
-                                        const float* cf0, int R, int H,
-                                        float fs, int fft_size, float c0,
-                                        float c1, float tiny, float* out,
-                                        cudaStream_t s) {
-  const long long n = (long long)R * H;
-  if (n > 0) {
-    const int blocks = (int)((n + THREADS - 1) / THREADS);
-    if (mode == 0)
-      log_floor_kernel<<<R, THREADS, 0, s>>>(x, H, tiny, out);
-    else if (mode == 1)
-      lifter_kernel<<<blocks, THREADS, 0, s>>>(x, cf0, n, H, fs,
-                                               (float)fft_size, c0, c1, out);
-    else if (mode == 2)
-      exp_kernel<<<blocks, THREADS, 0, s>>>(x, n, out);
-    else
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+// mode 2: x -> exp(x).  f64: 0 for float tensors, 1 for double.
+extern "C" int cheaptrick_lifter_launch(int mode, const void* x,
+                                        const void* cf0, int R, int H,
+                                        double fs, int fft_size, double c0,
+                                        double c1, double tiny,
+                                        const void* noise,
+                                        const long long* noff, int f64,
+                                        void* out, cudaStream_t s) {
+  return f64 ? launch<double>(mode, x, cf0, R, H, fs, fft_size, c0, c1, tiny,
+                              noise, noff, out, s)
+             : launch<float>(mode, x, cf0, R, H, fs, fft_size, c0, c1, tiny,
+                             noise, noff, out, s);
 }

@@ -22,6 +22,14 @@
 // Bound: bytes (the band rows are read once; candidates and scores written
 // once); the per-tile block scans add a few barriers per 1024 samples.
 // Built with --fmad=false so the crossing positions round like the twin's.
+//
+// The kernel is a template on the scalar type.  float64 is the parity
+// analysis (the JAX package's f64 branch, dio.py:298-318): every band
+// keeps the worst-case cap y_length/2 + 2 (the reference counts every
+// crossing), so the crossings go to the device-memory scratch, and the
+// frame grid is interpolated as interp1 at arange(T) * fp in float64 (the
+// same binary search per frame); the 4-stream mean and spread add in
+// sequence, as the twin writes them out.
 #include <cfloat>
 
 #include "common.cuh"
@@ -30,64 +38,91 @@ namespace {
 
 constexpr int THREADS = 1024;
 constexpr int WARPS = THREADS / 32;
-constexpr float K_MAXIMUM_VALUE = 100000.0f;
-constexpr float K_GUARD = 1e-12f;
 
+__device__ __forceinline__ float div_rn(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+__device__ __forceinline__ double div_rn(double a, double b) {
+  return __ddiv_rn(a, b);
+}
+__device__ __forceinline__ float sqrt_t(float a) { return sqrtf(a); }
+__device__ __forceinline__ double sqrt_t(double a) { return sqrt(a); }
+__device__ __forceinline__ float min_t(float a, float b) {
+  return fminf(a, b);
+}
+__device__ __forceinline__ double min_t(double a, double b) {
+  return fmin(a, b);
+}
+template <typename T> __device__ __forceinline__ T max_value();
+template <> __device__ __forceinline__ float max_value<float>() {
+  return FLT_MAX;
+}
+template <> __device__ __forceinline__ double max_value<double>() {
+  return DBL_MAX;
+}
+
+template <typename T>
 struct Stream {
-  const float* fine;
+  const T* fine;
   int n;  // intervals kept (the valid prefix of locations / intervals)
 };
 
-__device__ __forceinline__ float location(const float* fine, int k,
-                                          float fs) {
-  return __fdiv_rn(__fdiv_rn(fine[k] + fine[k + 1], 2.0f), fs);
+template <typename T>
+__device__ __forceinline__ T location(const T* fine, int k, T fs) {
+  return div_rn(div_rn(fine[k] + fine[k + 1], T(2)), fs);
 }
 
-__device__ __forceinline__ float interval(const float* fine, int k,
-                                          float fs) {
-  return __fdiv_rn(fs, fine[k + 1] - fine[k]);
+template <typename T>
+__device__ __forceinline__ T interval(const T* fine, int k, T fs) {
+  return div_rn(fs, fine[k + 1] - fine[k]);
 }
 
 // interp1 of the stream's (locations, intervals) at t: segment k =
 // clip(#(location <= t), 1, n-1), y0 + s * (y1 - y0)
-__device__ float interp_stream(const Stream& st, float t, float fs) {
+template <typename T>
+__device__ T interp_stream(const Stream<T>& st, T t, T fs) {
   int lo = 0, hi = st.n;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
     if (location(st.fine, mid, fs) <= t) lo = mid + 1; else hi = mid;
   }
   const int k = min(max(lo, 1), st.n - 1);
-  const float x0 = location(st.fine, k - 1, fs);
-  const float x1 = location(st.fine, k, fs);
-  const float y0 = interval(st.fine, k - 1, fs);
-  const float y1 = interval(st.fine, k, fs);
-  const float s = __fdiv_rn(t - x0, x1 - x0);
+  const T x0 = location(st.fine, k - 1, fs);
+  const T x1 = location(st.fine, k, fs);
+  const T y0 = interval(st.fine, k - 1, fs);
+  const T y1 = interval(st.fine, k, fs);
+  const T s = div_rn(t - x0, x1 - x0);
   return y0 + s * (y1 - y0);
 }
 
-__device__ __forceinline__ float fine_of(int i, float a, float b) {
+template <typename T>
+__device__ __forceinline__ T fine_of(int i, T a, T b) {
   // e - s[e-1] / (s[e] - s[e-1]) with e = i + 1
-  return (float)(i + 1) - __fdiv_rn(a, b - a);
+  return (T)(i + 1) - div_rn(a, b - a);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-dio_candidates_kernel(const float* __restrict__ filt, int bands, int fft_size,
+dio_candidates_kernel(const T* __restrict__ filt, int bands, int fft_size,
                       int L, const int* __restrict__ bint,
-                      const float* __restrict__ bflt, float fs, float f0_floor,
-                      float f0_ceil, int T, float fp, int cap_max,
-                      float* __restrict__ gfine, float* __restrict__ cands,
-                      float* __restrict__ scores, int* __restrict__ n_out,
+                      const T* __restrict__ bflt, T fs, T f0_floor,
+                      T f0_ceil, int nT, T fp, int cap_max,
+                      T* __restrict__ gfine, T* __restrict__ cands,
+                      T* __restrict__ scores, int* __restrict__ n_out,
                       int* __restrict__ pos_out) {
-  extern __shared__ float sfine[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sfine = reinterpret_cast<T*>(smem_raw);
   __shared__ int cnt[4][WARPS];
   __shared__ int excl[4][WARPS];
   __shared__ int total[4];
   __shared__ int base[4];
+  const T K_MAXIMUM_VALUE = T(100000);
+  const T K_GUARD = T(1e-12);
   const int ub = blockIdx.x, bi = ub % bands, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const float* x = filt + (size_t)ub * fft_size + bint[2 * bi];
+  const T* x = filt + (size_t)ub * fft_size + bint[2 * bi];
   const int cap = bint[2 * bi + 1];
-  float* fine = gfine ? gfine + (size_t)ub * 4 * cap_max : sfine;
+  T* fine = gfine ? gfine + (size_t)ub * 4 * cap_max : sfine;
   int* pos = pos_out ? pos_out + (size_t)ub * 4 * cap_max : nullptr;
   if (tid < 4) base[tid] = 0;
   __syncthreads();
@@ -96,15 +131,15 @@ dio_candidates_kernel(const float* __restrict__ filt, int bands, int fft_size,
   for (int t0 = 0; t0 < L - 1; t0 += THREADS) {
     const int i = t0 + tid;
     bool m[4] = {false, false, false, false};
-    float fv[4] = {0.f, 0.f, 0.f, 0.f};
+    T fv[4] = {T(0), T(0), T(0), T(0)};
     if (i < L - 1) {
-      const float a = x[i], b = x[i + 1];
-      const float da = b - a;
-      const float db = i + 1 < L - 1 ? x[i + 2] - b : da;
-      m[0] = a > 0.f && b <= 0.f;
-      m[1] = -a > 0.f && -b <= 0.f;
-      m[2] = da > 0.f && db <= 0.f;
-      m[3] = -da > 0.f && -db <= 0.f;
+      const T a = x[i], b = x[i + 1];
+      const T da = b - a;
+      const T db = i + 1 < L - 1 ? x[i + 2] - b : da;
+      m[0] = a > T(0) && b <= T(0);
+      m[1] = -a > T(0) && -b <= T(0);
+      m[2] = da > T(0) && db <= T(0);
+      m[3] = -da > T(0) && -db <= T(0);
       if (m[0]) fv[0] = fine_of(i, a, b);
       if (m[1]) fv[1] = fine_of(i, -a, -b);
       if (m[2]) fv[2] = fine_of(i, da, db);
@@ -147,9 +182,9 @@ dio_candidates_kernel(const float* __restrict__ filt, int bands, int fft_size,
   __syncthreads();
 
   // ---- per stream: interval count, saturation limit ----
-  Stream st[4];
+  Stream<T> st[4];
   bool enough = true;
-  float t_limit = FLT_MAX;
+  T t_limit = max_value<T>();
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
     const int n_edges = base[s];
@@ -159,7 +194,7 @@ dio_candidates_kernel(const float* __restrict__ filt, int bands, int fft_size,
     st[s].n = n;
     enough = enough && n > 2;
     if (n_edges > cap)  // saturated: frames past the last kept location
-      t_limit = fminf(t_limit, location(st[s].fine, max(n - 1, 0), fs));
+      t_limit = min_t(t_limit, location(st[s].fine, max(n - 1, 0), fs));
     if (n_out && tid == 0) n_out[ub * 4 + s] = n;
     if (pos)
       for (int k = min(n_edges, cap) + tid; k < cap_max; k += THREADS)
@@ -167,19 +202,19 @@ dio_candidates_kernel(const float* __restrict__ filt, int bands, int fft_size,
   }
 
   // ---- candidates on the frame grid ----
-  const float bnd = bflt[2 * bi], bnd_half = bflt[2 * bi + 1];
-  for (int q = tid; q < T; q += THREADS) {
-    float cand = 0.f, score = K_MAXIMUM_VALUE;
+  const T bnd = bflt[2 * bi], bnd_half = bflt[2 * bi + 1];
+  for (int q = tid; q < nT; q += THREADS) {
+    T cand = T(0), score = K_MAXIMUM_VALUE;
     if (enough) {
-      const float t = (float)q * fp;
-      float f[4];
+      const T t = (T)q * fp;
+      T f[4];
 #pragma unroll
       for (int s = 0; s < 4; ++s) f[s] = interp_stream(st[s], t, fs);
-      const float c = (((f[0] + f[1]) + f[2]) + f[3]) / 4.0f;
-      float ss = 0.f;
+      const T c = (((f[0] + f[1]) + f[2]) + f[3]) / T(4);
+      T ss = T(0);
 #pragma unroll
       for (int s = 0; s < 4; ++s) ss = ss + (f[s] - c) * (f[s] - c);
-      const float sc = sqrtf(ss / 3.0f);
+      const T sc = sqrt_t(ss / T(3));
       const bool bad = c > bnd || c < bnd_half || c > f0_ceil ||
                        c < f0_floor || t > t_limit;
       if (!bad) {
@@ -187,29 +222,47 @@ dio_candidates_kernel(const float* __restrict__ filt, int bands, int fft_size,
         score = sc;
       }
     }
-    cands[(size_t)ub * T + q] = cand;
-    scores[(size_t)ub * T + q] = __fdiv_rn(score, cand + K_GUARD);
+    cands[(size_t)ub * nT + q] = cand;
+    scores[(size_t)ub * nT + q] = div_rn(score, cand + K_GUARD);
   }
+}
+
+template <typename T>
+int launch(const void* filt, int blocks, int bands, int fft_size, int L,
+           const int* bint, const void* bflt, double fs, double f0_floor,
+           double f0_ceil, int nT, double fp, int cap_max, void* gfine,
+           void* cands, void* scores, int* n_out, int* pos_out,
+           cudaStream_t s) {
+  const size_t smem = gfine ? 0 : (size_t)4 * cap_max * sizeof(T);
+  if (smem > 200 * 1024) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      dio_candidates_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dio_candidates_kernel<T><<<blocks, THREADS, smem, s>>>(
+      static_cast<const T*>(filt), bands, fft_size, L, bint,
+      static_cast<const T*>(bflt), (T)fs, (T)f0_floor, (T)f0_ceil, nT,
+      (T)fp, cap_max, static_cast<T*>(gfine), static_cast<T*>(cands),
+      static_cast<T*>(scores), n_out, pos_out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int dio_candidates_launch(const float* filt, int blocks, int bands,
+// f64: 0 for float tensors (filt, bflt, gfine, cands, scores), 1 for double.
+extern "C" int dio_candidates_launch(const void* filt, int blocks, int bands,
                                      int fft_size, int L, const int* bint,
-                                     const float* bflt, float fs,
-                                     float f0_floor, float f0_ceil, int T,
-                                     float fp, int cap_max, float* gfine,
-                                     float* cands, float* scores, int* n_out,
-                                     int* pos_out, cudaStream_t s) {
+                                     const void* bflt, double fs,
+                                     double f0_floor, double f0_ceil, int T,
+                                     double fp, int cap_max, int f64,
+                                     void* gfine, void* cands, void* scores,
+                                     int* n_out, int* pos_out,
+                                     cudaStream_t s) {
   if (blocks <= 0) return (int)cudaGetLastError();
-  const size_t smem = gfine ? 0 : (size_t)4 * cap_max * sizeof(float);
-  if (smem > 200 * 1024) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      dio_candidates_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dio_candidates_kernel<<<blocks, THREADS, smem, s>>>(
-      filt, bands, fft_size, L, bint, bflt, fs, f0_floor, f0_ceil, T, fp,
-      cap_max, gfine, cands, scores, n_out, pos_out);
-  return (int)cudaGetLastError();
+  return f64 ? launch<double>(filt, blocks, bands, fft_size, L, bint, bflt,
+                              fs, f0_floor, f0_ceil, T, fp, cap_max, gfine,
+                              cands, scores, n_out, pos_out, s)
+             : launch<float>(filt, blocks, bands, fft_size, L, bint, bflt,
+                             fs, f0_floor, f0_ceil, T, fp, cap_max, gfine,
+                             cands, scores, n_out, pos_out, s);
 }

@@ -13,86 +13,93 @@
 // utterance); bytes and operations are tiny.  Built with --fmad=false:
 // (current*3 - past)/2 must round like the plain twin's separate
 // operations, since one ulp can flip the allowed-range test.
+//
+// A template on the scalar type: float for the fast path, double for the
+// parity analysis (the JAX package's f64 DIO), the same steps in each.
 #include "common.cuh"
 
 namespace {
 
 constexpr int THREADS = 128;
 
-__device__ __forceinline__ float select_best(float current, float past,
-                                             const float* c, int bands,
-                                             int T, float allowed) {
-  const float ref = (current * 3.0f - past) / 2.0f;
+__device__ __forceinline__ float abs_t(float a) { return fabsf(a); }
+__device__ __forceinline__ double abs_t(double a) { return fabs(a); }
+
+template <typename T>
+__device__ __forceinline__ T select_best(T current, T past, const T* c,
+                                         int bands, int nT, T allowed) {
+  const T ref = (current * T(3) - past) / T(2);
   int bi = 0;
-  float be = fabsf(ref - c[0]);
+  T be = abs_t(ref - c[0]);
   for (int b = 1; b < bands; ++b) {
-    const float e = fabsf(ref - c[(size_t)b * T]);
+    const T e = abs_t(ref - c[(size_t)b * nT]);
     if (e < be) {
       be = e;
       bi = b;
     }
   }
-  const float best = c[(size_t)bi * T];
-  const float rel = fabsf(1.0f - best / ref);
-  return (rel <= allowed && ref != 0.0f) ? best : 0.0f;
+  const T best = c[(size_t)bi * nT];
+  const T rel = abs_t(T(1) - best / ref);
+  return (rel <= allowed && ref != T(0)) ? best : T(0);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-fix_f0_kernel(const float* __restrict__ best, const float* __restrict__ cands,
-              int bands, int T, int vrm, float allowed,
-              float* __restrict__ scratch, float* __restrict__ out) {
+fix_f0_kernel(const T* __restrict__ best, const T* __restrict__ cands,
+              int bands, int nT, int vrm, T allowed, T* __restrict__ scratch,
+              T* __restrict__ out) {
   const int u = blockIdx.x, tid = threadIdx.x;
-  const float* bu = best + (size_t)u * T;
-  const float* cu = cands + (size_t)u * bands * T;
-  float* s1 = scratch + (size_t)u * 2 * T;
-  float* s2 = s1 + T;
-  float* o = out + (size_t)u * T;
-  if (T <= vrm) {
-    for (int i = tid; i < T; i += THREADS) o[i] = 0.f;
+  const T* bu = best + (size_t)u * nT;
+  const T* cu = cands + (size_t)u * bands * nT;
+  T* s1 = scratch + (size_t)u * 2 * nT;
+  T* s2 = s1 + nT;
+  T* o = out + (size_t)u * nT;
+  if (nT <= vrm) {
+    for (int i = tid; i < nT; i += THREADS) o[i] = T(0);
     return;
   }
   // Step 1 (dio.cpp:132-150): zero the edges, kill jumps
-  for (int i = tid; i < T; i += THREADS) {
-    const float base = (i < vrm || i >= T - vrm) ? 0.f : bu[i];
+  for (int i = tid; i < nT; i += THREADS) {
+    const T base = (i < vrm || i >= nT - vrm) ? T(0) : bu[i];
     const int k = i - 1;
-    const float prev = (k < vrm || k >= T - vrm) ? 0.f : bu[k];
-    const float jump = fabsf((base - prev) / (1e-12f + base));
-    s1[i] = (i >= vrm && jump < allowed) ? base : 0.f;
+    const T prev = (k < vrm || k >= nT - vrm) ? T(0) : bu[k];
+    const T jump = abs_t((base - prev) / (T(1e-12) + base));
+    s1[i] = (i >= vrm && jump < allowed) ? base : T(0);
   }
   __syncthreads();
   // Step 2 (dio.cpp:156-169): zero any frame with a zero within +-center
   const int center = (vrm - 1) / 2;
-  for (int i = tid; i < T; i += THREADS) {
+  for (int i = tid; i < nT; i += THREADS) {
     bool kill = false;
-    if (i >= center && i < T - center)
-      for (int k = -center; k <= center; ++k) kill |= s1[i + k] == 0.f;
-    s2[i] = kill ? 0.f : s1[i];
+    if (i >= center && i < nT - center)
+      for (int k = -center; k <= center; ++k) kill |= s1[i + k] == T(0);
+    s2[i] = kill ? T(0) : s1[i];
   }
   __syncthreads();
   if (tid != 0) return;
   // Step 3 (dio.cpp:215-231): forward extension from negative boundaries
   bool active = false;
-  float p1 = s2[0], p2 = 0.f;
+  T p1 = s2[0], p2 = T(0);
   o[0] = s2[0];
-  for (int j = 0; j + 1 < T; ++j) {
-    active = active || (s2[j] != 0.f && s2[j + 1] == 0.f);
-    const float v = active ? select_best(p1, p2, cu + j + 1, bands, T, allowed)
-                           : s2[j + 1];
+  for (int j = 0; j + 1 < nT; ++j) {
+    active = active || (s2[j] != T(0) && s2[j + 1] == T(0));
+    const T v = active ? select_best(p1, p2, cu + j + 1, bands, nT, allowed)
+                       : s2[j + 1];
     o[j + 1] = v;
-    active = active && v != 0.f;
+    active = active && v != T(0);
     p2 = p1;
     p1 = v;
   }
   // Step 4 (dio.cpp:237-253): backward extension from positive boundaries
   active = false;
-  p1 = o[T - 1];
-  p2 = 0.f;
-  for (int j = T - 2; j >= 0; --j) {
-    active = active || (s2[j + 1] != 0.f && s2[j] == 0.f);
-    const float v = active ? select_best(p1, p2, cu + j, bands, T, allowed)
-                           : o[j];
+  p1 = o[nT - 1];
+  p2 = T(0);
+  for (int j = nT - 2; j >= 0; --j) {
+    active = active || (s2[j + 1] != T(0) && s2[j] == T(0));
+    const T v = active ? select_best(p1, p2, cu + j, bands, nT, allowed)
+                       : o[j];
     o[j] = v;
-    active = active && v != 0.f;
+    active = active && v != T(0);
     p2 = p1;
     p1 = v;
   }
@@ -100,11 +107,22 @@ fix_f0_kernel(const float* __restrict__ best, const float* __restrict__ cands,
 
 }  // namespace
 
-extern "C" int fix_f0_launch(const float* best, const float* cands, int B,
-                             int bands, int T, int vrm, float allowed,
-                             float* scratch, float* out, cudaStream_t s) {
-  if (B > 0)
-    fix_f0_kernel<<<B, THREADS, 0, s>>>(best, cands, bands, T, vrm, allowed,
-                                        scratch, out);
+// f64: 0 for float tensors (best, cands, scratch, out), 1 for double.
+extern "C" int fix_f0_launch(const void* best, const void* cands, int B,
+                             int bands, int T, int vrm, double allowed,
+                             int f64, void* scratch, void* out,
+                             cudaStream_t s) {
+  if (B > 0) {
+    if (f64)
+      fix_f0_kernel<double><<<B, THREADS, 0, s>>>(
+          static_cast<const double*>(best), static_cast<const double*>(cands),
+          bands, T, vrm, allowed, static_cast<double*>(scratch),
+          static_cast<double*>(out));
+    else
+      fix_f0_kernel<float><<<B, THREADS, 0, s>>>(
+          static_cast<const float*>(best), static_cast<const float*>(cands),
+          bands, T, vrm, (float)allowed, static_cast<float*>(scratch),
+          static_cast<float*>(out));
+  }
   return (int)cudaGetLastError();
 }

@@ -106,9 +106,9 @@ def _kernel_tables(fs: int, fft_size: int, mgc_dim: int, bap_dim: int,
     (mgc_dim, M) and W (m + 1, apl), all in `dtype` but k."""
     k, s, dinv = codec._decoding_tables(fs, fft_size, mgc_dim)
     fl = dict(dtype=dtype, device=device)
-    return (torch.as_tensor(k, dtype=torch.int32, device=device),
-            torch.as_tensor(s, **fl), torch.as_tensor(dinv, **fl),
-            torch.as_tensor(_ap_matrix_np(bap_dim, fft_size), **fl))
+    return (torch.tensor(k, dtype=torch.int32, device=device),
+            torch.tensor(s, **fl), torch.tensor(dinv, **fl),
+            torch.tensor(_ap_matrix_np(bap_dim, fft_size), **fl))
 
 
 def decode_features(lf0, mgc, bap, fs: int, fft_size: int):

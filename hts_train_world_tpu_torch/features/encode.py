@@ -13,8 +13,9 @@ over leading axes:
 The two spectral encodes run as kernel K6 (csrc/codec_encode.cu): one
 launch reads sp and ap once, floors and scales them, takes the log, lerps
 onto the mel axis and applies the DCT, writing mgc and bap with their c0
-fixes.  `encode_spectra_plain` is its plain twin (`ops/codec.py`), which
-runs for CPU tensors.  The CLI mains are not ported yet.
+fixes, in float32 (the feature lane) or float64 (the `analysis` command's
+parity output, as the JAX CLI encodes under x64).  `encode_spectra_plain`
+is its plain twin (`ops/codec.py`), which runs for CPU tensors.
 """
 from __future__ import annotations
 
@@ -55,43 +56,47 @@ def encode_spectra_limit(mgc, bap):
 
 @functools.lru_cache(maxsize=None)
 def _kernel_tables(fs: int, fft_size: int, mgc_dim: int, bap_dim: int,
-                   device):
-    """K6's tables on the card: k (int32), s (f32) and the DCT matrices
-    transposed to (n_dims, M), rows contiguous along the mel axis."""
+                   dtype, device):
+    """K6's tables on the card: k (int32), s and the DCT matrices
+    transposed to (n_dims, M), rows contiguous along the mel axis, in
+    `dtype` (copies: nothing here shares the cached numpy tables)."""
     k, s, dm = codec._coding_tables(fs, fft_size, mgc_dim)
     kb, sb, db = codec._coding_tables(fs, fft_size, bap_dim)
     assert np.array_equal(k, kb) and np.array_equal(s, sb)
-    f32 = dict(dtype=torch.float32, device=device)
-    return (torch.as_tensor(k, dtype=torch.int32, device=device),
-            torch.as_tensor(s, **f32),
-            torch.as_tensor(np.ascontiguousarray(dm.T), **f32),
-            torch.as_tensor(np.ascontiguousarray(db.T), **f32))
+    fl = dict(dtype=dtype, device=device)
+    return (torch.tensor(k, dtype=torch.int32, device=device),
+            torch.tensor(s, **fl),
+            torch.tensor(np.ascontiguousarray(dm.T), **fl),
+            torch.tensor(np.ascontiguousarray(db.T), **fl))
 
 
 def encode_spectra(sp, ap, fs: int, fft_size: int, mgc_dim: int = 50,
                    bap_dim: int = 25):
-    """K6: the fused mgc/bap encode of f32 spectra (..., N/2+1)."""
+    """K6: the fused mgc/bap encode of f32 or f64 spectra (..., N/2+1)."""
     if not sp.is_cuda:
         return encode_spectra_plain(sp, ap, fs, fft_size, mgc_dim, bap_dim)
     n = fft_size // 2 + 1
-    if (sp.dtype != torch.float32 or ap.dtype != torch.float32
+    dt = sp.dtype
+    if (dt not in (torch.float32, torch.float64) or ap.dtype != dt
             or sp.shape != ap.shape or sp.shape[-1] != n):
-        raise ValueError("encode_spectra: f32 sp and ap of one shape "
-                         "(..., N/2+1)")
+        raise ValueError("encode_spectra: f32 or f64 sp and ap of one shape "
+                         "and dtype (..., N/2+1)")
+    f64 = dt == torch.float64
     lead = sp.shape[:-1]
     sp2 = sp.reshape(-1, n).contiguous()
     ap2 = ap.reshape(-1, n).contiguous()
-    k, s, dm, db = _kernel_tables(fs, fft_size, mgc_dim, bap_dim, sp.device)
+    k, s, dm, db = _kernel_tables(fs, fft_size, mgc_dim, bap_dim, dt,
+                                  sp.device)
     kernels.check_cuda("encode_spectra", sp2, ap2, k, s, dm, db)
     R = sp2.shape[0]
-    mgc = torch.empty((R, mgc_dim), dtype=torch.float32, device=sp.device)
-    bap = torch.empty((R, bap_dim), dtype=torch.float32, device=sp.device)
+    mgc = torch.empty((R, mgc_dim), dtype=dt, device=sp.device)
+    bap = torch.empty((R, bap_dim), dtype=dt, device=sp.device)
     kernels.launch("codec_encode", [
         sp2.data_ptr(), ap2.data_ptr(), R, n, k.data_ptr(), s.data_ptr(),
         fft_size // 2, dm.data_ptr(), mgc_dim, db.data_ptr(), bap_dim,
-        mgc.data_ptr(), bap.data_ptr()],
+        int(f64), mgc.data_ptr(), bap.data_ptr()],
         dict(sp=sp, ap=ap, fs=fs, fft_size=fft_size, mgc_dim=mgc_dim,
-             bap_dim=bap_dim))
+             bap_dim=bap_dim), variant="f64" if f64 else None)
     return mgc.reshape(*lead, mgc_dim), bap.reshape(*lead, bap_dim)
 
 

@@ -1,6 +1,6 @@
 """Build, load and launch the hand-written CUDA kernels.
 
-Thirty kernels, K1-K30 (`KERNELS`).  Each source under `csrc/` is
+Thirty-one kernels, K1-K31 (`KERNELS`).  Each source under `csrc/` is
 compiled by `nvcc` for `sm_90a` into its own shared library with a plain
 C interface, loaded with `ctypes`.  Nothing
 happens at import time: the first launch builds every kernel (one `nvcc`
@@ -43,19 +43,20 @@ _L = ctypes.c_longlong
 # {C launcher: argtypes}) for a kernel with a launcher for each stage
 KERNELS = {
     "frame_window": ("frame_window.cu", "frame_window_launch",
-                     [_P, _I, _I, _P, _P, _P, _P, _F, _F, _I, _I, _I, _P,
-                      _P]),
+                     [_P, _I, _I, _P, _P, _P, _P, _P, _D, _D, _I, _I, _I,
+                      _P, _P, _I, _P, _P]),
     "spectral_smooth": ("spectral_smooth.cu", "spectral_smooth_launch",
-                        [_P, _I, _I, _P, _P, _F, _F, _I, _I, _P]),
+                        [_P, _I, _I, _P, _P, _D, _D, _I, _I, _I, _P]),
     "topk_sum": ("topk_sum.cu", "topk_sum_launch",
                  [_P, _I, _I, _I, _P, _P]),
     "fix_f0": ("fix_f0.cu", "fix_f0_launch",
-               [_P, _P, _I, _I, _I, _I, _F, _P, _P]),
+               [_P, _P, _I, _I, _I, _I, _D, _I, _P, _P]),
     "dio_candidates": ("dio_candidates.cu", "dio_candidates_launch",
-                       [_P, _I, _I, _I, _I, _P, _P, _F, _F, _F, _I, _F, _I,
-                        _P, _P, _P, _P, _P]),
+                       [_P, _I, _I, _I, _I, _P, _P, _D, _D, _D, _I, _D, _I,
+                        _I, _P, _P, _P, _P, _P]),
     "codec_encode": ("codec_encode.cu", "codec_encode_launch",
-                     [_P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P, _P]),
+                     [_P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _I, _P,
+                      _P]),
     "delta_window": ("delta_window.cu", "delta_window_launch",
                      [_P, _I, _I, _I, _P, _P, _I, _I, _I, _P]),
     "mlpg_solve": ("mlpg_solve.cu", "mlpg_solve_launch",
@@ -104,17 +105,19 @@ KERNELS = {
     "gv_scale": ("gv_scale.cu", "gv_scale_launch",
                  [_P, _I, _I, _P, _D, _P, _P]),
     "stonemask_if": ("stonemask_if.cu", "stonemask_if_launch",
-                     [_P, _P, _P, _P, _I, _I, _P, _P, _P, _F, _I, _P]),
+                     [_P, _P, _P, _P, _I, _I, _P, _P, _P, _D, _I, _I, _P]),
     "cheaptrick_lifter": ("cheaptrick_lifter.cu", "cheaptrick_lifter_launch",
-                          [_I, _P, _P, _I, _I, _F, _I, _F, _F, _F, _P]),
+                          [_I, _P, _P, _I, _I, _D, _I, _D, _D, _D, _P, _P,
+                           _I, _P]),
     "d4c_group_delay": ("d4c_group_delay.cu", {
-        "d4c_love_train_launch": [_P, _I, _I, _I, _I, _I, _P, _F, _F, _P, _P,
-                                  _P],
-        "d4c_centroid_launch": [_P] * 8 + [_I, _I, _P],
-        "d4c_ratio_launch": [_P, _P, _I, _I, _P],
-        "d4c_segments_launch": [_P, _P, _I, _I, _P, _I, _P, _I, _P]}),
+        "d4c_love_train_launch": [_P, _I, _I, _I, _I, _I, _P, _D, _D, _I, _P,
+                                  _P, _P],
+        "d4c_centroid_launch": [_P] * 8 + [_I, _I, _I, _P],
+        "d4c_ratio_launch": [_P, _P, _I, _I, _I, _P],
+        "d4c_segments_launch": [_P, _P, _I, _I, _P, _I, _P, _I, _I, _P]}),
     "d4c_aperiodicity": ("d4c_aperiodicity.cu", "d4c_aperiodicity_launch",
-                         [_P, _P, _P, _P, _I, _I, _I, _F, _I, _F, _P, _P]),
+                         [_P, _P, _I, _P, _P, _I, _I, _I, _D, _I, _D, _I, _P,
+                          _P]),
     "trajectory_nll": ("trajectory_nll.cu", "trajectory_nll_launch",
                        [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P]),
     "trajectory_adjoint": ("trajectory_adjoint.cu",
@@ -122,6 +125,8 @@ KERNELS = {
                            [_P] * 8 + [_I, _I, _I, _I, _P, _I, _P, _P, _P]),
     "synth_midpass": ("synth_midpass.cu", "synth_midpass_launch",
                       [_P] * 7 + [_L, _I, _I, _P, _P, _P, _P]),
+    "d4c_band_sort": ("d4c_band_sort.cu", "d4c_band_sort_launch",
+                      [_P, _I, _I, _I, _P, _P]),
 }
 
 launches: collections.Counter = collections.Counter()

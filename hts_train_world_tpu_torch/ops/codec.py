@@ -34,6 +34,14 @@ def _mel_to_freq(m):
     return cfg.K_F0 * (np.exp(m / cfg.K_M0) - 1.0)
 
 
+def _frozen(*arrays):
+    """Cached tables are shared by every caller: read-only, so no write
+    anywhere can reach the cache (the tensor caches below hold copies)."""
+    for a in arrays:
+        a.setflags(write=False)
+    return arrays
+
+
 def _interp_table(x, xi):
     """interp1 gather/weight tables on static axes (histc semantics:
     k = #(x <= xi) clipped to [1, len(x)-1]; linear with extrapolation)."""
@@ -68,7 +76,7 @@ def _coding_tables(fs: int, fft_size: int, n_dims: int):
     ang = kk * np.pi / fft_size - 2.0 * np.pi * kk * sigma[None, :] / M
     D = 2.0 * np.cos(ang) / math.sqrt(fft_size * M)
     D[0] /= math.sqrt(2.0)
-    return k, s, np.ascontiguousarray(D.T)  # (M, n_dims)
+    return _frozen(k, s, np.ascontiguousarray(D.T))  # (M, n_dims)
 
 
 @functools.lru_cache(maxsize=None)
@@ -76,9 +84,9 @@ def coding_tensors(fs: int, fft_size: int, n_dims: int, dtype, device):
     """The coding tables as tensors: k (int64), s (dtype), D (M, n_dims)
     in dtype, on `device`."""
     k, s, D = _coding_tables(fs, fft_size, n_dims)
-    return (torch.as_tensor(k, dtype=torch.long, device=device),
-            torch.as_tensor(s, dtype=dtype, device=device),
-            torch.as_tensor(D, dtype=dtype, device=device))
+    return (torch.tensor(k, dtype=torch.long, device=device),
+            torch.tensor(s, dtype=dtype, device=device),
+            torch.tensor(D, dtype=dtype, device=device))
 
 
 def gather_lerp(vals, k, s):
@@ -142,16 +150,16 @@ def _decoding_tables(fs: int, fft_size: int, n_dims: int):
     ang = 2.0 * np.pi * sigma[:, None] * kk / M + kk * np.pi / fft_size
     Dinv = math.sqrt(fft_size * M) * np.cos(ang)
     Dinv[:, 0] /= math.sqrt(2.0)
-    return k, s, np.ascontiguousarray(Dinv.T)  # (n_dims, M)
+    return _frozen(k, s, np.ascontiguousarray(Dinv.T))  # (n_dims, M)
 
 
 @functools.lru_cache(maxsize=None)
 def decoding_tensors(fs: int, fft_size: int, n_dims: int, dtype, device):
     """The decoding tables as tensors: k (int64), s and Dinv in dtype."""
     k, s, Dinv = _decoding_tables(fs, fft_size, n_dims)
-    return (torch.as_tensor(k, dtype=torch.long, device=device),
-            torch.as_tensor(s, dtype=dtype, device=device),
-            torch.as_tensor(Dinv, dtype=dtype, device=device))
+    return (torch.tensor(k, dtype=torch.long, device=device),
+            torch.tensor(s, dtype=dtype, device=device),
+            torch.tensor(Dinv, dtype=dtype, device=device))
 
 
 def decode_spectral_envelope(coded, fs: int, fft_size: int, n_dims: int):

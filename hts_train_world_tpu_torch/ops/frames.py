@@ -23,6 +23,16 @@ Modes (csrc/frame_window.cu); each fixes its window:
 - STONEMASK:  Blackman of absolute time t_j - pos over 2h+1 samples
               centred one sample early (stonemask.cpp's 1-based index);
               outputs x*w and x*dw with dw the centred difference of w.
+
+float32 is the fast path.  float64 is the parity analysis (the JAX
+package's generic windows, cheaptrick.py:127-148, d4c.py:35-68,
+stonemask.py:179-205): the windows there add the reference's noise,
+randn * 1e-12, read from the reseeded stream `noise` from each row's
+offset `noff` (device tensors, so no host read a frame), and STONEMASK
+with `parity` (the bucket path's, float64 only) reads sample j at its own
+rounded index round((pos + (j-h)/fs) * fs) - 1 instead of the contiguous
+run from `origin`.  `rowutt` names each row's utterance where the rows
+are not the B*T frames in order.
 """
 from __future__ import annotations
 
@@ -30,25 +40,49 @@ import numpy as np
 import torch
 
 from hts_train_world_tpu_torch import kernels
+from hts_train_world_tpu_torch.ops import prims
 from hts_train_world_tpu_torch.ops.prims import exact_div
 
 MEAN, CHEAPTRICK, CENTROID, STONEMASK, MEAN_BLACKMAN = 0, 1, 2, 3, 4
+_STONEMASK_ROUNDED = 5      # K1's code for STONEMASK with parity
+
+
+def _check_parity(mode: int, dtype, parity: bool):
+    if parity and mode == STONEMASK and dtype != torch.float64:
+        raise ValueError("frame_windows: STONEMASK's per-sample index "
+                         "(parity) is the float64 bucket path's")
+
+
+def _row_utterance(R: int, T: int, rowutt, dev):
+    return (rowutt.long() if rowutt is not None
+            else torch.arange(R, device=dev) // T)[:, None]
 
 
 def frame_windows_plain(x, origin, h, f0, pos, fs: int, ratio: float,
-                        width: int, mode: int):
+                        width: int, mode: int, noise=None, noff=None,
+                        rowutt=None, parity: bool = False):
+    _check_parity(mode, x.dtype, parity)
     B, L = x.shape
-    R = origin.shape[0]
-    T = R // B
+    R = h.shape[0]
+    T = max(R // B, 1)
     dtype, dev = x.dtype, x.device
     zero = torch.zeros((), dtype=dtype, device=dev)
     j = torch.arange(width, device=dev)[None, :]
     hh = h.long()[:, None]
     valid = j <= 2 * hh
-    idx = origin.long()[:, None] - hh + j
-    utt = (torch.arange(R, device=dev) // T)[:, None]
-    seg = x[utt, idx.clamp(0, L - 1)]
+    utt = _row_utterance(R, T, rowutt, dev)
     if mode == STONEMASK:
+        if parity:                      # each sample rounded on its own
+            # pos + (j-h)/fs as XLA compiles the JAX package's, a fused
+            # multiply-add with 1/fs: at 44.1 kHz the frame grid puts the
+            # samples on rounding ties, and this decides them alike
+            u = prims.fma((j - hh).to(dtype),
+                          torch.full((), 1.0 / fs, dtype=dtype, device=dev),
+                          pos[:, None])
+            idx = prims.matlab_round_i(u * fs) - 1
+        else:
+            idx = origin.long()[:, None] - hh + j
+        seg = x[utt, idx.clamp(0, L - 1)]
         tmp = exact_div(idx.to(dtype), fs) - pos[:, None]
         wt = exact_div((2 * hh + 1).to(dtype), fs)
         mw = (0.42 + 0.5 * torch.cos((2.0 * np.pi) * tmp / wt)
@@ -59,6 +93,8 @@ def frame_windows_plain(x, origin, h, f0, pos, fs: int, ratio: float,
         mw_m = torch.cat([pad, mw[:, :-1]], dim=1)
         dw = torch.where(valid, -(mw_p - mw_m) / 2.0, zero)
         return seg * mw, seg * dw
+    idx = origin.long()[:, None] - hh + j
+    seg = x[utt, idx.clamp(0, L - 1)]
     position = exact_div(exact_div(2.0 * (j - hh).to(dtype), ratio), fs)
     arg = np.pi * position * f0[:, None]
     if mode in (MEAN_BLACKMAN, CENTROID):
@@ -68,7 +104,11 @@ def frame_windows_plain(x, origin, h, f0, pos, fs: int, ratio: float,
     w = torch.where(valid, w, zero)
     if mode == CHEAPTRICK:
         w = w / torch.sqrt(torch.sum(w * w, dim=1, keepdim=True))
-    wave = torch.where(valid, seg * w, zero)
+    wave = seg * w
+    if noise is not None:
+        nz = noise[(noff[:, None] + j).clamp(0, noise.shape[0] - 1)]
+        wave = torch.where(noff[:, None] >= 0, wave + nz * 1e-12, wave)
+    wave = torch.where(valid, wave, zero)
     coef = torch.sum(wave, dim=1, keepdim=True) / torch.sum(w, dim=1,
                                                             keepdim=True)
     wave = torch.where(valid, wave - w * coef, zero)
@@ -79,32 +119,54 @@ def frame_windows_plain(x, origin, h, f0, pos, fs: int, ratio: float,
 
 
 def frame_windows(x, origin, h, f0, fs: int, ratio: float, width: int,
-                  mode: int, pos=None):
-    """x (B, L) f32; per-frame (R = B*T,) origin / h (integer), f0 and,
-    for STONEMASK, pos (seconds) -> (out1, out2) rows (R, width); out2
-    is None for MEAN and CHEAPTRICK.  Requires 2*max(h)+1 <= width."""
+                  mode: int, pos=None, noise=None, noff=None, rowutt=None,
+                  parity: bool = False):
+    """x (B, L) float32 or float64; per-frame (R,) origin / h (integer),
+    f0 and, for STONEMASK, pos (seconds) -> (out1, out2) rows (R, width)
+    in x's dtype; out2 is None for MEAN and CHEAPTRICK.  R = B*T frames in
+    order, or any R with `rowutt` (R,) naming each row's utterance.
+    `noise` (the stream, x's dtype) and `noff` (R,) add the reference's
+    noise to the windows (float64); a row whose offset is negative gets
+    none.  `parity` (STONEMASK, float64): each sample at its own rounded
+    index.  Requires 2*max(h)+1 <= width."""
     if not x.is_cuda:
         return frame_windows_plain(x, origin, h, f0, pos, fs, ratio, width,
-                                   mode)
+                                   mode, noise, noff, rowutt, parity)
+    _check_parity(mode, x.dtype, parity)
     B, L = x.shape
-    R = origin.shape[0]
-    if x.dtype != torch.float32 or R % B or width > 11520:
-        raise ValueError("frame_windows: f32 x, B*T frames, width <= 11520 "
-                         "(the window is staged in shared memory)")
+    R = h.shape[0]
+    dt = x.dtype
+    if (dt not in (torch.float32, torch.float64)
+            or (rowutt is None and R % B)
+            or width * dt.itemsize > 46 * 1024
+            or (noise is not None and (noise.dtype != dt or noff is None))):
+        raise ValueError("frame_windows: f32 or f64 x, B*T frames or a "
+                         "row utterance index, width * itemsize <= 46 KB "
+                         "(the window is staged in shared memory), noise "
+                         "of x's dtype with its offsets")
+    f64 = dt == torch.float64
     x = x.contiguous()
     o32 = origin.to(torch.int32).contiguous()
     h32 = h.to(torch.int32).contiguous()
-    f0c = f0.to(torch.float32).contiguous()
-    posc = (pos if pos is not None else f0).to(torch.float32).contiguous()
-    kernels.check_cuda("frame_windows", x, o32, h32, f0c, posc)
-    out1 = torch.empty((R, width), dtype=torch.float32, device=x.device)
+    f0c = f0.to(dt).contiguous()
+    posc = (pos if pos is not None else f0c).to(dt).contiguous()
+    ru = rowutt.to(torch.int32).contiguous() if rowutt is not None else None
+    nz = noise.contiguous() if noise is not None else None
+    no = noff.to(torch.int64).contiguous() if noise is not None else None
+    kernels.check_cuda("frame_windows", x, o32, h32, f0c, posc,
+                       *[t for t in (ru, nz, no) if t is not None])
+    out1 = torch.empty((R, width), dtype=dt, device=x.device)
     two = mode in (CENTROID, STONEMASK)
     out2 = torch.empty_like(out1) if two else None
     kernels.launch("frame_window", [
-        x.data_ptr(), L, R // B, o32.data_ptr(), h32.data_ptr(),
-        f0c.data_ptr(), posc.data_ptr(), float(fs), float(ratio), R, width,
-        mode, out1.data_ptr(),
-        out2.data_ptr() if two else None],
+        x.data_ptr(), L, max(R // B, 1), ru.data_ptr() if ru is not None
+        else None, o32.data_ptr(), h32.data_ptr(), f0c.data_ptr(),
+        posc.data_ptr(), float(fs), float(ratio), R, width,
+        _STONEMASK_ROUNDED if parity and mode == STONEMASK else mode,
+        nz.data_ptr() if nz is not None else None,
+        no.data_ptr() if no is not None else None, int(f64),
+        out1.data_ptr(), out2.data_ptr() if two else None],
         dict(x=x, origin=origin, h=h, f0=f0, fs=fs, ratio=ratio,
-             width=width, mode=mode, pos=pos))
+             width=width, mode=mode, pos=pos, noise=noise, noff=noff,
+             rowutt=rowutt, parity=parity), variant="f64" if f64 else None)
     return out1, out2

@@ -267,13 +267,102 @@ def _linear_smoothing_plain(ps, width, fs: int, fft_size: int, b_max: int,
             / width[:, None]).to(ps.dtype)
 
 
+# XLA's CPU compiler rewrites a cumulative reduce-window (jnp.cumsum) as a
+# blocked scan: sequential prefixes within blocks of this many elements,
+# the block totals scanned the same way, then added back.
+XLA_SCAN_BLOCK = 16
+
+
+def xla_cumsum(x):
+    """The cumulative sum along the last axis in the order of the JAX
+    package's jnp.cumsum on the CPU (XLA's blocked scan, XLA_SCAN_BLOCK):
+    equal to it bit for bit where the additions within a block run in
+    sequence, as torch.cumsum's do on the CPU."""
+    n = x.shape[-1]
+    B = XLA_SCAN_BLOCK
+    if n <= B:
+        return torch.cumsum(x, dim=-1)
+    m = -(-n // B) * B
+    local = torch.cumsum(torch.nn.functional.pad(x, (0, m - n)).reshape(
+        x.shape[:-1] + (m // B, B)), dim=-1)
+    pref = xla_cumsum(local[..., -1])
+    excl = torch.cat([torch.zeros_like(pref[..., :1]), pref[..., :-1]],
+                     dim=-1)
+    return (local + excl[..., None]).reshape(x.shape[:-1] + (m,))[..., :n]
+
+
+def _dc_correction_parity_plain(ps, f0, fs: int, fft_size: int,
+                                ul_max: int):
+    """common.cpp:56-75 in the reference's order (the JAX package's
+    generic branch, prims.py:437-446): tap i reads the row at f0*N/fs - i
+    by interp1Q, with the last tap's step zeroed and no tap at or past
+    upper_limit - 1.  ps (R, N/2+1) float64, f0 (R,).  /fs is a product
+    with 1/fs and the lerp a fused multiply-add, as XLA compiles the JAX
+    package's f64 branch."""
+    half = fft_size // 2
+    zero = torch.zeros((), dtype=ps.dtype, device=ps.device)
+    c = ((f0 * fft_size) * (1.0 / fs))[:, None]
+    upper = 2 + torch.trunc(c).long()
+    i = torch.arange(ul_max, device=ps.device)[None, :]
+    pos = c - i.to(ps.dtype)
+    basec = torch.trunc(pos).long().clamp(0, half)
+    y0 = torch.gather(ps, 1, basec)
+    y1 = torch.gather(ps, 1, (basec + 1).clamp(max=half))
+    dy = torch.where(basec < upper, y1 - y0, zero)
+    add = torch.where(i < upper - 1, fma(dy, pos - torch.trunc(pos), y0),
+                      zero)
+    return torch.cat([ps[:, :ul_max] + add, ps[:, ul_max:]], dim=1)
+
+
+def _linear_smoothing_parity_plain(ps, width, fs: int, fft_size: int,
+                                   b_max: int):
+    """common.cpp:77-111 in the JAX package's f64 order (its mirror
+    branch, prims.py:487-509): the row mirrored about the frame's own
+    offset b = int(width*N/fs) + 1, o = half - |half - |p - b||, its
+    cumulative sum in jnp.cumsum's order on the CPU (`xla_cumsum`), and
+    two interp1Q reads with valid_last = half + 2b.  The reads' lerps are
+    fused multiply-adds and the divisions by fs and by fs/N products with
+    their reciprocals, as XLA compiles that branch: the two reads cancel,
+    so their last bits are the result's.  ps (R, N/2+1) float64, width
+    (R,)."""
+    half = fft_size // 2
+    P = half + 2 * b_max + 1
+    dev, dtype = ps.device, ps.dtype
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    delta = fs / fft_size
+    b = (torch.trunc((width * fft_size) * (1.0 / fs)).long() + 1)[:, None]
+    p = torch.arange(P, device=dev)[None, :]
+    o = half - torch.abs(half - torch.abs(p - b))
+    seg = xla_cumsum(torch.gather(ps, 1, o.clamp(0, half)) * delta)
+    origin = exact_div(-(b.to(dtype) - 0.5) * fs, fft_size)
+    valid_last = half + 2 * b
+    freq = (exact_div(torch.arange(half + 1, dtype=dtype, device=dev) * fs,
+                      fft_size)[None, :] - exact_div(width, 2.0)[:, None])
+
+    def q(xi):
+        pos = (xi - origin) * (1.0 / delta)
+        base = torch.trunc(pos)
+        basec = base.long().clamp(0, P - 1)
+        y0 = torch.gather(seg, 1, basec)
+        y1 = torch.gather(seg, 1, (basec + 1).clamp(max=P - 1))
+        dy = torch.where(basec < valid_last, y1 - y0, zero)
+        return fma(dy, pos - base, y0)
+
+    return (q(freq + width[:, None]) - q(freq)) / width[:, None]
+
+
 def smooth_spectrum_plain(ps, fs: int, fft_size: int, f0=None,
                           ul_max: int = 0, width=None, b_max: int = 0,
-                          acc=torch.float64):
+                          acc=torch.float64, parity: bool = False):
+    """K2's twin: the fast forms above, or with `parity` the parity forms
+    (the reference's order), in the rows' dtype."""
     if f0 is not None:
-        ps = _dc_correction_plain(ps, f0, fs, fft_size, ul_max)
+        ps = (_dc_correction_parity_plain if parity
+              else _dc_correction_plain)(ps, f0, fs, fft_size, ul_max)
     if width is not None:
-        ps = _linear_smoothing_plain(ps, width, fs, fft_size, b_max, acc)
+        ps = (_linear_smoothing_parity_plain(ps, width, fs, fft_size, b_max)
+              if parity else _linear_smoothing_plain(ps, width, fs,
+                                                     fft_size, b_max, acc))
     return ps
 
 
@@ -304,20 +393,26 @@ def smooth_spectrum_limit(ps, out, fs: int, fft_size: int, f0=None,
 
 
 def smooth_spectrum(ps, fs: int, fft_size: int, f0=None, ul_max: int = 0,
-                    width=None, b_max: int = 0):
+                    width=None, b_max: int = 0, parity: bool = False):
     """K2: rows ps (R, N/2+1) -> linear_smoothing(dc_correction(ps, f0),
-    width), the smoothing's sums in float64; either step is skipped when
-    its per-row parameter is None.  ul_max / b_max are the static bounds
-    of the JAX functions."""
+    width); either step is skipped when its per-row parameter is None.
+    ul_max / b_max are the static bounds of the JAX functions.  The fast
+    forms (the smoothing's sums in float64) take float32 rows; `parity`,
+    the reference's order (its own mirror offset per frame, XLA's blocked
+    cumulative sum), takes float64 rows."""
     if not ps.is_cuda:
         return smooth_spectrum_plain(ps, fs, fft_size, f0, ul_max, width,
-                                     b_max)
+                                     b_max, parity=parity)
     R, n = ps.shape
-    if n != fft_size // 2 + 1 or ps.dtype != torch.float32:
-        raise ValueError("smooth_spectrum: rows must be f32 (R, N/2+1)")
+    dt = ps.dtype
+    f64 = dt == torch.float64
+    if n != fft_size // 2 + 1 or dt != (torch.float64 if parity
+                                        else torch.float32):
+        raise ValueError("smooth_spectrum: rows (R, N/2+1), float32 for "
+                         "the fast forms, float64 for the parity forms")
     ps = ps.contiguous()
-    f0c = f0.to(torch.float32).contiguous() if f0 is not None else None
-    wc = width.to(torch.float32).contiguous() if width is not None else None
+    f0c = f0.to(dt).contiguous() if f0 is not None else None
+    wc = width.to(dt).contiguous() if width is not None else None
     kernels.check_cuda("smooth_spectrum", ps,
                        *[t for t in (f0c, wc) if t is not None])
     out = torch.empty_like(ps)
@@ -325,20 +420,25 @@ def smooth_spectrum(ps, fs: int, fft_size: int, f0=None, ul_max: int = 0,
         ps.data_ptr(), R, fft_size,
         f0c.data_ptr() if f0c is not None else None,
         wc.data_ptr() if wc is not None else None,
-        float(fs), float(np.float32(fs / fft_size)),
+        float(fs), fs / fft_size if f64 else float(np.float32(fs / fft_size)),
         ul_max if f0c is not None else 0, b_max if wc is not None else 0,
-        out.data_ptr()],
+        int(parity), out.data_ptr()],
         dict(ps=ps, fs=fs, fft_size=fft_size, f0=f0c, ul_max=ul_max,
-             width=wc, b_max=b_max))
+             width=wc, b_max=b_max, parity=parity),
+        variant="f64" if f64 else None)
     return out
 
 
-def dc_correction(ps, f0, fs: int, fft_size: int, ul_max: int):
-    return smooth_spectrum(ps, fs, fft_size, f0=f0, ul_max=ul_max)
+def dc_correction(ps, f0, fs: int, fft_size: int, ul_max: int,
+                  parity: bool = False):
+    return smooth_spectrum(ps, fs, fft_size, f0=f0, ul_max=ul_max,
+                           parity=parity)
 
 
-def linear_smoothing(ps, width, fs: int, fft_size: int, b_max: int):
-    return smooth_spectrum(ps, fs, fft_size, width=width, b_max=b_max)
+def linear_smoothing(ps, width, fs: int, fft_size: int, b_max: int,
+                     parity: bool = False):
+    return smooth_spectrum(ps, fs, fft_size, width=width, b_max=b_max,
+                           parity=parity)
 
 
 # ---------------------------------------------------------------------------

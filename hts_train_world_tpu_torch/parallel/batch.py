@@ -5,7 +5,9 @@ batch of equal-length utterances runs through DIO -> StoneMask (or
 Harvest, whose refinement is built in, so no StoneMask) -> CheapTrick ->
 D4C as batched tensors; synthesis reads the exact pulse count once on the
 host (kernel K9, the arithmetic synthesis itself runs) and runs at a
-128-aligned pulse bucket of that count plus slack.
+128-aligned pulse bucket of that count plus slack.  `parity_stages` is
+the float64 parity analysis of a batch (the JAX package's default), on
+the reference's noise streams.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from hts_train_world_tpu_torch.ops import cheaptrick as ct
 from hts_train_world_tpu_torch.ops import d4c as d4c_mod
 from hts_train_world_tpu_torch.ops import dio as dio_mod
 from hts_train_world_tpu_torch.ops import harvest as hv
+from hts_train_world_tpu_torch.ops import rand
 from hts_train_world_tpu_torch.ops import stonemask as sm
 from hts_train_world_tpu_torch.ops import synthesis as syn
 
@@ -27,7 +30,8 @@ def grid_step_for(fs: int, frame_period: float) -> int:
     if not gs:
         raise NotImplementedError(
             "the port's fast path needs an integral number of samples per "
-            f"frame (fs={fs}, frame_period={frame_period})")
+            f"frame (fs={fs}, frame_period={frame_period}); ROADMAP.md "
+            "Queue A 11.  The parity path (float64) runs any frame grid")
     return gs
 
 
@@ -54,6 +58,37 @@ def analyze_stages(xs, fs: int, frame_period: float = 5.0,
     sp = ct.cheaptrick(xs, fs, t, f0, N, grid_step=gs)
     yield "cheaptrick", sp
     ap, _ = d4c_mod.d4c(xs, fs, t, f0, N, d4c_threshold, grid_step=gs)
+    yield "d4c", (t.expand(f0.shape), f0, sp, ap)
+
+
+def parity_stages(xs, fs: int, frame_period: float = 5.0,
+                  q1: float = -0.15, d4c_threshold: float = 0.0,
+                  fft_size: int = 0, f0_floor: float = cfg.K_FLOOR_F0,
+                  f0_ceil: float = cfg.K_CEIL_F0):
+    """The parity analysis (the JAX package's vocoder.analyze at
+    parity=True, in float64) of equal-length utterances xs (B, L), stage
+    by stage, yielding (stage name, result): "dio", "stonemask",
+    "cheaptrick", then "d4c" with (t (B, T), f0, sp, ap).  Each window
+    sits at its own position, so any frame grid runs.  CheapTrick and D4C
+    read the reference's reseeded noise stream, each utterance from its
+    start: one float64 tensor on the device serves the batch."""
+    if xs.dtype != torch.float64:
+        raise ValueError("parity analysis takes float64 waveforms")
+    dev = xs.device
+    N = fft_size or cfg.cheaptrick_fft_size(fs)
+    t, f0, _, _ = dio_mod.dio(xs, fs, frame_period, f0_floor, f0_ceil,
+                              parity=True)
+    yield "dio", f0
+    f0 = sm.stonemask(xs, fs, t, f0, f0_floor, f0_ceil, parity=True)
+    yield "stonemask", f0
+    T = f0.shape[1]
+    sp = ct.cheaptrick_parity(
+        xs, fs, t, f0, N, q1,
+        rand.randn_stream(ct.cheaptrick_stream_len(T, N), dev))
+    yield "cheaptrick", sp
+    ap, _ = d4c_mod.d4c_parity(
+        xs, fs, t, f0, N, d4c_threshold,
+        rand.randn_stream(d4c_mod.d4c_stream_len(T, fs), dev))
     yield "d4c", (t.expand(f0.shape), f0, sp, ap)
 
 

@@ -30,8 +30,12 @@ the HALGN duration model -> convert_dur2lab -> DNN -> MLPG -> WORLD.
 Every stage runs on `PipelineConfig.device` (the card by default).
 `stage_seconds` keeps each stage's wall seconds and ANALYZE's parts
 (loader, extract, vibrato, writes); `halgn_seconds` keeps `train_voice`'s
-own stage seconds.  Synthesis is fast mode (float32); `parity=True`
-raises (ROADMAP Queue A 5).
+own stage seconds.  Analysis and synthesis run in fast mode (float32)
+by default.  `parity=True` runs them as the JAX pipeline does at parity:
+ANALYZE analyses and encodes each utterance in float64 on the reference's
+noise streams (`vocoder.analyze(parity=True)`, K6 in float64), and WGEN
+decodes in float64 (K12) and synthesises by `vocoder.synthesize(parity=
+True)`.
 """
 from __future__ import annotations
 
@@ -49,7 +53,7 @@ import torch
 from hts_train_world_tpu_torch import config as cfg_mod
 from hts_train_world_tpu_torch import device as device_mod
 from hts_train_world_tpu_torch import vocoder
-from hts_train_world_tpu_torch.features import compose, encode, htk
+from hts_train_world_tpu_torch.features import compose, decode, encode, htk
 from hts_train_world_tpu_torch.features import labels as labels_mod
 from hts_train_world_tpu_torch.features import qconf as qconf_mod
 from hts_train_world_tpu_torch.features import vibrato
@@ -120,22 +124,28 @@ class SingingPipeline:
     def analyze(self) -> None:
         if self.manifest.done("ANALYZE"):
             return
-        if self.cfg.parity:
-            raise NotImplementedError(vocoder._PARITY)
         t_stage = t = time.perf_counter()
         lay = self.cfg.layout
         bases = self.utterances()
         paths = [os.path.join(self.wd, "raw", f"{b}.wav") for b in bases]
         sigs: list = [None] * len(bases)
-        with nloader.CorpusLoader(paths, nloader.WAV) as dl:
-            for i, x, sr in dl:
-                if x is None:
-                    raise ValueError(f"{bases[i]}: unreadable wav")
+        if self.cfg.parity:
+            # float64 samples, as the JAX pipeline's wavread gives them
+            for i, path in enumerate(paths):
+                sigs[i], sr = wavio.wavread(path)
                 if sr != self.cfg.fs:
                     raise ValueError(f"{bases[i]}: fs {sr} != {self.cfg.fs}")
-                sigs[i] = x
+        else:
+            with nloader.CorpusLoader(paths, nloader.WAV) as dl:
+                for i, x, sr in dl:
+                    if x is None:
+                        raise ValueError(f"{bases[i]}: unreadable wav")
+                    if sr != self.cfg.fs:
+                        raise ValueError(
+                            f"{bases[i]}: fs {sr} != {self.cfg.fs}")
+                    sigs[i] = x
         t = self._lap("ANALYZE loader", t)
-        if len(bases) > 1:
+        if len(bases) > 1 and not self.cfg.parity:
             # the corpus path: length-bucketed batched analysis and the
             # encode on the device; only the features come back
             feats = bucketing.bucketed_extract(
@@ -143,9 +153,11 @@ class SingingPipeline:
                 mgc_dim=lay.mgc_dim, bap_dim=lay.bap_dim, device=self.dev)
         else:
             feats = []
+            # one utterance, or parity: analysed and encoded one by one
+            # (the JAX pipeline's per-utterance route)
             for x in sigs:
                 a = vocoder.analyze(x, self.cfg.fs, self.cfg.frame_period,
-                                    parity=False, device=self.dev)
+                                    parity=self.cfg.parity, device=self.dev)
                 feats.append(tuple(v.cpu().numpy() for v in
                                    encode.encode_features(
                                        a.f0, a.spectrogram, a.aperiodicity,
@@ -462,14 +474,22 @@ class SingingPipeline:
     # -- WGEN: decode + WORLD synthesis ----------------------------------
     def _synthesize(self, mgc, lf0, bap, noise=None, seed: int = 0):
         """(T, mgc_dim), (T, lf0_dim) with MAGIC unvoiced, (T, bap_dim) ->
-        the waveform (y_length,) float32 on the device: K12's decode and
-        fast-mode synthesis (the synth lane), on `noise` (1, y_length+16)
-        or noise drawn from `seed`."""
-        if self.cfg.parity:
-            raise NotImplementedError(vocoder._PARITY)
+        the waveform (y_length,) on the device: K12's decode and fast-mode
+        synthesis in float32 (the synth lane), on `noise` (1, y_length+16)
+        or noise drawn from `seed`; at parity, the decode in float64 and
+        `vocoder.synthesize(parity=True)` (float64, the reference's noise
+        stream), as the JAX pipeline does."""
         lf0 = torch.as_tensor(lf0, device=self.dev)
         lf0_1 = torch.where(lf0[:, 0] == generation.MAGIC,
                             torch.zeros_like(lf0[:, 0]), lf0[:, 0])
+        if self.cfg.parity:
+            fft_size = cfg_mod.cheaptrick_fft_size(self.cfg.fs)
+            f0, sp, ap = decode.decode_features(
+                *(torch.as_tensor(v, dtype=torch.float64, device=self.dev)
+                  for v in (lf0_1, mgc, bap)), self.cfg.fs, fft_size)
+            return vocoder.synthesize(f0, sp, ap, self.cfg.fs, fft_size,
+                                      self.cfg.frame_period, parity=True,
+                                      device=self.dev)
         return feat_mod.synth_lane(lf0_1[None], torch.as_tensor(mgc)[None],
                                    torch.as_tensor(bap)[None], self.cfg.fs,
                                    self.cfg.frame_period, noise=noise,
@@ -517,7 +537,10 @@ class SingingPipeline:
         mspf = self._load_mspf() if self.cfg.use_mspf else None
         mgc, g = self._gen_one(np.asarray(ffi), self._restore_params(),
                                self._ffo_var(), self._alpha(), mspf)
-        y = self._synthesize(mgc.float(), g.lf0, g.bap.float())
+        if self.cfg.parity:     # the generated float64 features as they are
+            y = self._synthesize(mgc, g.lf0, g.bap)
+        else:
+            y = self._synthesize(mgc.float(), g.lf0, g.bap.float())
         out = self._p("gen", base, "wav")
         wavio.wavwrite(y.cpu().numpy(), self.cfg.fs, out)
         return out

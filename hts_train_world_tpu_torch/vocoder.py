@@ -2,16 +2,20 @@
 
 Counterpart of `hts_train_world_tpu/vocoder.py`.  parity=False is the f32
 fast path: noise-free analysis on the regular frame grid, cumsum phase and
-`torch.Generator` noise in synthesis.  parity=True is the f64 path with
-the reference's PRNG streams: `synthesize(parity=True)` runs the exact
-path (the sequential phase fold, FFT responses, the reseeded stream)
-through K9-K11 and K30 in float64; parity analysis (`analyze`,
-`copy_synthesis`) is a later slice of the port and raises.
+`torch.Generator` noise in synthesis.  parity=True (the default) is the
+f64 path with the reference's PRNG streams: `analyze` runs DIO, StoneMask's
+bucket path, CheapTrick and D4C in float64 with each window at its own
+position (so any frame grid, 44.1 kHz at 5 ms too) and the reseeded noise
+(`parallel.batch.parity_stages`); `synthesize` runs the exact path (the
+sequential phase fold, FFT responses, the reseeded stream) through K9-K11
+and K30 in float64.  Harvest at parity is not ported (ROADMAP.md's
+Harvest-f64 item) and raises.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from hts_train_world_tpu_torch import config as cfg
@@ -25,9 +29,15 @@ from hts_train_world_tpu_torch.ops import stonemask as sm
 from hts_train_world_tpu_torch.ops import synthesis as syn
 from hts_train_world_tpu_torch.parallel import batch as batch_mod
 
-_PARITY = ("parity=True analysis (the f64 path with the reference's PRNG "
-           "streams in CheapTrick and D4C) is not ported yet; see "
-           "ROADMAP.md, Queue A 5's analysis half.  Pass parity=False.")
+HARVEST_F64 = ("Harvest in float64 (parity analysis with algorithm="
+               "'harvest') is not ported yet; see ROADMAP.md, Queue A 12 "
+               "(Harvest-f64).  Pass parity=False (float32) for Harvest.")
+
+F32_BUCKETS = ("StoneMask's float32 bucket path (estimate_f0 of a float32 "
+               "waveform with fast_grid=False, or at a frame grid of no "
+               "whole number of samples) is not ported yet; see ROADMAP.md, "
+               "Queue A 11.  Pass fast_grid=True on an integral frame grid, "
+               "or a float64 waveform for the parity path.")
 
 
 @dataclasses.dataclass
@@ -41,6 +51,42 @@ class WorldAnalysis:
     frame_period: float
 
 
+def estimate_f0(x, fs: int, frame_period: float = 5.0,
+                f0_floor: float = cfg.K_FLOOR_F0,
+                f0_ceil: float = cfg.K_CEIL_F0, refine: bool = True,
+                algorithm: str = "dio", fast_grid: bool = False,
+                device="cuda"):
+    """DIO + StoneMask (F0Estimation, analysis.cpp:93-143), or Harvest
+    (harvest.cpp:1223-1255; its refinement is built in, so no StoneMask),
+    of one waveform -> (temporal positions (T,), f0 (T,)).  As in the JAX
+    package, a float64 waveform (numpy or tensor) takes DIO's parity path
+    and StoneMask's bucket path at any frame grid; anything else runs in
+    float32, where `fast_grid` on an integral frame grid takes the slab
+    path and otherwise StoneMask's float32 bucket path, which is not
+    ported (NotImplementedError, ROADMAP.md's Queue A 11)."""
+    batch_mod.check_algorithm(algorithm)
+    f64 = getattr(x, "dtype", None) in (torch.float64, np.float64)
+    dev = device_mod.resolve(device)
+    xs = torch.as_tensor(x, dtype=torch.float64 if f64 else torch.float32,
+                         device=dev)[None]
+    if algorithm == "harvest":
+        if f64:
+            raise NotImplementedError(HARVEST_F64)
+        t, f0 = hv.harvest(xs, fs, frame_period, f0_floor, f0_ceil)
+        return t, f0[0]
+    gs = fs * frame_period / 1000.0
+    slab = fast_grid and float(gs).is_integer()
+    if refine and not f64 and not slab:
+        raise NotImplementedError(F32_BUCKETS)
+    t, f0, _, _ = dio_mod.dio(xs, fs, frame_period, f0_floor, f0_ceil,
+                              parity=f64)
+    if refine:
+        f0 = sm.stonemask(xs, fs, t, f0, f0_floor, f0_ceil,
+                          grid_step=int(gs) if slab else 0,
+                          parity=f64)
+    return t, f0[0]
+
+
 def analyze(x, fs: int, frame_period: float = 5.0, q1: float = -0.15,
             d4c_threshold: float = 0.0, parity: bool = True,
             fft_size: int = 0, algorithm: str = "dio",
@@ -49,10 +95,18 @@ def analyze(x, fs: int, frame_period: float = 5.0, q1: float = -0.15,
             device="cuda") -> WorldAnalysis:
     """DIO + StoneMask, or Harvest (its refinement is built in, so no
     StoneMask; harvest.cpp:1223-1255), then CheapTrick + D4C of one
-    waveform (float32)."""
-    if parity:
-        raise NotImplementedError(_PARITY)
+    waveform: parity=True in float64 on the reference's noise streams,
+    parity=False in float32 (the fast path)."""
     batch_mod.check_algorithm(algorithm)
+    if parity:
+        if algorithm == "harvest":
+            raise NotImplementedError(HARVEST_F64)
+        xs = torch.as_tensor(x, dtype=torch.float64,
+                             device=device_mod.resolve(device))[None]
+        N = fft_size or cfg.cheaptrick_fft_size(fs)
+        *_, (_, (t, f0, sp, ap)) = batch_mod.parity_stages(
+            xs, fs, frame_period, q1, d4c_threshold, N, f0_floor, f0_ceil)
+        return WorldAnalysis(t[0], f0[0], sp[0], ap[0], fs, N, frame_period)
     xs = device_mod.as_input(x, device)[None]
     gs = batch_mod.grid_step_for(fs, frame_period)
     N = fft_size or cfg.cheaptrick_fft_size(fs)
@@ -120,12 +174,11 @@ def copy_synthesis(x, fs: int, frame_period: float = 5.0,
                    parity: bool = True, f0_scale: float = 1.0,
                    formant_ratio: float = 1.0, device="cuda"):
     """Analysis -> resynthesis round trip (test/test.cpp) with its
-    optional F0 / formant knobs."""
-    if parity:
-        raise NotImplementedError(_PARITY)
-    a = analyze(x, fs, frame_period, parity=False, device=device)
+    optional F0 / formant knobs; parity=True is float64 on the
+    reference's noise streams throughout, parity=False the fast path."""
+    a = analyze(x, fs, frame_period, parity=parity, device=device)
     f0, sp = modify_parameters(a.f0, a.spectrogram, fs, f0_scale,
                                formant_ratio)
     y = synthesize(f0, sp, a.aperiodicity, fs, a.fft_size, frame_period,
-                   parity=False, device=a.f0.device)
+                   parity=parity, device=a.f0.device)
     return a, y

@@ -12,7 +12,9 @@ in turns, and runs chip_smoke.py's DIO lanes on its corpora:
 - corpus500 (`parallel.bucketing.bucketed_extract`, 500 utterances, 524.1
   s of audio): one warm run, then one timed run.
 
-Prints one JSON line: audio-s/s (mean and median over the batches) and
+Prints one JSON line: audio-s/s (mean and median over the batches), a
+digest of each lane's outputs on its warm-up batch (sha256 of every
+output tensor's bytes, so two trees' outputs compare bit for bit), and
 the card's name and power limit.
 
     python3 lane_timing.py [--root DIR] [--reps N]
@@ -20,6 +22,7 @@ the card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
@@ -60,9 +63,21 @@ def main() -> int:
     kernels.build()
     xs = torch.as_tensor(cs.corpus(cs.BATCH, int(cs.FS * cs.DUR)),
                          dtype=torch.float32, device="cuda")
-    out = {"root": os.path.relpath(root, HERE)}
+    out = {"root": os.path.relpath(root, HERE), "digest": {}}
+
+    def digest(result):
+        h = hashlib.sha256()
+        stack = [result]
+        while stack:
+            v = stack.pop(0)
+            if isinstance(v, torch.Tensor):
+                h.update(v.detach().cpu().contiguous().numpy().tobytes())
+            elif isinstance(v, (tuple, list)):
+                stack[:0] = list(v)
+        return h.hexdigest()[:16]
 
     def lane(name, fn):
+        out["digest"][name] = digest(fn(0))
         fn(0)
         torch.cuda.synchronize()
         dts = []

@@ -11,7 +11,7 @@ import torch
 
 import chip_smoke
 from hts_train_world_tpu_torch import config as cfg
-from hts_train_world_tpu_torch import kernels
+from hts_train_world_tpu_torch import kernels, vocoder
 from hts_train_world_tpu_torch.features import decode, encode, windows
 from hts_train_world_tpu_torch.models import hsmm, hsmm_batch
 from hts_train_world_tpu_torch.ops import cheaptrick as ct
@@ -228,8 +228,11 @@ def test_k8_kernel_matches_plain(cuda, T):
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     ps = torch.ones((4, 1025), dtype=torch.float64, device=cuda)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):         # the fast forms are float32's
         prims.smooth_spectrum(ps, 48000, 2048, width=ps[:, 0], b_max=100)
+    with pytest.raises(ValueError):         # the parity forms float64's
+        prims.smooth_spectrum(ps.float(), 48000, 2048, width=ps[:, 0],
+                              b_max=100, parity=True)
     with pytest.raises(ValueError):
         prims.top_k_threshold_sum(ps.float(), 2000)
     with pytest.raises(ValueError):
@@ -1525,8 +1528,13 @@ def test_k26_hostile_rows(cuda):
 
 def test_analysis_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = torch.ones((4, 1025), dtype=torch.float64, device=cuda)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):         # the fast log is float32's
         ct.lifter(x, ct.LOG)
+    with pytest.raises(ValueError):         # the parity log float64's
+        ct.lifter(x.float(), ct.LOG, parity=True)
+    with pytest.raises(ValueError):         # noise is the parity log's alone
+        ct.lifter(x.float(), ct.LOG, noise=x[0],
+                  noff=torch.zeros(4, dtype=torch.long, device=cuda))
     with pytest.raises(ValueError):
         ct.lifter(x.float(), 3)
     with pytest.raises(ValueError):
@@ -1535,8 +1543,10 @@ def test_analysis_wrappers_reject_what_the_kernels_do_not_take(cuda):
         d4c_mod.love_train_sums(x.float(), x[:, 0].float(), 9, 342, 2000,
                                 0.0)
     with pytest.raises(ValueError):
-        sm.if_readout(x, x, x, x, x[:, 0], x[:, 0].long(),
+        sm.if_readout(x.half(), x, x, x, x[:, 0], x[:, 0].long(),
                       x[:, 0] > 0, 48000, 2048)
+    with pytest.raises(ValueError):         # K31 sorts float64 rows
+        d4c_mod.band_sort_sums(x.float(), 100)
 
 
 def test_d4c_at_8k_without_bands_matches_the_cpu_path(cuda):
@@ -1673,3 +1683,217 @@ def test_trajectory_and_midpass_wrappers_reject_what_the_kernels_do_not_take(
                                                            device=cuda))
     with pytest.raises(ValueError):
         syn.midpass(x, x, x, x, x, x, torch.zeros((2, 4), device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# the parity analysis: K1, K2, K4-K6 and K24-K27 in float64, and K31
+# ---------------------------------------------------------------------------
+
+
+def _parity_case(cuda, fs=48000, T=40, seed=11):
+    """A float64 utterance pair with a gliding voiced contour and the
+    reference's noise stream on the card."""
+    from hts_train_world_tpu_torch.ops import rand
+    rng = np.random.default_rng(seed)
+    L = int(T * fs * 0.005)
+    x = np.stack([0.5 * np.sin(2 * np.pi * np.cumsum(np.linspace(
+        150 + 40 * b, 260, L)) / fs) + 0.01 * rng.standard_normal(L)
+        for b in range(2)])
+    stream = rand.randn_stream(d4c_mod.d4c_stream_len(T, fs), cuda)
+    return torch.as_tensor(x, dtype=torch.float64, device=cuda), stream
+
+
+@pytest.mark.parametrize("mode,ratio,width", [
+    (frames.MEAN, 4.0, 4096), (frames.MEAN_BLACKMAN, 3.0, 4096),
+    (frames.CHEAPTRICK, 3.0, 2048), (frames.CENTROID, 4.0, 4096),
+    (frames.STONEMASK, 0.0, 1024)])
+def test_k1_float64_matches_plain(cuda, mode, ratio, width):
+    """The parity windows: any position, the stream's noise at each row's
+    offset (none where it is negative), STONEMASK's per-sample rounding
+    on compacted rows; within 1e-12 of each row's largest value (the
+    kernel's block sums and torch.sum add in other orders)."""
+    fs = 48000
+    x, stream = _parity_case(cuda, fs)
+    R = 60
+    rng = np.random.default_rng(mode)
+    f0 = torch.as_tensor(rng.uniform(60, 700, R), dtype=torch.float64,
+                         device=cuda)
+    pos = torch.as_tensor(rng.uniform(0.0, x.shape[1] / fs, R),
+                          dtype=torch.float64, device=cuda)
+    origin = prims.matlab_round_i(pos * fs + 0.001)
+    h = prims.matlab_round_i(prims.rdiv(1.5 * fs, f0)).clamp(
+        max=(width - 1) // 2)
+    noff = torch.as_tensor(rng.integers(-1, 5000, R), device=cuda)
+    rowutt = torch.as_tensor(rng.integers(0, 2, R), device=cuda)
+    kw = dict(pos=pos, rowutt=rowutt, parity=True)
+    if mode != frames.STONEMASK:
+        kw.update(noise=stream, noff=noff)
+    got = frames.frame_windows(x, origin, h, f0, fs, ratio, width, mode,
+                               **kw)
+    want = frames.frame_windows_plain(x, origin, h, f0, pos, fs, ratio,
+                                      width, mode, kw.get("noise"),
+                                      kw.get("noff"), rowutt, parity=True)
+    for g, w in zip(got, want):
+        if w is not None:
+            assert g.dtype == torch.float64
+            _close_rows(g, w, 1e-12)
+
+
+@pytest.mark.parametrize("fs,N", [(48000, 2048), (48000, 4096),
+                                  (44100, 2048)])
+def test_k2_parity_mode_matches_plain(cuda, fs, N):
+    """K2's float64 mode (the mirror about each frame's own offset, XLA's
+    blocked scan, fused lerps) against its twin run on the CPU: within
+    1e-14 of each row's largest value."""
+    rng = np.random.default_rng(2)
+    ps = _k2_rows("harmonic", 64, N // 2 + 1, rng)
+    f0 = rng.uniform(50, 800, 64)
+    fmax = max(fs / 12.0, cfg.K_CEIL_F0)
+    ul_max = 2 + int(fmax * N / fs) + 1
+    b_max = int(fmax * N / fs) + 1
+    args = [torch.as_tensor(v, dtype=torch.float64) for v in (ps, f0)]
+    want = prims.smooth_spectrum(args[0], fs, N, f0=args[1], ul_max=ul_max,
+                                 width=args[1] * 2.0 / 3.0, b_max=b_max,
+                                 parity=True)
+    got = prims.smooth_spectrum(args[0].to(cuda), fs, N,
+                                f0=args[1].to(cuda), ul_max=ul_max,
+                                width=args[1].to(cuda) * 2.0 / 3.0,
+                                b_max=b_max, parity=True).cpu()
+    _close_rows(got, want, 1e-14)
+
+
+def test_k4_k5_float64_match_plain(cuda):
+    """DIO's candidates at the worst-case cap (device scratch) and its
+    contour fixing in float64 against their twins on the inputs DIO gave
+    them (equal crossings, the rest within 1e-12 relative); and DIO on
+    the card against DIO on the CPU, whose cuFFT and pocketfft band
+    filters differ in the last bits: f0 within 1e-9."""
+    fs = 48000
+    x, _ = _parity_case(cuda, fs, T=100)
+    kernels.record = []
+    try:
+        t, f0, cands, scores = dio.dio(x, fs, parity=True)
+        rec = dict(kernels.record)
+    finally:
+        kernels.record = None
+    inp = rec["dio_candidates[f64]"]
+    got = dio.band_candidates(**inp, crossings=True)
+    want = dio.band_candidates_plain(**inp, crossings=True)
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    for g, w in zip(got[:2], want[:2]):
+        assert torch.allclose(g, w, rtol=1e-12, atol=0)
+    inp = rec["fix_f0[f64]"]
+    assert torch.allclose(dio.fix_f0_contour(**inp),
+                          dio.fix_f0_contour_plain(**inp), rtol=1e-12,
+                          atol=0)
+    _, f0p, _, _ = dio.dio(x.cpu(), fs, parity=True)
+    assert f0.dtype == torch.float64 and (f0p > 0).any()
+    assert torch.allclose(f0.cpu(), f0p, rtol=1e-9, atol=0)
+
+
+@pytest.mark.parametrize("fs", [16000, 48000])
+def test_k6_float64_matches_plain(cuda, fs):
+    N = cfg.cheaptrick_fft_size(fs)
+    rng = np.random.default_rng(6)
+    sp = torch.as_tensor(np.exp(rng.normal(size=(2, 30, N // 2 + 1)) * 3),
+                         dtype=torch.float64)
+    ap = torch.as_tensor(rng.uniform(1e-3, 1.0, sp.shape),
+                         dtype=torch.float64)
+    sp[0, 3, :7] = 0.0
+    want = encode.encode_spectra_plain(sp, ap, fs, N)
+    got = encode.encode_spectra(sp.to(cuda), ap.to(cuda), fs, N)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64
+        assert torch.allclose(g.cpu(), w, rtol=0, atol=1e-10)
+
+
+def test_k24_to_k27_and_k31_float64_match_plain(cuda):
+    """The parity body's float64 stages against their twins: K24 at
+    stride 1, K25's noisy log with the absolute floor and its lifter and
+    exp, K26's four stages, K27 in numerator mode and K31 (bit-equal to
+    its twin run on the CPU: the same values sorted, the same sequential
+    sum; a row with a NaN too)."""
+    rng = np.random.default_rng(24)
+    f64 = dict(dtype=torch.float64, device=cuda)
+    R, H = 50, 1025
+    spec = [torch.as_tensor(rng.standard_normal((R, H)), **f64)
+            for _ in range(4)]
+    f0s = torch.as_tensor(rng.uniform(80, 400, R), **f64)
+    h = torch.trunc(prims.rdiv(1.5 * 48000, f0s) + 1.0).long()
+    gate = torch.zeros(R, dtype=torch.bool, device=cuda)
+    b_c = 4 * 2 ** torch.floor(torch.log((2 * h + 1).double())
+                               / cfg.K_LOG2).long()
+    keep = b_c == 2048
+    args = [v[keep] for v in (*spec, f0s, h, gate)]
+    args[:4] = [a[:, :1025] for a in args[:4]]
+    got = sm.if_readout(*args, 48000, 2048)
+    want = sm.if_readout_plain(*args, 48000, 2048)
+    assert torch.allclose(got, want, rtol=1e-13, atol=0)
+    ps = spec[0].abs() * 1e-3
+    ps[:5, :100] = 0.0
+    from hts_train_world_tpu_torch.ops import rand
+    stream = rand.randn_stream(R * H + 16, cuda)
+    noff = torch.arange(R, device=cuda) * H
+    for stage, kw in ((ct.LOG, dict(noise=stream, noff=noff, parity=True)),
+                      (ct.LIFTER, dict(cf0=f0s, fs=48000, fft_size=2048,
+                                       q1=-0.15)), (ct.EXP, {})):
+        g = ct.lifter(ps, stage, **kw)
+        w = ct.lifter_plain(ps, stage, **kw)
+        assert g.dtype == torch.float64
+        assert torch.allclose(g, w, rtol=1e-14, atol=1e-300)
+    f0 = torch.where(f0s > 300, torch.zeros_like(f0s), f0s)
+    for g, w in zip(d4c_mod.love_train_sums(ps, f0, 9, 342, 674, 0.0),
+                    d4c_mod.love_train_sums_plain(ps, f0, 9, 342, 674,
+                                                  0.0)):
+        assert torch.allclose(g.double(), w.double(), rtol=1e-13, atol=0)
+    assert torch.allclose(d4c_mod.centroid_sum(*spec, *spec),
+                          d4c_mod.centroid_sum_plain(*spec, *spec),
+                          rtol=0, atol=0)
+    assert torch.equal(d4c_mod.group_delay_ratio(spec[0], ps),
+                       d4c_mod.group_delay_ratio_plain(spec[0], ps))
+    win = torch.as_tensor(prims.nuttall_window_np(257), **f64)
+    assert torch.equal(d4c_mod.band_segments(spec[0], spec[1], (3, 300),
+                                             win),
+                       d4c_mod.band_segments_plain(spec[0], spec[1],
+                                                   (3, 300), win))
+    p = ps.clone()
+    p[7, 11] = float("nan")
+    num, den = d4c_mod.band_sort_sums(p, H - 40)
+    numw, denw = d4c_mod.band_sort_sums_plain(p.cpu(), H - 40)
+    assert torch.equal(num.cpu(), numw) and torch.equal(
+        torch.nan_to_num(den.cpu()), torch.nan_to_num(denw))
+    assert bool(torch.isnan(den[7])) and not bool(torch.isnan(num[7]))
+    cf0 = torch.clamp(f0s, min=47.0)
+    process = f0s < 300
+    for g, w in zip(d4c_mod.aperiodicity(den[:, None], num[:, None], cf0,
+                                         process, 48000, 2048, num=True),
+                    d4c_mod.aperiodicity_plain(den[:, None], num[:, None],
+                                               cf0, process, 48000, 2048,
+                                               num=True)):
+        assert torch.allclose(g, w, rtol=1e-13, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("fs,dur", [(16000, 0.6), (44100, 0.3)])
+def test_parity_analysis_matches_the_cpu_path(cuda, fs, dur):
+    """`vocoder.analyze` at parity on the card against the same call on
+    the CPU: every float64 kernel launched, no twin; f0 at rel 1e-9, sp
+    at rel 1.5e-8, ap at 1e-9 (the CPU tests' bounds against the JAX
+    package)."""
+    rng = np.random.default_rng(16)
+    n = int(dur * fs)
+    x = 0.5 * np.sin(2 * np.pi * np.cumsum(np.linspace(140, 260, n)) / fs) \
+        + 0.01 * rng.standard_normal(n)
+    x[n // 3:n // 2] = 0.05 * rng.standard_normal(n // 2 - n // 3)
+    kernels.reset_counts()
+    a = vocoder.analyze(x, fs, device=cuda)
+    for name in ("frame_window", "spectral_smooth", "fix_f0",
+                 "dio_candidates", "stonemask_if", "cheaptrick_lifter",
+                 "d4c_group_delay", "d4c_aperiodicity"):
+        assert kernels.launches[f"{name}[f64]"] > 0, name
+    assert kernels.launches["d4c_band_sort"] > 0
+    b = vocoder.analyze(x, fs, device="cpu")
+    assert torch.allclose(a.f0.cpu(), b.f0, rtol=1e-9, atol=0)
+    assert torch.allclose(a.spectrogram.cpu(), b.spectrogram, rtol=1.5e-8,
+                          atol=0)
+    assert torch.allclose(a.aperiodicity.cpu(), b.aperiodicity, rtol=0,
+                          atol=1e-9)

@@ -25,6 +25,7 @@ from hts_train_world_tpu.ops import prims as jprims
 from hts_train_world_tpu.ops import rand as jrand
 from hts_train_world_tpu.ops import synthesis as jsyn
 from hts_train_world_tpu_torch import cli, vocoder
+from hts_train_world_tpu_torch import config as cfg
 from hts_train_world_tpu_torch.features import decode
 from hts_train_world_tpu_torch.io import rawio, wavio, worldparam
 from hts_train_world_tpu_torch.ops import prims, rand
@@ -282,15 +283,29 @@ def test_worldparam_round_trip_through_parity_synthesis(tmp_path):
 
 
 def test_parity_analysis_and_cli_analysis_still_raise(tmp_path):
-    """Parity analysis is ROADMAP Queue A 5's analysis half: analyze,
-    copy_synthesis and `analysis` without --f32 raise, naming it."""
-    x = np.zeros(1600, np.float32)
-    for call in (vocoder.analyze, vocoder.copy_synthesis):
-        with pytest.raises(NotImplementedError, match="analysis half"):
-            call(x, FS, device="cpu")
+    """Parity analysis runs (it raised before the port had it; the name is
+    kept): analyze and copy_synthesis at their default give float64 on
+    the reference's noise streams, and `analysis` without --f32 writes
+    the float32 files of that analysis (raw f0 / sp / ap at mgcdim 0).
+    The JAX comparison is tests/test_torch_parity_analysis.py's."""
+    t = np.arange(4000) / FS
+    x = 0.5 * np.sin(2 * np.pi * 180.0 * t) + 0.2 * np.sin(
+        2 * np.pi * 360.0 * t)
+    a = vocoder.analyze(x, FS, device="cpu")
+    a2, y = vocoder.copy_synthesis(x, FS, device="cpu")
+    assert all(v.dtype == torch.float64 for v in
+               (a.f0, a.spectrogram, a.aperiodicity, y))
+    assert (a.f0 > 0).sum() > 5 and torch.equal(a.f0, a2.f0)
+    assert y.shape == (cfg.y_length_for(a.f0.shape[0], FP, FS),)
+    assert torch.isfinite(y).all() and y.abs().max() > 0.05
     wav = str(tmp_path / "x.wav")
     wavio.wavwrite(x, FS, wav)
-    with pytest.raises(NotImplementedError, match="Queue A 5"):
-        cli.main(["analysis", wav, *(str(tmp_path / f"o.{k}")
-                                     for k in ("lf0", "mgc", "bap")),
-                  "--device", "cpu"])
+    outs = [str(tmp_path / f"o.{k}") for k in ("lf0", "mgc", "bap")]
+    cli.main(["analysis", wav, *outs, "--device", "cpu"])
+    b = vocoder.analyze(wavio.wavread(wav)[0], FS, device="cpu")
+    half = b.fft_size // 2 + 1
+    for path, v, d in zip(outs, (b.f0, b.spectrogram, b.aperiodicity),
+                          (1, half, half)):
+        np.testing.assert_array_equal(
+            rawio.read_f32(path, d).reshape(v.shape),
+            v.numpy().astype(np.float32))

@@ -473,8 +473,10 @@ def test_run_raises_at_trdnn_after_mkdat(runs, tmp_path):
     """Past MKDAT the DNN half runs (tests/test_torch_pipeline_dnn.py);
     here TRDNN refuses an ffi file whose size is not a whole number of
     the question set's frames, leaving MKDAT done and TRDNN not; before
-    any training synthesize_unseen finds no checkpoint; parity=True
-    raises, naming its ROADMAP item."""
+    any training synthesize_unseen finds no checkpoint; at parity=True
+    ANALYZE runs per utterance in float64 (it raised before the port had
+    parity analysis), its files of the run's frame counts and its lf0
+    within 1e-3 of the fast path's (median over voiced frames)."""
     _, wt, _, _ = runs
     wd = str(tmp_path / "copy")
     shutil.copytree(wt, wd)
@@ -492,9 +494,20 @@ def test_run_raises_at_trdnn_after_mkdat(runs, tmp_path):
                for u in range(3))
     with pytest.raises(RuntimeError, match="no trained checkpoint"):
         p.synthesize_unseen("utt0")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pl.SingingPipeline(pl.PipelineConfig(
-            wt + "_parity", fs=FS, parity=True, device="cpu")).analyze()
+    wp = str(tmp_path / "parity")
+    os.makedirs(os.path.join(wp, "labels", "mono"))
+    shutil.copytree(os.path.join(wt, "raw"), os.path.join(wp, "raw"))
+    q = pl.SingingPipeline(pl.PipelineConfig(wp, fs=FS, parity=True,
+                                             device="cpu"))
+    q.analyze()
+    assert q.manifest.done("ANALYZE")
+    for u in range(3):
+        fast = rawio.read_f32(p._p("lf0", f"utt{u}", "lf0"), 2)
+        par = rawio.read_f32(q._p("lf0", f"utt{u}", "lf0"), 2)
+        assert par.shape == fast.shape
+        v = (fast[:, 0] > 0) & (par[:, 0] > 0)
+        assert v.mean() > 0.5
+        assert np.median(np.abs(par[v, 0] - fast[v, 0])) < 1e-3
 
 
 def test_single_utterance_analyze_matches_the_batched_path(tmp_path):

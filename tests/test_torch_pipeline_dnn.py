@@ -26,10 +26,11 @@ from hts_train_world_tpu.models import training as jtraining
 from hts_train_world_tpu.ops import synthesis as jsyn
 from hts_train_world_tpu.runtime import pipeline as jpl
 from hts_train_world_tpu_torch import config as cfg
-from hts_train_world_tpu_torch import kernels
+from hts_train_world_tpu_torch import kernels, vocoder
 from hts_train_world_tpu_torch.features import decode
 from hts_train_world_tpu_torch.io import rawio, wavio
 from hts_train_world_tpu_torch.models import acoustic, recipe, training
+from hts_train_world_tpu_torch.ops import generation
 from hts_train_world_tpu_torch.ops import synthesis as syn
 from hts_train_world_tpu_torch.runtime import pipeline as pl
 from tests.test_torch_pipeline import FS, HALGN, make_corpus
@@ -260,7 +261,16 @@ def test_stages_timed_marked_and_run_on_the_plain_path(runs):
         assert p.manifest.done(s)
         assert s in p.stage_seconds
     assert sum(kernels.launches.values()) == 0
-    with pytest.raises(NotImplementedError, match="parity"):
-        pl.SingingPipeline(pl.PipelineConfig(
-            p.wd + "_parity", fs=FS, parity=True, device="cpu"))._synthesize(
-                np.zeros((4, 50)), np.zeros((4, 2)), np.zeros((4, 25)))
+    # WGEN at parity=True: the float64 decode and the parity synthesis (it
+    # raised before the port had parity analysis)
+    mgc, lf0, bap = (rawio.read_f32(p._p("gen", "utt0", e), d) for e, d in
+                     (("mgc", 50), ("lf0", 2), ("bap", 25)))
+    y = pl.SingingPipeline(pl.PipelineConfig(
+        p.wd + "_parity", fs=FS, parity=True, device="cpu"))._synthesize(
+            mgc, lf0, bap)
+    lf0_1 = np.where(lf0[:, 0] == generation.MAGIC, 0.0, lf0[:, 0])
+    want = vocoder.synthesize(*decode.decode_features(
+        *(torch.as_tensor(v, dtype=torch.float64) for v in
+          (lf0_1, mgc, bap)), FS, cfg.cheaptrick_fft_size(FS)), FS,
+        cfg.cheaptrick_fft_size(FS), parity=True, device="cpu")
+    assert y.dtype == torch.float64 and torch.equal(y, want)

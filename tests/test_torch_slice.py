@@ -175,11 +175,13 @@ def test_analyze_options_match_jax():
 
 @pytest.mark.parametrize("call", ["analyze", "synthesize", "copy_synthesis"])
 def test_parity_mode_is_a_later_slice(call):
-    """Parity analysis is a later slice (ROADMAP Queue A 5's analysis
-    half): analyze and copy_synthesis raise.  Parity synthesis is ported:
-    vocoder.synthesize's default (parity=True) is the JAX package's, on
-    the reference's noise stream, within 1e-10."""
-    x = np.zeros(1600, np.float32)
+    """Parity mode, each entry point at its default (parity=True; the
+    name is kept from when analysis raised): vocoder.synthesize is the
+    JAX package's on the reference's noise stream within 1e-10;
+    vocoder.analyze's f0 the JAX package's within 1e-9, and
+    copy_synthesis' waveform the JAX package's parity synthesis of the
+    port's own analysis within 1e-10 (tests/test_torch_parity_analysis.py
+    holds every part)."""
     if call == "synthesize":
         args = (np.full(11, 100.0), np.ones((11, 513)),
                 np.full((11, 513), 0.5), FS)
@@ -189,8 +191,21 @@ def test_parity_mode_is_a_later_slice(call):
         assert y.dtype == torch.float64 and np.abs(want).max() > 0.01
         np.testing.assert_allclose(y.numpy(), want, rtol=0, atol=1e-10)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(vocoder, call)(x, FS, device="cpu")
+    t = np.arange(4000) / FS
+    x = 0.5 * np.sin(2 * np.pi * 180.0 * t) + 0.2 * np.sin(
+        2 * np.pi * 360.0 * t)
+    if call == "analyze":
+        got = vocoder.analyze(x, FS, device="cpu").f0.numpy()
+        want = np.asarray(jvocoder.analyze(jnp.asarray(x), FS).f0)
+        assert (want > 0).sum() > 5
+        np.testing.assert_allclose(got, want, rtol=1e-9, atol=0)
+        return
+    a, y = vocoder.copy_synthesis(x, FS, device="cpu")
+    want = jvocoder.synthesize(*(jnp.asarray(v.numpy()) for v in (
+        a.f0, a.spectrogram, a.aperiodicity)), FS)
+    assert y.dtype == torch.float64 and np.abs(want).max() > 0.05
+    np.testing.assert_allclose(y.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-10)
 
 
 ENTRY_POINTS = {

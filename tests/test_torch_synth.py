@@ -76,6 +76,30 @@ def test_decode_spectral_envelope_matches_jax(fs):
         np.testing.assert_allclose(got32[u], want, rtol=1e-4, atol=0)
 
 
+def test_decode_tables_resist_in_place_writes():
+    """The cached codec tables are read-only and the tensor caches hold
+    copies: a write into a table a caller got back raises instead of
+    reaching every later decode (before, `torch.as_tensor` shared the
+    cached float64 arrays' memory with the tensors the decode reads), and
+    the decode after the attempt still matches the JAX package at 1e-10."""
+    fs = 16000
+    N = cfg.cheaptrick_fft_size(fs)
+    for tables in (codec._decoding_tables(fs, N, 50),
+                   codec._coding_tables(fs, N, 50)):
+        for t in tables:
+            with pytest.raises(ValueError, match="read-only"):
+                t[0] += 1
+    s_t = codec.decoding_tensors(fs, N, 50, torch.float64,
+                                 torch.device("cpu"))[1]
+    assert not np.shares_memory(s_t.numpy(), codec._decoding_tables(
+        fs, N, 50)[1])
+    c = _coded((6,), 50, 3)
+    got = codec.decode_spectral_envelope(_t(c), fs, N, 50).numpy()
+    want = np.asarray(jcodec.decode_spectral_envelope(jnp.asarray(c), fs,
+                                                      N, 50))
+    np.testing.assert_allclose(got, want, rtol=1e-10, atol=0)
+
+
 @pytest.mark.parametrize("fs", [16000, 48000])
 def test_decode_aperiodicity_matches_jax(fs):
     """WORLD's coarse-band decode (plain only) with the CheckVUV gate:
@@ -390,14 +414,22 @@ def test_cli_synth_wav_is_the_port_path(cli_run):
 
 
 def test_cli_without_f32_or_with_harvest_raises(tmp_path):
+    """`--harvest` without `--f32` (Harvest in float64, ROADMAP's
+    Harvest-f64 item) raises and writes nothing; `analysis` without
+    `--f32` is the parity analysis (it raised before the port had it; the
+    name is kept) and writes the encoded float32 files."""
     wav = str(tmp_path / "x.wav")
     wavio.wavwrite(np.zeros(1600), 16000, wav)
     outs = [str(tmp_path / f"o.{k}") for k in ("lf0", "mgc", "bap")]
-    with pytest.raises(NotImplementedError, match="parity"):
-        cli.main(["analysis", wav, *outs, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="parity"):
+    with pytest.raises(NotImplementedError, match="Harvest-f64"):
         cli.main(["analysis", wav, *outs, "--harvest", "--device", "cpu"])
     assert not any(os.path.exists(o) for o in outs)
+    cli.main(["analysis", wav, *outs, "5.0", "0", "50", "25", "--device",
+              "cpu"])
+    lf0, mgc, bap = (rawio.read_f32(o, d) for o, d in zip(outs, (1, 50, 25)))
+    assert len(lf0) == mgc.shape[0] == bap.shape[0] == 21
+    assert (lf0 == 0).all() and np.isfinite(mgc).all()
+    assert np.isfinite(bap).all()
 
 
 @pytest.mark.parametrize("call", ["batch_synth", "synth_lane", "cli"])
