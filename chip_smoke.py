@@ -56,12 +56,18 @@ Drives the port's paths at full size on a corpus made from a seed:
   noise streams (`parallel.batch.parity_stages`, vocoder.analyze(parity=
   True)'s path): the headline batch in float64 through DIO, StoneMask's
   bucket path, CheapTrick and D4C, `copy_synthesis` at its default at 16
-  kHz and 44.1 kHz, and the analysis CLI at its default.
+  kHz and 44.1 kHz, and the analysis CLI at its default;
+- the parity analysis with Harvest (`parity_stages(algorithm="harvest")`,
+  vocoder.analyze(algorithm="harvest")'s default): the headline batch in
+  float64 through Harvest (decimation, band filter, raw candidates,
+  detection, refinement, contour), CheapTrick and D4C, `analyze` at 16
+  kHz and 44.1 kHz, and `analysis --harvest` at its default.
 
-Thirty-one kernels, K1-K31, are built, driven and held to their twins;
+Thirty-two kernels, K1-K32, are built, driven and held to their twins;
 K9-K12 and K30 also in float64 for the parity synthesis, K1, K2, K4-K6
-and K24-K27 in float64 for the parity analysis, and K9 in its chunk mode
-(the streaming synthesizer's), counted and reported as `name[f64]` and
+and K24-K27 in float64 for the parity analysis, K13-K16 and K32 in
+float64 for its Harvest, and K9 in its chunk mode (the streaming
+synthesizer's), counted and reported as `name[f64]` and
 `synth_time_base[chunk]`.
 
 Phases (any failure raises):
@@ -76,7 +82,8 @@ Phases (any failure raises):
    version on the same inputs and hold them within the stated tolerance
    (K5, K8 and K14 also against float64 references; K9 and K11 bit for
    bit against the plain version run on the CPU, K11 also across two
-   launches); time kernel, plain version, bound and, where one exists,
+   launches; K32 bit for bit against its plain version on the CPU); time
+   kernel, plain version, bound and, where one exists,
    the library call; print the bounds of the plain-torch stages that have
    no kernel yet, from this run's shapes (K28 and K29 are replayed in
    phase 14, where their inputs are recorded);
@@ -181,7 +188,19 @@ Phases (any failure raises):
    encoded (mgc 50 / bap 25, K6 in float64), the card's float32 files
    against --device cpu's, the differing words counted (one ulp apart, or
    rounding-noise coefficients among the bap coefficients past c0 of the
-   unvoiced frames).
+   unvoiced frames);
+17. the parity analysis with Harvest: (a) the headline batch in float64
+   through Harvest (K13 f64, the complex128 band filter by `torch.fft`,
+   K14 f64, K32 f64, K15 f64, K16 f64), CheapTrick and D4C on the noise
+   streams, counted and recorded: stage ms (CUDA events), audio-s/s over
+   five batches after one, the idle share and peak memory of one, every
+   float64 Harvest launch replayed against its twin and timed, and the
+   band filter's time and bound; (b) `vocoder.analyze(algorithm=
+   "harvest")` at its default on a 16 kHz utterance of 0.6 s and a 44.1
+   kHz one of 0.3 s, card against CPU: t equal, f0 within 1e-9 rel, sp
+   1.5e-8 rel, ap 1e-9; (c) `analysis --harvest` without --f32, raw and
+   encoded, the card's float32 files against --device cpu's, counted as
+   in phase 16.
 
 Prints each measurement, the card's name and power limit, a `kernels`
 JSON line, and as the last line {"ok": true, "device": {...}}.  Exits
@@ -272,6 +291,18 @@ REPLACES = {
     "d4c_aperiodicity[f64]": ("K27 f64",
                               "hts_train_world_tpu/ops/d4c.py:196"),
     "d4c_band_sort": ("K31", "hts_train_world_tpu/ops/d4c.py:190"),
+    "harvest_detect": ("K32", "hts_train_world_tpu/ops/harvest_fix.py:71"),
+    # the parity analysis' Harvest: float64 instantiations of K13-K16, K32
+    "harvest_decimate[f64]": ("K13 f64",
+                              "hts_train_world_tpu/ops/prims.py:328"),
+    "harvest_candidates[f64]": ("K14 f64",
+                                "hts_train_world_tpu/ops/harvest.py:152"),
+    "harvest_detect[f64]": ("K32 f64",
+                            "hts_train_world_tpu/ops/harvest_fix.py:71"),
+    "harvest_refine[f64]": ("K15 f64",
+                            "hts_train_world_tpu/ops/harvest.py:428"),
+    "harvest_contour[f64]": ("K16 f64",
+                             "hts_train_world_tpu/ops/harvest_fix.py:121"),
 }
 BODY = ("cheaptrick_lifter", "d4c_group_delay", "d4c_aperiodicity")
 PARITY_ANALYSIS = tuple(f"{k}[f64]" for k in (
@@ -281,9 +312,13 @@ ANALYSIS = ("frame_window", "spectral_smooth", "topk_sum", "fix_f0",
             "dio_candidates", "stonemask_if") + BODY
 SYNTHESIS = ("synth_time_base", "synth_pulse_spectra", "synth_midpass",
              "synth_ola")
-HARVEST = ("harvest_decimate", "harvest_candidates", "harvest_refine",
-           "harvest_contour", "frame_window", "spectral_smooth",
-           "topk_sum") + BODY
+HARVEST_F0 = ("harvest_decimate", "harvest_candidates", "harvest_detect",
+              "harvest_refine", "harvest_contour")
+HARVEST = HARVEST_F0 + ("frame_window", "spectral_smooth", "topk_sum") + BODY
+# the parity analysis with Harvest: K13-K16 and K32 in float64, then
+# CheapTrick and D4C as in the parity analysis
+PARITY_HARVEST = tuple(f"{k}[f64]" for k in HARVEST_F0 + (
+    "frame_window", "spectral_smooth") + BODY) + ("d4c_band_sort",)
 # the kernels each path must launch
 PATHS = {
     "copy_synth": ANALYSIS + SYNTHESIS,
@@ -336,6 +371,10 @@ PATHS = {
     "parity_analysis": PARITY_ANALYSIS,
     "parity_analysis_encode": ("codec_encode[f64]",),
     "parity_analysis_cli": PARITY_ANALYSIS + ("codec_encode[f64]",),
+    # the parity analysis with Harvest, and `analysis --harvest` at its
+    # default
+    "parity_harvest": PARITY_HARVEST,
+    "parity_harvest_cli": PARITY_HARVEST + ("codec_encode[f64]",),
 }
 # the HSMM lane: RecipeConfig's defaults (models/recipe.py:45-47)
 HSMM_MODELS, HSMM_STATES, HSMM_MAX_DUR, HSMM_UTTS = 40, 5, 60, 128
@@ -2161,6 +2200,8 @@ def streaming_lane(counted, profiled, params, device="cuda",
 # the parity analysis lane (phase 16): DIO, StoneMask's bucket path,
 # CheapTrick and D4C in float64 on the reference's noise streams
 PARITY_AN_CASES = ((16000, 1.2), (44100, 0.5))
+# the parity analysis with Harvest (phase 17): card vs CPU
+PARITY_HV_CASES = ((16000, 0.6), (44100, 0.3))
 
 
 def parity_signal(fs: int, dur: float, seed: int = 16):
@@ -2177,29 +2218,36 @@ def parity_signal(fs: int, dur: float, seed: int = 16):
 
 
 def parity_analysis_lane(counted, profiled, device="cuda", batch=BATCH,
-                         dur=DUR, timed=ITERS):
-    """Phase 16 (a): the headline batch (bench.py's corpus, 48 kHz) in
-    float64 through `parallel.batch.parity_stages` (DIO, StoneMask's
-    bucket path, CheapTrick and D4C on the reseeded streams): counted and
-    recorded, stage ms, audio-s/s over `timed` batches after one warm
-    batch, the idle share of one batch under the profiler and its peak
-    device memory.  Returns (counts, recorded launches, (t, f0, sp, ap))."""
+                         dur=DUR, timed=ITERS, algorithm="dio"):
+    """Phase 16 (a), and with algorithm="harvest" phase 17 (a): the
+    headline batch (bench.py's corpus, 48 kHz) in float64 through
+    `parallel.batch.parity_stages` (DIO and StoneMask's bucket path, or
+    Harvest in float64; then CheapTrick and D4C on the reseeded streams):
+    counted and recorded, stage ms, audio-s/s over `timed` batches after
+    one warm batch, the idle share of one batch under the profiler and
+    its peak device memory.  Returns (counts, recorded launches, (t, f0,
+    sp, ap))."""
     import torch
     from hts_train_world_tpu_torch.parallel import batch as batch_mod
     xs = torch.as_tensor(corpus(batch, int(FS * dur)), dtype=torch.float64,
                          device=device)
     on_card = torch.device(device).type == "cuda"
+    path = "parity_harvest" if algorithm == "harvest" else "parity_analysis"
 
     def sync():
         if on_card:
             torch.cuda.synchronize()
 
+    def stages():
+        return batch_mod.parity_stages(xs, FS, FRAME_PERIOD,
+                                       algorithm=algorithm)
+
     def lane():
-        *_, (_, out) = batch_mod.parity_stages(xs, FS, FRAME_PERIOD)
+        *_, (_, out) = stages()
         return out
 
     lane()                                           # warm-up
-    out, counts, rec = counted("parity_analysis", lane, record=True)
+    out, counts, rec = counted(path, lane, record=True)
     t, f0, sp, ap = out
     B, T = f0.shape
     if sp.shape != (B, T, sp.shape[-1]) or ap.shape != sp.shape \
@@ -2220,7 +2268,7 @@ def parity_analysis_lane(counted, profiled, device="cuda", batch=BATCH,
     first = clock() if clock else None
     if first is not None:
         first.record()
-    for name, _ in batch_mod.parity_stages(xs, FS, FRAME_PERIOD):
+    for name, _ in stages():
         if clock:
             e = clock()
             e.record()
@@ -2251,8 +2299,9 @@ def parity_analysis_lane(counted, profiled, device="cuda", batch=BATCH,
         lane()
         sync()
         peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
-    print(f"parity analysis lane ({B} x {dur:.1f} s at {FS} Hz, float64 on "
-          f"the noise streams): {B * dur * timed / dt:.2f} audio-s/s over "
+    print(f"parity analysis lane with {algorithm} ({B} x {dur:.1f} s at {FS} "
+          f"Hz, float64 on the noise streams): "
+          f"{B * dur * timed / dt:.2f} audio-s/s over "
           f"{timed} batches ({1e3 * dt / timed:.1f} ms a batch); stages "
           + ", ".join(f"{n} {v:.1f} ms" for n, v in stage_ms.items())
           + f"; under the profiler {1e3 * wall:.1f} ms, device busy "
@@ -2312,11 +2361,49 @@ def float32_words(a, b, noise_at=None, noise: float = 1e-9):
     return int(differ.sum()), int(ulp.sum()), int(noisy.sum())
 
 
+def parity_harvest_card_vs_cpu(devices=("cuda", "cpu"),
+                               cases=PARITY_HV_CASES):
+    """Phase 17 (b): `vocoder.analyze(algorithm="harvest")` at its default
+    (parity: Harvest in float64, CheapTrick and D4C on the noise streams)
+    on one 16 kHz utterance of 0.6 s with unvoiced runs and one 44.1 kHz
+    utterance of 0.3 s (a frame grid of 220.5 samples, fs8 = 7350), on the
+    card and on the CPU: t equal, the same voicing, f0 at rel 1e-9, sp at
+    rel 1.5e-8, ap at 1e-9, the bounds the CPU tests hold against the JAX
+    package."""
+    import torch
+    from hts_train_world_tpu_torch import vocoder
+    for fs, dur in cases:
+        x = parity_signal(fs, dur)
+        a, b = [vocoder.analyze(x, fs, algorithm="harvest", device=d)
+                for d in devices]
+
+        def rel(u, v):
+            u, v = u.cpu(), v.cpu()
+            return float(((u - v).abs() / v.abs().clamp(min=1e-300))
+                         [(u != v)].max()) if bool((u != v).any()) else 0.0
+        t_same = bool(torch.equal(a.temporal_positions.cpu(),
+                                  b.temporal_positions.cpu()))
+        vuv = bool(torch.equal(a.f0.cpu() > 0, b.f0.cpu() > 0))
+        r_f0, r_sp = rel(a.f0, b.f0), rel(a.spectrogram, b.spectrogram)
+        e_ap = float((a.aperiodicity.cpu() - b.aperiodicity.cpu()).abs()
+                     .max())
+        print(f"parity Harvest analysis, {devices[0]} vs {devices[1]} ({fs} "
+              f"Hz, {dur} s, {int((b.f0 > 0).sum())} of {b.f0.numel()} "
+              f"frames voiced): t equal {t_same}, V/UV equal {vuv}; f0 rel "
+              f"{r_f0:.2e} (<= 1e-9), sp rel {r_sp:.2e} (<= 1.5e-8), ap "
+              f"|err| {e_ap:.2e} (<= 1e-9)", flush=True)
+        if not (t_same and vuv and r_f0 <= 1e-9 and r_sp <= 1.5e-8
+                and e_ap <= 1e-9 and bool((b.f0 > 0).any())):
+            raise RuntimeError(f"parity Harvest analysis at {fs} Hz: the "
+                               "card disagrees with the CPU path")
+
+
 def parity_analysis_cli(counted, devices=("cuda", "cpu"), fs=16000,
-                        dur=0.6):
-    """Phase 16 (c): `analysis` at its default (float64 parity, float32
-    files) on one wav, raw (mgcdim 0) and encoded (mgc 50 / bap 25, K6 in
-    float64, counted), on the card and with --device cpu: the float32
+                        dur=0.6, harvest=False):
+    """Phase 16 (c), and with `harvest` phase 17 (c): `analysis` at its
+    default (float64 parity, float32 files; with `--harvest`, Harvest in
+    float64) on one wav, raw (mgcdim 0) and encoded (mgc 50 / bap 25, K6
+    in float64, counted), on the card and with --device cpu: the float32
     words that differ, each one ulp apart or a rounding-noise coefficient,
     and those only among the bap coefficients past c0 of the frames the
     CPU's lf0 marks unvoiced (their flat aperiodicity codes to zero but
@@ -2329,16 +2416,17 @@ def parity_analysis_cli(counted, devices=("cuda", "cpu"), fs=16000,
         wav = os.path.join(d, "in.wav")
         wavio.wavwrite(parity_signal(fs, dur), fs, wav)
         counts = rec = None
+        path = "parity_harvest_cli" if harvest else "parity_analysis_cli"
+        extra = ["--harvest"] if harvest else []
         for dims in (("0",), ("0", "50", "25")):
             files = {}
             for dev in devices:
                 outs = [os.path.join(d, f"{dev}.{k}")
                         for k in ("lf0", "mgc", "bap")]
                 argv = ["analysis", wav, *outs, str(FRAME_PERIOD), *dims,
-                        "--device", dev]
+                        *extra, "--device", dev]
                 if len(dims) > 1 and counts is None:
-                    _, counts, rec = counted("parity_analysis_cli",
-                                             lambda: cli.main(argv),
+                    _, counts, rec = counted(path, lambda: cli.main(argv),
                                              record=True)
                 else:
                     cli.main(argv)
@@ -2356,7 +2444,8 @@ def parity_analysis_cli(counted, devices=("cuda", "cpu"), fs=16000,
                 tot = [tot[0] + a.size, tot[1] + n, tot[2] + ulp,
                        tot[3] + noisy]
             words, n, ulp, noisy = tot
-            kind = "raw" if len(dims) == 1 else "mgc 50 / bap 25"
+            kind = ("raw" if len(dims) == 1 else "mgc 50 / bap 25") + (
+                ", --harvest" if harvest else "")
             print(f"analysis CLI at its default ({kind}), {devices[0]} vs "
                   f"{devices[1]}: {n} of {words} float32 words differ ({ulp} "
                   f"by one ulp, {noisy} rounding-noise coefficients <= "
@@ -2588,6 +2677,7 @@ def main() -> int:
         "harvest_candidates": (hv.raw_candidates, hv.raw_candidates_plain),
         "harvest_refine": (hv.refine, hv.refine_plain),
         "harvest_contour": (hf.contour, hf.contour_plain),
+        "harvest_detect": (hv.detect_overlap, hv.detect_overlap_plain),
         "hsmm_loglik": (hsmm.batch_frame_loglik,
                         hsmm.batch_frame_loglik_plain),
         "hsmm_fb": (hsmm.segment_fb, hsmm.segment_fb_plain),
@@ -2748,8 +2838,15 @@ def main() -> int:
             # the channel rows it reads, the four streams' crossing tests
             fb = inp["filt"]
             samples = fb.shape[0] * fb.shape[1] * inp["plan"]["y_length"]
-            moved = 4 * samples + nbytes(*outs)
-            t_o = 12.0 * samples / F32_OPS_PER_S
+            moved = fb.element_size() * samples + nbytes(*outs)
+            t_o = 12.0 * samples / rate(fb)
+        elif name == "harvest_detect":
+            # the raw field read once and the spread field written once; a
+            # float64 add, a compare and a test a (frame, channel), ~10
+            # integer operations an output column
+            raw = inp["raw"]
+            t_o = (3.0 * raw.numel() / F64_OPS_PER_S
+                   + 10.0 * outs[0].numel() / F32_OPS_PER_S)
         elif name == "harvest_refine":
             # per non-zero pair, 2h+1 samples x 6 bins x 2 windows x 2 (re,
             # im) multiply-adds: what this run's candidates need
@@ -2757,7 +2854,7 @@ def main() -> int:
             ub, tt, cc = torch.nonzero(c > 0, as_tuple=True)
             _, B_dft = hv.refine_sizes(inp["fs8"], inp["f0_floor"])
             h = hv.pair_integers(c[ub, tt, cc], tt, inp["fs8"], B_dft)[0]
-            t_o = 48.0 * float((2 * h + 1).sum()) / F32_OPS_PER_S
+            t_o = 48.0 * float((2 * h + 1).sum()) / rate(c)
         elif name == "hsmm_loglik":
             # every stream (bap's weight 0 too): per (b, t, k, column) a
             # subtract, a square and a multiply-add; per stream ~8 more
@@ -2844,6 +2941,11 @@ def main() -> int:
                 torch.exp(inp["lf0"]),
                 codec.decode_spectral_envelope(m0, fs_, N_, m.shape[-1]),
                 torch.exp(fftmat.matmul(b0, W)))
+        if name == "harvest_detect":
+            # the run sums' prefix sums alone: one float64 cumsum over the
+            # channels (no runs, no means, no spreading)
+            return lambda: torch.cumsum(inp["raw"], dim=1,
+                                        dtype=torch.float64)
         if name == "harvest_refine":
             # torch.fft.rfft at the B-point size of every non-zero pair's
             # two windowed segments, and the six-bin gather
@@ -3107,11 +3209,57 @@ def main() -> int:
                 f"(kernel <= twin + 1e-6); zero/nonzero agreement "
                 f"{agree:.5f} >= 0.999")
 
+    def check_k14_f64(inp, out_k, out_p):
+        same = bool(torch.equal(out_k[1], out_p[1])
+                    and torch.equal(out_k[2], out_p[2]))
+        ck, cp = out_k[0], out_p[0]
+        zeros = bool(torch.equal(ck > 0, cp > 0))
+        rel = float(((ck - cp).abs() / cp.abs().clamp(min=1e-300)).max())
+        return (same and zeros and rel <= 1e-12, float((ck - cp).abs().max()),
+                f"float64: positions and n equal: {same}; zero pattern "
+                f"equal: {zeros}; rel {rel:.2e} <= 1e-12")
+
+    def check_k32(inp, out_k, out_p):
+        """The counts equal; the spread field bit for bit the twin's on
+        the CPU (both sum a run's channels in sequence), within 1e-12 (f64)
+        or one float32 rounding of the twin's on the card (a parallel
+        cumsum); the overlap, given the twin's detection, bit for bit."""
+        (ck, nk), (cp, npl) = out_k, out_p
+        cc, nc_c = hv.detect_overlap_plain(inp["raw"].cpu(), inp["nc_cap"])
+        counts = bool(torch.equal(nk, npl) and torch.equal(nk.cpu(), nc_c))
+        cpu_same = bool(torch.equal(ck.cpu(), cc))
+        tol = 1e-12 if ck.dtype == torch.float64 else 2.0 ** -23
+        err = (ck - cp).abs()
+        near = bool(torch.equal(ck > 0, cp > 0)
+                    and (err <= tol * cp.abs()).all())
+        frames = int((err > 0).any(-1).sum())
+        dets, _ = hv.detect_candidates(inp["raw"], inp["nc_cap"])
+        spread = bool(torch.equal(hv.overlap_candidates(dets, nk),
+                                  hv.overlap_candidates(dets, npl)))
+        return (counts and cpu_same and near and spread, float(err.max()),
+                f"counts equal: {counts}; bit-equal to the twin on the CPU: "
+                f"{cpu_same}; vs the twin on the card within {tol:.1e} "
+                f"relative: {near} ({frames} of {ck.shape[0] * ck.shape[1]} "
+                f"frames differ); overlap bit-equal given the twin's "
+                f"detection: {spread}")
+
     def check_k15(inp, out_k, out_p):
         """Refined f0 against the twin; a score is 1 / (mean relative
         harmonic error), ill-conditioned at weak harmonics, so the scores
         are held through that error against the float64 twin."""
         (gr, gs), (wr, ws) = out_k, out_p
+        if gr.dtype == torch.float64:
+            both = (gr > 0) & (wr > 0)
+            flips = int(((gr > 0) != (wr > 0)).sum())
+            n = int((wr > 0).sum())
+            rel = float(((gr - wr).abs() / wr)[both].max())
+            e_s = float((1.0 / gs[both] - 1.0 / ws[both]).abs().max())
+            return (flips <= 0.001 * n and rel <= 1e-9 and e_s <= 1e-9,
+                    float((gr - wr).abs()[both].max()),
+                    f"float64: refined f0 rel {rel:.2e} <= 1e-9 where both "
+                    f"nonzero; flips {flips} of {n} nonzero pairs <= 0.1 %; "
+                    f"mean harmonic error (1 / score) |err| {e_s:.2e} <= "
+                    f"1e-9")
         both = (gr > 0) & (wr > 0)
         flips = int(((gr > 0) != (wr > 0)).sum())
         n = int((wr > 0).sum())
@@ -3297,6 +3445,8 @@ def main() -> int:
         logs within 4 float64 ulps, the rest within 1e-12 relative."""
         base = kernels.base_name(name)
         eps = torch.finfo(torch.float64).eps
+        if base in HARVEST_F0:
+            return check(base, inp, out_k, out_p)
         if base in PARITY_BASES:
             return check_parity(base, inp, out_k, out_p)
         if base == "synth_time_base":
@@ -3454,19 +3604,26 @@ def main() -> int:
             err = (k - p).abs()
             worst = float((err / p.abs().amax(1, keepdim=True)
                            .clamp(min=1e-30)).max())
-            return (worst <= 1e-6, float(err.max()),
-                    f"per row |err| <= 1e-6 row max |plain| (both float64 "
-                    f"inside): worst row {worst:.2e}")
+            lim = 1e-12 if k.dtype == torch.float64 else 1e-6
+            return (worst <= lim, float(err.max()),
+                    f"per row |err| <= {lim:.0e} row max |plain| (both "
+                    f"float64 inside): worst row {worst:.2e}")
         if name == "harvest_candidates":
+            if out_k[0].dtype == torch.float64:
+                return check_k14_f64(inp, out_k, out_p)
             return check_k14(inp, out_k, out_p)
+        if name == "harvest_detect":
+            return check_k32(inp, out_k, out_p)
         if name == "harvest_refine":
             return check_k15(inp, out_k, out_p)
         if name == "harvest_contour":
             k, p = out_k[0], out_p[0]
             err = (k - p).abs()
+            lim = 1e-9 if k.dtype == torch.float64 else 1e-5
             ok = bool(torch.equal(k > 0, p > 0)
-                      and (err <= 1e-5 * p.abs()).all())
-            return (ok, float(err.max()), "V/UV equal, |err| <= 1e-5 |plain|")
+                      and (err <= lim * p.abs()).all())
+            return (ok, float(err.max()),
+                    f"V/UV equal, |err| <= {lim:.0e} |plain|")
         if name == "synth_time_base":
             return check_k9(inp, out_k)
         if name == "synth_pulse_spectra":
@@ -3569,7 +3726,8 @@ def main() -> int:
         lib_ms = cuda_ms(lib, reps=10, warm=2) if lib else None
         base = kernels.base_name(name)
         outs = (out_k[:2] if base == "dio_candidates"
-                else out_k[:1] if base == "harvest_candidates" else out_k)
+                else out_k[:1] if base in ("harvest_candidates",
+                                           "harvest_detect") else out_k)
         bms, by = bound_of(name, inp, outs)
         shape = "x".join(str(s) for s in out_k[
             1 if kernels.base_name(name) in ("synth_time_base", "hsmm_fb")
@@ -3687,7 +3845,6 @@ def main() -> int:
     plan_h = hv.harvest_plan(L, FS, cfg.K_FLOOR_F0, cfg.K_CEIL_F0)
     n_ch, nf, L8 = (len(hv.channel_layout(plan_h)), plan_h["fft_size"],
                     plan_h["y_length"])
-    T1 = cfg.samples_for_dio(FS, L, 1.0)
     R, H = BATCH * T, half + 1
     n_ap = cfg.number_of_aperiodicities(FS)
     print("plain-stage bounds (B=16 x 2.0 s @ 48 kHz): "
@@ -3698,13 +3855,6 @@ def main() -> int:
                         + 4 * BATCH * n_ch * nf,
                         2.5 * nf * np.log2(nf) * BATCH * (1 + n_ch)
                         + 6.0 * BATCH * n_ch * (nf // 2 + 1))
-          # raw candidates in, the overlapped candidates out; ~8 f32
-          # operations and one f64 add (the run sums) a (frame, channel)
-          + f"; Harvest detect/overlap ({BATCH}, {n_ch}, {T1}) -> "
-          f"({BATCH}, {T1}, {plan_h['nc_pad']}) "
-          + stage_bound(4 * BATCH * n_ch * T1
-                        + 4 * BATCH * T1 * plan_h["nc_pad"],
-                        8.0 * BATCH * n_ch * T1, 1.0 * BATCH * n_ch * T1)
           # WORLD's coarse-band bap decode (ops/codec.py:150-165): the
           # n_ap bands in, the (R, H) aperiodicity out; a gather-lerp and
           # 10 ** (x / 20) (~15 operations) a bin
@@ -4691,6 +4841,35 @@ def main() -> int:
     del rec_pac
     print(f"phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
 
+    # ---- 17. the parity analysis with Harvest: K13-K16 and K32 in
+    # float64, then CheapTrick and D4C on the reference's noise streams ----
+    t17 = time.perf_counter()
+    counts_ph17, rec_ph17, _ = parity_analysis_lane(
+        counted, profiled, algorithm="harvest")
+    for name, inp in rec_ph17:
+        if kernels.base_name(name) in HARVEST_F0:
+            replay("parity_harvest", name, inp)
+    # the float64 band filter (a library FFT product in both packages) at
+    # the headline shape: its time and its bound
+    y17 = next(i["y"] for n, i in rec_ph17
+               if n == "harvest_refine[f64]")
+    del rec_ph17
+    bf_ms = cuda_ms(lambda: hv.band_filter(y17, plan_h), reps=3)
+    print(f"Harvest band filter in float64 ({BATCH}, {L8}) -> ({BATCH}, "
+          f"{n_ch}, {nf}): {bf_ms:.3f} ms, bound "
+          # y in, the complex128 band spectra, the float64 rows out; a real
+          # FFT at 2.5 n log2 n, the complex product at 6 a bin, in float64
+          + stage_bound(8 * BATCH * L8 + 16 * n_ch * (nf // 2 + 1)
+                        + 8 * BATCH * n_ch * nf,
+                        ops64=2.5 * nf * np.log2(nf) * BATCH * (1 + n_ch)
+                        + 6.0 * BATCH * n_ch * (nf // 2 + 1)), flush=True)
+    del y17
+    torch.cuda.empty_cache()
+    parity_harvest_card_vs_cpu()
+    counts_phc, rec_phc = parity_analysis_cli(counted, harvest=True)
+    del rec_phc
+    print(f"phase 17: {time.perf_counter() - t17:.1f} s", flush=True)
+
     print(smi)
     src = "hts_train_world_tpu_torch/csrc/"
     by_path = {"copy_synth": counts_cs, "feature_lane": counts_fl,
@@ -4707,7 +4886,9 @@ def main() -> int:
                "parity_lane": counts_pl, "parity_cli": counts_pc,
                "streaming": counts_st, "parity_analysis": counts_pa16,
                "parity_analysis_encode": counts_pe16,
-               "parity_analysis_cli": counts_pac}
+               "parity_analysis_cli": counts_pac,
+               "parity_harvest": counts_ph17,
+               "parity_harvest_cli": counts_phc}
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": src + kernels.KERNELS[kernels.base_name(name)][0],

@@ -14,12 +14,13 @@ reads the float32 files into float64, decodes them by K12 in float64 and
 synthesises by `vocoder.synthesize(parity=True)` (the exact path on the
 reference's noise stream).  Both write float32 files, as the reference
 binaries do.  `--f32` picks the fast path.  `--harvest` picks Harvest
-for F0 (the JAX CLI's extension), with `--f32` only: Harvest in float64
-is ROADMAP.md's Harvest-f64 item and raises.  `--device` (default
-`cuda`) picks the device; a missing card is an error.
+for F0 (the JAX CLI's extension) on either path: in float64 at parity,
+then K6 in float64 for mgcdim > 0, as the JAX CLI runs it under x64.
+`--device` (default `cuda`) picks the device; a missing card is an
+error.
 
 Run: python -m hts_train_world_tpu_torch.cli analysis in.wav out.lf0 \\
-         out.mgc out.bap [fp fftlen mgcdim bapdim] [--f32 [--harvest]] \\
+         out.mgc out.bap [fp fftlen mgcdim bapdim] [--f32] [--harvest] \\
          [--device cpu]
      python -m hts_train_world_tpu_torch.cli synth in.lf0 in.mgc in.bap \\
          out.wav fp fftlen fs [mgcdim bapdim] [--f32] [--device cpu]

@@ -15,7 +15,9 @@
 // host; then every thread reruns its chunk from its true start state and
 // writes the filter's output.  Pass 1 keeps its output in a float64 row of
 // device scratch; pass 2 reads it reversed and writes only the picked
-// samples, rounded to f32.
+// samples in the row's type.  The kernel is a template on that type: f32
+// rows (the fast path) get their samples rounded to f32, double rows (the
+// parity analysis' Harvest) keep them; the recurrence is float64 in both.
 //
 // Bound: latency.  Each pass is 2 x ceil((n + 18) / 1024) dependent float64
 // steps per thread plus a 10-step scan; bytes (the row read twice, 16 B a
@@ -51,7 +53,8 @@ __device__ __forceinline__ V3 shfl_up(V3 v, int o) {
 }
 
 // sample i of the reflect-padded row (matlabfunctions.cpp:190-197)
-__device__ __forceinline__ double padded(const float* x, int n, int i) {
+template <typename T>
+__device__ __forceinline__ double padded(const T* x, int n, int i) {
   if (i < PAD) return 2.0 * (double)x[0] - (double)x[PAD - i];
   if (i < PAD + n) return (double)x[i - PAD];
   return 2.0 * (double)x[n - 1] - (double)x[n - 2 - (i - PAD - n)];
@@ -107,16 +110,16 @@ __device__ void filter_pass(In in, Out out, int M, int chunk,
   __syncthreads();
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-harvest_decimate_kernel(const float* __restrict__ x, int n, int r, int chunk,
+harvest_decimate_kernel(const T* __restrict__ x, int n, int r, int chunk,
                         int nbeg, int count, const double* __restrict__ tab,
-                        double* __restrict__ scratch,
-                        float* __restrict__ out) {
+                        double* __restrict__ scratch, T* __restrict__ out) {
   __shared__ V3 tot[WARPS];
   const int M = n + 2 * PAD;
-  const float* xr = x + (size_t)blockIdx.x * n;
+  const T* xr = x + (size_t)blockIdx.x * n;
   double* sc = scratch + (size_t)blockIdx.x * M;
-  float* o = out + (size_t)blockIdx.x * count;
+  T* o = out + (size_t)blockIdx.x * count;
   filter_pass([&](int t) { return padded(xr, n, t); },
               [&](int t, double y) { sc[t] = y; }, M, chunk, tab, tot);
   // pass 2 on the reversed row; its output reversed again is picked at
@@ -125,21 +128,29 @@ harvest_decimate_kernel(const float* __restrict__ x, int n, int r, int chunk,
   filter_pass([&](int t) { return sc[M - 1 - t]; },
               [&](int t, double y) {
                 const int d = last - t;
-                if (d >= 0 && d % r == 0 && d / r < count) o[d / r] = (float)y;
+                if (d >= 0 && d % r == 0 && d / r < count) o[d / r] = (T)y;
               },
               M, chunk, tab, tot);
 }
 
 }  // namespace
 
-extern "C" int harvest_decimate_launch(const float* x, int B, int n, int r,
+// f64: 0 for float rows x and out, 1 for double.
+extern "C" int harvest_decimate_launch(const void* x, int B, int n, int r,
                                        int chunk, int nbeg, int count,
-                                       const double* tab, double* scratch,
-                                       float* out, cudaStream_t s) {
+                                       int f64, const double* tab,
+                                       double* scratch, void* out,
+                                       cudaStream_t s) {
   if (B <= 0) return (int)cudaGetLastError();
   if ((long long)chunk * THREADS < (long long)n + 2 * PAD)
     return (int)cudaErrorInvalidValue;
-  harvest_decimate_kernel<<<B, THREADS, 0, s>>>(x, n, r, chunk, nbeg, count,
-                                                tab, scratch, out);
+  if (f64)
+    harvest_decimate_kernel<double><<<B, THREADS, 0, s>>>(
+        static_cast<const double*>(x), n, r, chunk, nbeg, count, tab, scratch,
+        static_cast<double*>(out));
+  else
+    harvest_decimate_kernel<float><<<B, THREADS, 0, s>>>(
+        static_cast<const float*>(x), n, r, chunk, nbeg, count, tab, scratch,
+        static_cast<float*>(out));
   return (int)cudaGetLastError();
 }

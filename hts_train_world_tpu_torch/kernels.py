@@ -1,6 +1,6 @@
 """Build, load and launch the hand-written CUDA kernels.
 
-Thirty-one kernels, K1-K31 (`KERNELS`).  Each source under `csrc/` is
+Thirty-two kernels, K1-K32 (`KERNELS`).  Each source under `csrc/` is
 compiled by `nvcc` for `sm_90a` into its own shared library with a plain
 C interface, loaded with `ctypes`.  Nothing
 happens at import time: the first launch builds every kernel (one `nvcc`
@@ -13,7 +13,9 @@ launch; `launch` raises on anything but success.  `launches` counts each
 kernel's launches (and nothing else), so a run can show that the main
 path went through the kernels.  When `record` is a list, each launch also
 appends `(name, inputs)` to it, so the inputs the main path gave a kernel
-can be replayed through the kernel and its plain version.
+can be replayed through the kernel and its plain version; a wrapper
+that launches its kernel in stages records the call once, at its first
+stage.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
               "-Xptxas", "-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I = ctypes.c_void_p, ctypes.c_int
 _D = ctypes.c_double
 _L = ctypes.c_longlong
 
@@ -77,17 +79,17 @@ KERNELS = {
                      [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I,
                       _P, _P, _P]),
     "harvest_decimate": ("harvest_decimate.cu", "harvest_decimate_launch",
-                         [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
+                         [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
     "harvest_candidates": ("harvest_candidates.cu",
                            "harvest_candidates_launch",
-                           [_P, _I, _I, _I, _I, _P, _P, _F, _F, _F, _I, _F,
-                            _I, _P, _P, _P, _P]),
+                           [_P, _I, _I, _I, _I, _P, _P, _D, _D, _D, _I, _D,
+                            _I, _I, _P, _P, _P, _P]),
     "harvest_refine": ("harvest_refine.cu", "harvest_refine_launch",
-                       [_P, _P, _I, _I, _I, _I, _I, _I, _P, _F, _F, _F, _P,
-                        _P]),
+                       [_P, _P, _I, _I, _I, _I, _I, _I, _P, _D, _D, _D, _I,
+                        _P, _P]),
     "harvest_contour": ("harvest_contour.cu", "harvest_contour_launch",
-                        [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                         _P, _P, _P]),
+                        [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                         _P, _P, _P, _P]),
     "hsmm_loglik": ("hsmm_loglik.cu", "hsmm_loglik_launch",
                     [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
     "hsmm_fb": ("hsmm_fb.cu", "hsmm_fb_launch",
@@ -127,6 +129,9 @@ KERNELS = {
                       [_P] * 7 + [_L, _I, _I, _P, _P, _P, _P]),
     "d4c_band_sort": ("d4c_band_sort.cu", "d4c_band_sort_launch",
                       [_P, _I, _I, _I, _P, _P]),
+    "harvest_detect": ("harvest_detect.cu", {
+        "harvest_detect_launch": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
+        "harvest_overlap_launch": [_P, _P, _P, _I, _I, _I, _I, _P]}),
 }
 
 launches: collections.Counter = collections.Counter()
@@ -205,14 +210,15 @@ def build() -> str:
         return d
 
 
-def launch(name: str, args: list, inputs: dict, fn: str | None = None,
-           variant: str | None = None) -> None:
+def launch(name: str, args: list, inputs: dict | None,
+           fn: str | None = None, variant: str | None = None) -> None:
     """Launch kernel `name` on the current stream with C arguments
     `args`, through its launcher `fn` where it has one for each stage;
     `inputs` (the wrapper's tensors and scalars) is what `record` keeps
-    for a replay.  A `variant` (the float64 instantiation of a kernel
-    that also runs in float32, K9's chunk mode) is counted and recorded
-    as `name[variant]`."""
+    for a replay, None for a later stage of a call already recorded.  A
+    `variant` (the float64 instantiation of a kernel that also runs in
+    float32, K9's chunk mode) is counted and recorded as
+    `name[variant]`."""
     build()
     fns, err = _libs[name]
     stream = torch.cuda.current_stream().cuda_stream
@@ -222,7 +228,7 @@ def launch(name: str, args: list, inputs: dict, fn: str | None = None,
                            f"{err(rc).decode()} ({rc})")
     key = name if variant is None else f"{name}[{variant}]"
     launches[key] += 1
-    if record is not None:
+    if record is not None and inputs is not None:
         record.append((key, inputs))
 
 

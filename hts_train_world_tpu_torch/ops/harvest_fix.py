@@ -337,30 +337,34 @@ def contour_plain(refined, scores):
 
 
 def contour(refined, scores):
-    """K16: `contour_plain` in one launch, one block per utterance."""
+    """K16: `contour_plain` in one launch, one block per utterance; f32
+    or float64 fields."""
     if not refined.is_cuda:
         return contour_plain(refined, scores)
     B, T, NC = refined.shape
-    if (refined.dtype != torch.float32 or scores.dtype != torch.float32
+    dt = refined.dtype
+    if (dt not in (torch.float32, torch.float64) or scores.dtype != dt
             or scores.shape != refined.shape or T < 3):
-        raise ValueError("contour: f32 refined and scores (B, T >= 3, NC)")
+        raise ValueError("contour: f32 or f64 refined and scores (B, T >= 3, "
+                         "NC) of one dtype")
+    f64 = dt == torch.float64
     rc, sc = refined.contiguous(), scores.contiguous()
     kernels.check_cuda("contour", rc, sc)
     dev = rc.device
     cap3, cap_s = step3_section_cap(T), smooth_section_cap(T)
     rows_s = min(THREADS_K16, cap_s)
     runs = T // 2 + 2
-    fields = torch.empty((B, 2, T, NC), dtype=torch.float32, device=dev)
-    conts = torch.empty((B, 4, T), dtype=torch.float32, device=dev)
-    multi = torch.empty((B, cap3, T), dtype=torch.float32, device=dev)
+    fields = torch.empty((B, 2, T, NC), dtype=dt, device=dev)
+    conts = torch.empty((B, 4, T), dtype=dt, device=dev)
+    multi = torch.empty((B, cap3, T), dtype=dt, device=dev)
     smooth = torch.empty((B, rows_s, T + 2 * SMOOTH_LAG), dtype=torch.float64,
                          device=dev)
     ints = torch.empty((B, 6, runs), dtype=torch.int32, device=dev)
     sums = torch.empty((B, cap3), dtype=torch.float64, device=dev)
-    out = torch.empty((B, T), dtype=torch.float32, device=dev)
+    out = torch.empty((B, T), dtype=dt, device=dev)
     kernels.launch("harvest_contour", [
         rc.data_ptr(), sc.data_ptr(), B, T, NC, cap3, cap_s, rows_s, runs,
-        fields.data_ptr(), conts.data_ptr(), multi.data_ptr(),
+        int(f64), fields.data_ptr(), conts.data_ptr(), multi.data_ptr(),
         smooth.data_ptr(), ints.data_ptr(), sums.data_ptr(), out.data_ptr()],
-        dict(refined=rc, scores=sc))
+        dict(refined=rc, scores=sc), variant="f64" if f64 else None)
     return out

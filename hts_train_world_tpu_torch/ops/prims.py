@@ -632,16 +632,17 @@ def _decimate_table(r: int, chunk: int, device):
 
 
 def decimate(x, r: int):
-    """K13: `decimate_plain` of f32 rows x (B, n) in one launch, one
-    block per row; the recurrence runs in float64 chunks whose start
-    states come from a scan of the chunks' zero-start end states."""
+    """K13: `decimate_plain` of f32 or float64 rows x (B, n) in one
+    launch, one block per row; the recurrence runs in float64 chunks whose
+    start states come from a scan of the chunks' zero-start end states."""
     if not x.is_cuda:
         return decimate_plain(x, r)
     B, n = x.shape
-    if x.dtype != torch.float32 or r not in DECIMATE_COEF \
-            or n < DECIMATE_PAD + 2:
-        raise ValueError("decimate: f32 rows longer than 10 samples, a "
-                         "ratio of 2-12")
+    f64 = x.dtype == torch.float64
+    if x.dtype not in (torch.float32, torch.float64) \
+            or r not in DECIMATE_COEF or n < DECIMATE_PAD + 2:
+        raise ValueError("decimate: f32 or f64 rows longer than 10 samples, "
+                         "a ratio of 2-12")
     x = x.contiguous()
     kernels.check_cuda("decimate", x)
     M = n + 2 * DECIMATE_PAD
@@ -651,8 +652,9 @@ def decimate(x, r: int):
     nout = (n - 1) // r + 1
     nbeg = r - r * nout + n
     scratch = torch.empty((B, M), dtype=torch.float64, device=x.device)
-    out = torch.empty((B, count), dtype=torch.float32, device=x.device)
+    out = torch.empty((B, count), dtype=x.dtype, device=x.device)
     kernels.launch("harvest_decimate", [
-        x.data_ptr(), B, n, r, chunk, nbeg, count, table.data_ptr(),
-        scratch.data_ptr(), out.data_ptr()], dict(x=x, r=r))
+        x.data_ptr(), B, n, r, chunk, nbeg, count, int(f64),
+        table.data_ptr(), scratch.data_ptr(), out.data_ptr()],
+        dict(x=x, r=r), variant="f64" if f64 else None)
     return out

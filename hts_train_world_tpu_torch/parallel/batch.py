@@ -64,23 +64,32 @@ def analyze_stages(xs, fs: int, frame_period: float = 5.0,
 def parity_stages(xs, fs: int, frame_period: float = 5.0,
                   q1: float = -0.15, d4c_threshold: float = 0.0,
                   fft_size: int = 0, f0_floor: float = cfg.K_FLOOR_F0,
-                  f0_ceil: float = cfg.K_CEIL_F0):
+                  f0_ceil: float = cfg.K_CEIL_F0, algorithm: str = "dio"):
     """The parity analysis (the JAX package's vocoder.analyze at
     parity=True, in float64) of equal-length utterances xs (B, L), stage
-    by stage, yielding (stage name, result): "dio", "stonemask",
+    by stage, yielding (stage name, result): "dio" and "stonemask", or
+    Harvest's stages (`harvest.harvest_f0_stages` in float64, then
+    "harvest", the 1 ms contour picked onto the frame grid), then
     "cheaptrick", then "d4c" with (t (B, T), f0, sp, ap).  Each window
     sits at its own position, so any frame grid runs.  CheapTrick and D4C
     read the reference's reseeded noise stream, each utterance from its
     start: one float64 tensor on the device serves the batch."""
+    check_algorithm(algorithm)
     if xs.dtype != torch.float64:
         raise ValueError("parity analysis takes float64 waveforms")
     dev = xs.device
     N = fft_size or cfg.cheaptrick_fft_size(fs)
-    t, f0, _, _ = dio_mod.dio(xs, fs, frame_period, f0_floor, f0_ceil,
-                              parity=True)
-    yield "dio", f0
-    f0 = sm.stonemask(xs, fs, t, f0, f0_floor, f0_ceil, parity=True)
-    yield "stonemask", f0
+    if algorithm == "harvest":
+        for stage, f0_1ms in hv.harvest_f0_stages(xs, fs, f0_floor, f0_ceil):
+            yield stage, f0_1ms
+        t, f0 = hv.frame_pick(f0_1ms, fs, xs.shape[1], frame_period)
+        yield "harvest", f0
+    else:
+        t, f0, _, _ = dio_mod.dio(xs, fs, frame_period, f0_floor, f0_ceil,
+                                  parity=True)
+        yield "dio", f0
+        f0 = sm.stonemask(xs, fs, t, f0, f0_floor, f0_ceil, parity=True)
+        yield "stonemask", f0
     T = f0.shape[1]
     sp = ct.cheaptrick_parity(
         xs, fs, t, f0, N, q1,

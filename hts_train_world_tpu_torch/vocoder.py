@@ -8,8 +8,9 @@ bucket path, CheapTrick and D4C in float64 with each window at its own
 position (so any frame grid, 44.1 kHz at 5 ms too) and the reseeded noise
 (`parallel.batch.parity_stages`); `synthesize` runs the exact path (the
 sequential phase fold, FFT responses, the reseeded stream) through K9-K11
-and K30 in float64.  Harvest at parity is not ported (ROADMAP.md's
-Harvest-f64 item) and raises.
+and K30 in float64.  `algorithm="harvest"` takes Harvest for F0 on either
+path: in float64 at parity (K13-K16 and K32 in float64), in float32 on the
+fast path.
 """
 from __future__ import annotations
 
@@ -28,10 +29,6 @@ from hts_train_world_tpu_torch.ops import prims, rand
 from hts_train_world_tpu_torch.ops import stonemask as sm
 from hts_train_world_tpu_torch.ops import synthesis as syn
 from hts_train_world_tpu_torch.parallel import batch as batch_mod
-
-HARVEST_F64 = ("Harvest in float64 (parity analysis with algorithm="
-               "'harvest') is not ported yet; see ROADMAP.md, Queue A 12 "
-               "(Harvest-f64).  Pass parity=False (float32) for Harvest.")
 
 F32_BUCKETS = ("StoneMask's float32 bucket path (estimate_f0 of a float32 "
                "waveform with fast_grid=False, or at a frame grid of no "
@@ -60,18 +57,17 @@ def estimate_f0(x, fs: int, frame_period: float = 5.0,
     (harvest.cpp:1223-1255; its refinement is built in, so no StoneMask),
     of one waveform -> (temporal positions (T,), f0 (T,)).  As in the JAX
     package, a float64 waveform (numpy or tensor) takes DIO's parity path
-    and StoneMask's bucket path at any frame grid; anything else runs in
-    float32, where `fast_grid` on an integral frame grid takes the slab
-    path and otherwise StoneMask's float32 bucket path, which is not
-    ported (NotImplementedError, ROADMAP.md's Queue A 11)."""
+    and StoneMask's bucket path at any frame grid, or Harvest in float64;
+    anything else runs in float32, where `fast_grid` on an integral frame
+    grid takes the slab path and otherwise StoneMask's float32 bucket
+    path, which is not ported (NotImplementedError, ROADMAP.md's Queue A
+    11)."""
     batch_mod.check_algorithm(algorithm)
     f64 = getattr(x, "dtype", None) in (torch.float64, np.float64)
     dev = device_mod.resolve(device)
     xs = torch.as_tensor(x, dtype=torch.float64 if f64 else torch.float32,
                          device=dev)[None]
     if algorithm == "harvest":
-        if f64:
-            raise NotImplementedError(HARVEST_F64)
         t, f0 = hv.harvest(xs, fs, frame_period, f0_floor, f0_ceil)
         return t, f0[0]
     gs = fs * frame_period / 1000.0
@@ -99,13 +95,12 @@ def analyze(x, fs: int, frame_period: float = 5.0, q1: float = -0.15,
     parity=False in float32 (the fast path)."""
     batch_mod.check_algorithm(algorithm)
     if parity:
-        if algorithm == "harvest":
-            raise NotImplementedError(HARVEST_F64)
         xs = torch.as_tensor(x, dtype=torch.float64,
                              device=device_mod.resolve(device))[None]
         N = fft_size or cfg.cheaptrick_fft_size(fs)
         *_, (_, (t, f0, sp, ap)) = batch_mod.parity_stages(
-            xs, fs, frame_period, q1, d4c_threshold, N, f0_floor, f0_ceil)
+            xs, fs, frame_period, q1, d4c_threshold, N, f0_floor, f0_ceil,
+            algorithm)
         return WorldAnalysis(t[0], f0[0], sp[0], ap[0], fs, N, frame_period)
     xs = device_mod.as_input(x, device)[None]
     gs = batch_mod.grid_step_for(fs, frame_period)

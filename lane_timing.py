@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Time the DIO lanes' audio-seconds per second on one GPU.
+"""Time the f32 lanes' audio-seconds per second on one GPU.
 
 Loads `hts_train_world_tpu_torch` from `--root` (default: this checkout),
 so that two trees of the port can be timed in one call on the same card,
-in turns, and runs chip_smoke.py's DIO lanes on its corpora:
+in turns, and runs chip_smoke.py's f32 lanes on its corpora:
 
-- copy-synthesis (`parallel.batch.batch_copy_synth`) and the feature lane
-  (`parallel.features.feature_lane`) on the headline batch, 16 x 2.0 s at
-  48 kHz: one warm batch, then `--reps` batches each timed on the host
-  clock to a synchronize;
+- copy-synthesis (`parallel.batch.batch_copy_synth`), the feature lane
+  (`parallel.features.feature_lane`) and the Harvest lane
+  (`parallel.batch.batch_analyze(algorithm="harvest")`) on the headline
+  batch, 16 x 2.0 s at 48 kHz: one warm batch, then `--reps` batches each
+  timed on the host clock to a synchronize;
 - corpus500 (`parallel.bucketing.bucketed_extract`, 500 utterances, 524.1
   s of audio): one warm run, then one timed run.
 
@@ -93,6 +94,8 @@ def main() -> int:
     lane("copy_synth", lambda s: batch.batch_copy_synth(xs, cs.FS,
                                                         seed=10 + s))
     lane("feature_lane", lambda s: features.feature_lane(xs, cs.FS))
+    lane("harvest_lane", lambda s: batch.batch_analyze(
+        xs, cs.FS, algorithm="harvest"))
     sigs = cs.corpus500()
     bucketing.bucketed_extract(sigs, cs.FS, max_batch=16)
     torch.cuda.synchronize()

@@ -32,8 +32,8 @@ DIO_KERNELS = ("frame_window", "spectral_smooth", "topk_sum", "fix_f0",
 COPY_SYNTH_KERNELS = DIO_KERNELS + SYNTH_KERNELS
 FEATURE_LANE_KERNELS = DIO_KERNELS + ("codec_encode", "delta_window",
                                       "mlpg_solve")
-HARVEST_KERNELS = ("harvest_decimate", "harvest_candidates", "harvest_refine",
-                   "harvest_contour")
+HARVEST_KERNELS = ("harvest_decimate", "harvest_candidates", "harvest_detect",
+                   "harvest_refine", "harvest_contour")
 
 
 @pytest.fixture
@@ -670,7 +670,7 @@ def test_parity_synthesis_and_streaming_match_the_cpu_path(cuda):
 
 
 # ---------------------------------------------------------------------------
-# the Harvest lane: K13-K16
+# the Harvest lane: K13-K16, K32; in float64 the parity analysis' Harvest
 # ---------------------------------------------------------------------------
 
 
@@ -699,11 +699,11 @@ def _voices(fs, n, kinds=("voice", "voice", "noise", "silence"), seed=0):
     return np.stack(rows)
 
 
-def _front(cuda, fs, n, kinds=("voice", "voice", "noise", "silence")):
+def _front(cuda, fs, n, kinds=("voice", "voice", "noise", "silence"),
+           dtype=torch.float32):
     """The plain front on the card: decimated rows, filtered bands, raw
-    candidates and the spread candidate field of each row."""
-    xs = torch.as_tensor(_voices(fs, n, kinds), dtype=torch.float32,
-                         device=cuda)
+    candidates and the spread candidate field of each row, in `dtype`."""
+    xs = torch.as_tensor(_voices(fs, n, kinds), dtype=dtype, device=cuda)
     plan = hv.harvest_plan(n, fs, 71.0, 800.0)
     T1 = cfg.samples_for_dio(fs, n, 1.0)
     lag = int(np.ceil(140.0 / plan["ratio"]) * plan["ratio"])
@@ -716,7 +716,8 @@ def _front(cuda, fs, n, kinds=("voice", "voice", "noise", "silence")):
     raw = hv.raw_candidates_plain(filt, plan, 71.0, 800.0, T1)
     cands, nc = hv.detect_candidates(raw, plan["nc_pad"])
     return dict(xs=xs, ext=ext, plan=plan, T1=T1, y=y.contiguous(),
-                filt=filt, cands=hv.overlap_candidates(cands, nc), nc=nc)
+                filt=filt, raw=raw, cands=hv.overlap_candidates(cands, nc),
+                nc=nc)
 
 
 @pytest.mark.parametrize("fs", [16000, 48000])
@@ -873,9 +874,11 @@ def test_harvest_lane_runs_the_kernels_and_matches_the_cpu_path(cuda):
 
 
 def test_harvest_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    """Float32 and float64 are taken; other dtypes, mixed dtypes, a ratio
+    past 12, a plan's wrong channel count and T < 3 are refused."""
     x = torch.zeros((2, 4000), device=cuda)
     with pytest.raises(ValueError):
-        prims.decimate(x.double(), 6)
+        prims.decimate(x.half(), 6)
     with pytest.raises(ValueError):
         prims.decimate(x, 13)
     plan = hv.harvest_plan(4000, 16000, 71.0, 800.0)
@@ -883,11 +886,197 @@ def test_harvest_wrappers_reject_what_the_kernels_do_not_take(cuda):
         hv.raw_candidates(torch.zeros((2, 3, plan["fft_size"]), device=cuda),
                           plan, 71.0, 800.0, 251)
     with pytest.raises(ValueError):
+        hv.raw_candidates(torch.zeros((2, plan["n_ch"], plan["fft_size"]),
+                                      dtype=torch.float16, device=cuda),
+                          plan, 71.0, 800.0, 251)
+    with pytest.raises(ValueError):
+        hv.detect_overlap(torch.zeros((2, 10, 7), dtype=torch.float16,
+                                      device=cuda), 7)
+    with pytest.raises(ValueError):
         hv.refine(x[:1], torch.zeros((2, 10, 7), device=cuda), 8000.0, 71.0,
                   800.0)
     with pytest.raises(ValueError):
+        hv.refine(x.double(), torch.zeros((2, 10, 7), device=cuda), 8000.0,
+                  71.0, 800.0)
+    with pytest.raises(ValueError):
         hf.contour(torch.zeros((2, 2, 7), device=cuda),
                    torch.zeros((2, 2, 7), device=cuda))
+    with pytest.raises(ValueError):
+        hf.contour(torch.zeros((2, 9, 7), device=cuda),
+                   torch.zeros((2, 9, 7), dtype=torch.float64, device=cuda))
+
+
+def _raw_fields(cuda, dtype, B=3, n_ch=152, T=120, seed=32):
+    """Random raw candidate fields (B, n_ch, T): a share of the channels
+    voiced at random with clean runs of 11-40 channels injected, so the
+    frames' candidate counts differ; the last utterance all zero."""
+    rng = np.random.default_rng(seed)
+    raw = np.where(rng.random((B, n_ch, T)) < 0.5,
+                   rng.uniform(60, 800, (B, n_ch, T)), 0.0)
+    for b in range(B - 1):
+        for _ in range(6 + 3 * b):
+            a = int(rng.integers(1, n_ch - 41))
+            t0 = int(rng.integers(0, T - 20))
+            raw[b, a:a + int(rng.integers(11, 41)), t0:t0 + 20] = \
+                rng.uniform(100, 700)
+    raw[-1] = 0.0
+    return torch.as_tensor(raw, dtype=dtype, device=cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("source", ["fields", "front16", "front48"])
+def test_k32_kernel_matches_plain(cuda, dtype, source):
+    """Detection and overlap: the counts equal the twin's; the spread field
+    bit for bit the twin's on the CPU (both sum a run's channels in
+    sequence), and on the card within 1e-12 relative of the twin (its
+    cumsum is a parallel scan) in float64, one float32 rounding in
+    float32; given the twin's detection, the overlap bit for bit."""
+    if source == "fields":
+        raw = _raw_fields(cuda, dtype)
+    else:
+        fs = 16000 if source == "front16" else 48000
+        raw = _front(cuda, fs, fs // 2, dtype=dtype)["raw"]
+    nc_pad = hv.harvest_plan(8000, 16000, 71.0, 800.0)["nc_pad"]
+    got, nc = hv.detect_overlap(raw, nc_pad)
+    want, nc_p = hv.detect_overlap_plain(raw, nc_pad)
+    cpu, nc_c = hv.detect_overlap_plain(raw.cpu(), nc_pad)
+    assert got.dtype == dtype and torch.equal(nc.cpu(), nc_p.cpu())
+    assert torch.equal(nc.cpu(), nc_c) and len(set(nc.tolist())) > 1
+    assert torch.equal(got.cpu(), cpu)
+    assert torch.equal(got > 0, want > 0) and (got > 0).any()
+    ulp = 1e-12 if dtype == torch.float64 else 2.0 ** -23
+    assert ((got - want).abs() <= ulp * want.abs()).all()
+    dets, _ = hv.detect_candidates(raw, nc_pad)
+    assert torch.equal(hv.overlap_candidates(dets, nc_p),
+                       hv.overlap_candidates(dets, nc))
+
+
+@pytest.mark.parametrize("fs", [16000, 44100])
+def test_k13_float64_kernel_matches_plain(cuda, fs):
+    """Float64 rows of voices, noise, clicks and silence: within 1e-12 of
+    each row's peak (the kernel's chunk scan reorders the twin's block
+    recurrence), float64 out, the C's output count."""
+    n = fs // 2
+    x = torch.as_tensor(_voices(fs, n, ("voice", "noise", "clicks",
+                                        "silence")), dtype=torch.float64,
+                        device=cuda)
+    r = hv.harvest_plan(n, fs, 71.0, 800.0)["ratio"]
+    kernels.reset_counts()
+    got = prims.decimate(x, r)
+    assert kernels.launches["harvest_decimate[f64]"] == 1
+    want = prims.decimate_plain(x, r)
+    assert got.dtype == torch.float64
+    assert got.shape == want.shape == (4, prims.decimate_count(n, r))
+    peak = want.abs().amax(1, keepdim=True)
+    assert ((got - want).abs() <= 1e-12 * peak + 1e-300).all()
+    assert (got[3] == 0).all()
+
+
+@pytest.mark.parametrize("fs", [16000, 44100])
+def test_k14_float64_kernel_matches_plain(cuda, fs):
+    """Float64 bands: crossing positions and counts identical to the
+    twin's, the same zero pattern, candidates within 1e-12 relative (the
+    same IEEE divisions and interpolation as the twin); the silent row
+    all zero."""
+    f = _front(cuda, fs, fs // 2, dtype=torch.float64)
+    plan, T1 = f["plan"], f["T1"]
+    got = hv.raw_candidates(f["filt"], plan, 71.0, 800.0, T1, crossings=True)
+    want = hv.raw_candidates_plain(f["filt"], plan, 71.0, 800.0, T1,
+                                   crossings=True)
+    assert got[0].dtype == torch.float64
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert torch.equal(got[0] > 0, want[0] > 0) and (got[0] > 0).any()
+    assert ((got[0] - want[0]).abs() <= 1e-12 * want[0].abs()).all()
+    assert (got[0][3] == 0).all()
+
+
+@pytest.mark.parametrize("fs", [16000, 44100])
+def test_k15_float64_kernel_matches_plain(cuda, fs):
+    """Float64, on a batch whose rows have different candidate counts:
+    refined f0 within 1e-9 relative where both are nonzero, flips at most
+    1 in 10^3 of the nonzero pairs, and the mean relative harmonic error
+    (1 / score) within 1e-9 of the twin's (the bins' sums run in another
+    order)."""
+    f = _front(cuda, fs, fs // 2, dtype=torch.float64)
+    assert len(set(f["nc"].tolist())) > 1
+    args = (f["plan"]["actual_fs"], 71.0, 800.0)
+    gr, gs = hv.refine(f["y"], f["cands"], *args)
+    wr, ws = hv.refine_plain(f["y"], f["cands"], *args)
+    assert gr.dtype == torch.float64
+    both = (gr > 0) & (wr > 0)
+    assert both.sum() > 100
+    assert ((gr > 0) != (wr > 0)).sum() <= 0.001 * (wr > 0).sum()
+    assert ((gr - wr).abs() <= 1e-9 * wr)[both].all()
+    assert (1.0 / gs[both] - 1.0 / ws[both]).abs().max() <= 1e-9
+
+
+@pytest.mark.parametrize("source", ["fields", "refined16", "refined44"])
+def test_k16_float64_kernel_matches_plain(cuda, source):
+    """Float64 fields: V/UV equal to the twin's, f0 within 1e-9 relative
+    (the smoothing's recurrence runs in another order); the all-zero
+    utterance all zero."""
+    if source == "fields":
+        c, s = (v.double() for v in _fields(cuda))
+    else:
+        fs = 16000 if source == "refined16" else 44100
+        f = _front(cuda, fs, fs // 2, dtype=torch.float64)
+        c, s = hv.refine_plain(f["y"], f["cands"], f["plan"]["actual_fs"],
+                               71.0, 800.0)
+    got = hf.contour(c, s)
+    want = hf.contour_plain(c, s)
+    assert got.dtype == torch.float64
+    assert (want > 0).float().mean() > 0.05
+    assert torch.equal(got > 0, want > 0)
+    assert ((got - want).abs() <= 1e-9 * want.abs()).all()
+    assert (got[-1] == 0).all()
+
+
+PARITY_HARVEST = tuple(f"{k}[f64]" for k in HARVEST_KERNELS)
+
+
+@pytest.mark.parametrize("name", ["silence", "clicks", "noise"])
+def test_parity_harvest_on_hostile_inputs(cuda, name):
+    """Silence, click trains and noise through the parity analysis with
+    Harvest (float64, `parity_stages(algorithm="harvest")`): K13-K16 and
+    K32 in float64 launched; finite, sp > 0, ap within [0, 1], float64
+    positions; silence all unvoiced."""
+    fs, n = 16000, 4800
+    x = torch.as_tensor(_voices(fs, n, (name, "voice")), dtype=torch.float64,
+                        device=cuda)
+    kernels.reset_counts()
+    *_, (_, (t, f0, sp, ap)) = batch.parity_stages(x, fs, algorithm="harvest")
+    torch.cuda.synchronize()
+    assert all(kernels.launches[k] > 0 for k in PARITY_HARVEST)
+    assert t.dtype == f0.dtype == torch.float64
+    for v in (f0, sp, ap):
+        assert torch.isfinite(v).all()
+    assert (sp > 0).all() and (ap >= 0).all() and (ap <= 1).all()
+    if name == "silence":
+        assert (f0[0] == 0).all()
+    assert (f0[1] > 0).float().mean() > 0.5
+
+
+@pytest.mark.parametrize("fs,dur", [(16000, 0.4), (44100, 0.2)])
+def test_parity_harvest_analysis_card_matches_cpu(cuda, fs, dur):
+    """`vocoder.analyze(algorithm="harvest")` at its default on the card
+    and on the CPU: t equal, the same voicing, f0 within 1e-9 relative, sp
+    within 1.5e-8 relative, ap within 1e-9 (the bounds the CPU tests hold
+    against the JAX package)."""
+    x = _voices(fs, int(fs * dur), ("voice",))[0]
+    a = vocoder.analyze(x, fs, algorithm="harvest")
+    b = vocoder.analyze(x, fs, algorithm="harvest", device="cpu")
+    assert torch.equal(a.temporal_positions.cpu(), b.temporal_positions)
+    assert torch.equal(a.f0.cpu() > 0, b.f0 > 0) and (b.f0 > 0).any()
+
+    def rel(u, v):
+        u = u.cpu()
+        return ((u - v).abs() / v.abs().clamp(min=1e-300))[u != v]
+
+    for got, want, tol in ((a.f0, b.f0, 1e-9),
+                           (a.spectrogram, b.spectrogram, 1.5e-8)):
+        r = rel(got, want)
+        assert r.numel() == 0 or r.max() <= tol
+    assert (a.aperiodicity.cpu() - b.aperiodicity).abs().max() <= 1e-9
 
 
 # ---------------------------------------------------------------------------

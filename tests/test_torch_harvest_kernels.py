@@ -291,6 +291,58 @@ def test_detect_overlap_match_jax():
     assert nc.tolist() == jnc and jnc[0] != jnc[1]
 
 
+def _k32_numpy(raw, nc_cap):
+    """K32's arithmetic in numpy: per (utterance, frame) the channels in
+    order, the float64 prefix sum, a run's mean as the difference of the
+    sums at its ends over its length, rounded once to the field's type;
+    then the overlap from each utterance's largest count."""
+    B, n_ch, T = raw.shape
+    dets = np.zeros((B, T, nc_cap), raw.dtype)
+    kc = np.zeros((B, T), np.int64)
+    nc = np.zeros(B, np.int64)
+    for u in range(B):
+        for t in range(T):
+            csum, at, start, k = 0.0, 0.0, -1, 0
+            for c in range(n_ch):
+                v = raw[u, c, t]
+                voiced = v > 0 and 0 < c < n_ch - 1
+                if voiced and start < 0:
+                    start, at = c, csum
+                elif not voiced and start >= 0:
+                    if c - start >= 10:
+                        if k < nc_cap:
+                            dets[u, t, k] = (csum - at) / float(c - start)
+                        k += 1
+                    start = -1
+                csum += float(v)
+            kc[u, t] = min(k, nc_cap)
+            nc[u] = max(nc[u], k)
+    out = np.zeros_like(dets)
+    for u in range(B):
+        ncb = max(nc[u], 1)
+        for t in range(T):
+            for col in range(nc_cap):
+                blk, j = divmod(col, ncb)
+                src = t - (0 if blk == 0 else blk if blk <= 3 else 3 - blk)
+                if blk < 7 and 0 <= src < T and j < kc[u, src]:
+                    out[u, t, col] = dets[u, src, j]
+    return out, nc
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_k32_arithmetic_in_numpy(dtype):
+    """K32's two stages, written out in numpy, equal the twin
+    (detect_candidates + overlap_candidates) bit for bit on two random
+    fields of different counts: the twin's float64 cumsum on the CPU sums
+    in sequence as the kernel does."""
+    raws = np.stack([_raw_field(7, T=40), _raw_field(8, voiced=0.1, T=40)]
+                    ).astype(dtype)
+    got, nc = _k32_numpy(raws, 91)
+    want, nc_t = hv.detect_overlap(torch.as_tensor(raws), 91)
+    assert nc.tolist() == nc_t.tolist() and nc[0] != nc[1]
+    np.testing.assert_array_equal(got, want.numpy())
+
+
 # ---------------------------------------------------------------------------
 # K15: refinement
 # ---------------------------------------------------------------------------

@@ -405,17 +405,6 @@ def test_estimate_f0_float32_bucket_path_raises(jax_runs):
     assert f0.dtype == torch.float32 and (f0 > 0).any()
 
 
-def test_harvest_at_parity_raises():
-    """Harvest in float64 is ROADMAP's Harvest-f64 item: analyze at
-    parity, copy_synthesis and estimate_f0 of a float64 waveform raise
-    naming it."""
-    x = _signal(16000, 0.1)
-    with pytest.raises(NotImplementedError, match="Harvest-f64"):
-        vocoder.analyze(x, 16000, algorithm="harvest", device="cpu")
-    with pytest.raises(NotImplementedError, match="Harvest-f64"):
-        vocoder.estimate_f0(x, 16000, algorithm="harvest", device="cpu")
-
-
 def _write_wav(path, x, fs):
     wavio.wavwrite(x, fs, path)
     return wavio.wavread(path)[0]
@@ -452,17 +441,6 @@ def test_cli_analysis_at_its_default_matches_jax(tmp_path, mgc):
         ulps += _ulp_words(g, w, _bap_noise_at(unvoiced, 25)
                            if mgc and ext == "bap" else None)
     assert ulps <= words // 1000, (ulps, words)
-
-
-def test_cli_harvest_without_f32_raises(tmp_path):
-    """`--harvest` without `--f32` is Harvest at parity: it raises and
-    writes nothing."""
-    wav = str(tmp_path / "x.wav")
-    wavio.wavwrite(np.zeros(1600), 16000, wav)
-    outs = [str(tmp_path / f"o.{k}") for k in ("lf0", "mgc", "bap")]
-    with pytest.raises(NotImplementedError, match="Harvest-f64"):
-        cli.main(["analysis", wav, *outs, "--harvest", "--device", "cpu"])
-    assert not any(os.path.exists(o) for o in outs)
 
 
 def test_pipeline_at_parity_matches_jax(tmp_path):

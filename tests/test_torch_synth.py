@@ -3,7 +3,6 @@ decoding half, the feature decode, the synth lane (decode -> count ->
 synthesis), `batch_synth`, the f32 round trip from a waveform and back,
 the `analysis` / `synth` command lines and their file I/O, and device
 handling."""
-import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -414,22 +413,22 @@ def test_cli_synth_wav_is_the_port_path(cli_run):
 
 
 def test_cli_without_f32_or_with_harvest_raises(tmp_path):
-    """`--harvest` without `--f32` (Harvest in float64, ROADMAP's
-    Harvest-f64 item) raises and writes nothing; `analysis` without
-    `--f32` is the parity analysis (it raised before the port had it; the
-    name is kept) and writes the encoded float32 files."""
+    """`analysis` without `--f32` is the parity analysis, with DIO or with
+    `--harvest` (Harvest in float64); both raised before the port had
+    them, and the name is kept.  On silence each writes the encoded
+    float32 files, every frame unvoiced."""
     wav = str(tmp_path / "x.wav")
     wavio.wavwrite(np.zeros(1600), 16000, wav)
-    outs = [str(tmp_path / f"o.{k}") for k in ("lf0", "mgc", "bap")]
-    with pytest.raises(NotImplementedError, match="Harvest-f64"):
-        cli.main(["analysis", wav, *outs, "--harvest", "--device", "cpu"])
-    assert not any(os.path.exists(o) for o in outs)
-    cli.main(["analysis", wav, *outs, "5.0", "0", "50", "25", "--device",
-              "cpu"])
-    lf0, mgc, bap = (rawio.read_f32(o, d) for o, d in zip(outs, (1, 50, 25)))
-    assert len(lf0) == mgc.shape[0] == bap.shape[0] == 21
-    assert (lf0 == 0).all() and np.isfinite(mgc).all()
-    assert np.isfinite(bap).all()
+    for extra in ([], ["--harvest"]):
+        outs = [str(tmp_path / f"o{len(extra)}.{k}")
+                for k in ("lf0", "mgc", "bap")]
+        cli.main(["analysis", wav, *outs, "5.0", "0", "50", "25", *extra,
+                  "--device", "cpu"])
+        lf0, mgc, bap = (rawio.read_f32(o, d)
+                         for o, d in zip(outs, (1, 50, 25)))
+        assert len(lf0) == mgc.shape[0] == bap.shape[0] == 21
+        assert (lf0 == 0).all() and np.isfinite(mgc).all()
+        assert np.isfinite(bap).all()
 
 
 @pytest.mark.parametrize("call", ["batch_synth", "synth_lane", "cli"])
