@@ -61,9 +61,13 @@ Drives the port's paths at full size on a corpus made from a seed:
   vocoder.analyze(algorithm="harvest")'s default): the headline batch in
   float64 through Harvest (decimation, band filter, raw candidates,
   detection, refinement, contour), CheapTrick and D4C, `analyze` at 16
-  kHz and 44.1 kHz, and `analysis --harvest` at its default.
+  kHz and 44.1 kHz, and `analysis --harvest` at its default;
+- the variant recipe lane (`models.recipe.train_voice` with
+  `RecipeConfig(semitied=True, upmix=True)`): the recipe lane's corpus
+  through SEMIT (20 iterations, 3 blocks a stream) and UPMIX + ERST5 (2
+  iterations) besides every stage of the recipe lane.
 
-Thirty-two kernels, K1-K32, are built, driven and held to their twins;
+Thirty-four kernels, K1-K34, are built, driven and held to their twins;
 K9-K12 and K30 also in float64 for the parity synthesis, K1, K2, K4-K6
 and K24-K27 in float64 for the parity analysis, K13-K16 and K32 in
 float64 for its Harvest, and K9 in its chunk mode (the streaming
@@ -200,7 +204,20 @@ Phases (any failure raises):
    kHz one of 0.3 s, card against CPU: t equal, f0 within 1e-9 rel, sp
    1.5e-8 rel, ap 1e-9; (c) `analysis --harvest` without --f32, raw and
    encoded, the card's float32 files against --device cpu's, counted as
-   in phase 16.
+   in phase 16;
+18. the variant recipe lane: (a) `train_voice(RecipeConfig(semitied=True,
+   upmix=True))` on phase 11's corpus, counted and recorded: SEMIT's and
+   UPMIX's stage seconds, the launches of K33 (chain and posterior), K34
+   and K20, each stream's logdet and aux first -> last, ERST5's total
+   log-likelihood per iteration, the clustered model, alignments and GV
+   model equal to phase 11's, each stage again under the profiler (the
+   idle share); K34's launches, the first ERST5 iteration's K33 posterior
+   launches and its first two chain launches replayed against the twins
+   and timed (phase 3 for the lane); (b) tests/test_recipe.py's corpus at
+   TINY_RECIPE with both flags on the card and on the CPU: the mixture and
+   semi-tied sets within the CPU tests' bounds (`variants_lane`,
+   `variants_card_vs_cpu`, which rehearse on the CPU with stub `counted`/
+   `profiled`).
 
 Prints each measurement, the card's name and power limit, a `kernels`
 JSON line, and as the last line {"ok": true, "device": {...}}.  Exits
@@ -213,11 +230,15 @@ from __future__ import annotations
 import contextlib
 import copy
 import cProfile
+import ctypes
+import dataclasses
 import filecmp
+import gc
 import json
 import math
 import os
 import pstats
+import resource
 import shutil
 import subprocess
 import sys
@@ -303,6 +324,12 @@ REPLACES = {
                             "hts_train_world_tpu/ops/harvest.py:428"),
     "harvest_contour[f64]": ("K16 f64",
                              "hts_train_world_tpu/ops/harvest_fix.py:121"),
+    # the HSMM variants: K33's two launchers and K34
+    "hsmm_mix_loglik": ("K33",
+                        "hts_train_world_tpu/models/hsmm_variants.py:87"),
+    "hsmm_mix_loglik[post]": (
+        "K33 post", "hts_train_world_tpu/models/hsmm_variants.py:147"),
+    "semitied": ("K34", "hts_train_world_tpu/models/hsmm_variants.py:257"),
 }
 BODY = ("cheaptrick_lifter", "d4c_group_delay", "d4c_aperiodicity")
 PARITY_ANALYSIS = tuple(f"{k}[f64]" for k in (
@@ -375,6 +402,10 @@ PATHS = {
     # default
     "parity_harvest": PARITY_HARVEST,
     "parity_harvest_cli": PARITY_HARVEST + ("codec_encode[f64]",),
+    # the variant recipe lane: train_voice with SEMIT (K17 + K20, K34) and
+    # UPMIX/ERST5 (K33 chain + K20, K33 posterior, K19)
+    "variants": ("hsmm_loglik", "hsmm_fb", "hsmm_accumulate", "hsmm_viterbi",
+                 "semitied", "hsmm_mix_loglik", "hsmm_mix_loglik[post]"),
 }
 # the HSMM lane: RecipeConfig's defaults (models/recipe.py:45-47)
 HSMM_MODELS, HSMM_STATES, HSMM_MAX_DUR, HSMM_UTTS = 40, 5, 60, 128
@@ -2460,6 +2491,399 @@ def parity_analysis_cli(counted, devices=("cuda", "cpu"), fs=16000,
         shutil.rmtree(d)
 
 
+# ---------------------------------------------------------------------------
+# the variant recipe lane (phase 18): SEMIT and UPMIX/ERST5
+# ---------------------------------------------------------------------------
+
+# the bounds the CPU tests hold the port's variants to against the JAX
+# package (tests/test_torch_hsmm_variants.py), relative to each array's
+# largest magnitude: parameters, variances, transforms; logdets absolute
+VARIANT_BOUNDS = dict(params=1e-9, variances=1e-8, transforms=1e-9,
+                      logdets=1e-9)
+
+
+def mix_chain_inputs(hsmm, dev, C: int = 2, seed: int = 33):
+    """K33 chain-mode inputs at the WORLD width (D = 237), 3 utterances of
+    37 frames and 21 chain states over 30 rows of C components: unvoiced
+    lf0/vib frames, an utterance whose MSD frames are all unvoiced, a NaN
+    in one bap frame (weight 0: that frame's totals are NaN), row 5's
+    second component at the variance floor (1e-8) and row 7's at the
+    mixture weight floor (ERST5's min_mix_w, 1e-3)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    sts = hsmm.world_streams()
+    B, Tb, Kb, R, D = 3, 37, 21, 30, 237
+    fr = rng.standard_normal((B, Tb, D))
+    for st in sts:
+        if st.msd:
+            fr[:, ::3, st.sl] = 0.0
+            fr[2, :, st.sl] = 0.0
+    fr[1, 4, 160] = np.nan
+
+    def t(a, dt=torch.float64):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
+    means, vars_, logws, msd_w, rows = [], [], [], [], []
+    for st in sts:
+        Ds = st.sl.stop - st.sl.start
+        v = rng.uniform(0.05, 3.0, (R, C, Ds))
+        v[5, 1] = 1e-8
+        w = rng.uniform(0.1, 1.0, (R, C))
+        w[7] = 1.0
+        w[7, 1] = 1e-3
+        means.append(t(rng.standard_normal((R, C, Ds))))
+        vars_.append(t(v))
+        logws.append(t(np.log(w / w.sum(1, keepdims=True))))
+        msd_w.append(t(rng.uniform(0.0, 1.0, R)))
+        r = rng.integers(0, R, (B, Kb))
+        r[:, :2] = (5, 7)
+        rows.append(t(r, torch.long))
+    sls, flags, wts = hsmm.stream_args(sts)
+    return dict(frames=t(fr), rows=tuple(rows), means=tuple(means),
+                variances=tuple(vars_), logws=tuple(logws),
+                msd_w=tuple(msd_w), stream_slices=sls, msd_flags=flags,
+                weights_static=wts)
+
+
+def mix_post_inputs(dev, N: int = 4000, D: int = 50, C: int = 2,
+                    R: int = 40, seed: int = 34):
+    """K33 posterior-mode inputs: N frames of D columns over R rows of C
+    components; row 3's second component at the variance floor (its
+    frames' posteriors are exactly (1, 0)) and row 4's at the weight floor
+    (1e-3)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    v = rng.uniform(0.05, 3.0, (R, C, D))
+    v[3, 1] = 1e-8
+    w = rng.uniform(0.1, 1.0, (R, C))
+    w[4] = 1.0
+    w[4, 1] = 1e-3
+    rows = rng.integers(0, R, N)
+    rows[:20] = 3
+    rows[20:40] = 4
+
+    def t(a, dt=torch.float64):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
+    return dict(x=t(rng.standard_normal((N, D))), rows=t(rows, torch.long),
+                means=t(rng.standard_normal((R, C, D))), variances=t(v),
+                logw=t(np.log(w / w.sum(1, keepdims=True))))
+
+
+def semitied_inputs(d: int, G: int, seed: int, frames=None):
+    """K34 inputs in numpy: betas (G,) and scatters (G, d, d) (np.cov,
+    bias=True) of G Gaussians sharing one mixing matrix I + 0.3 N(0, 1),
+    each of `frames` samples (default a random count in [d + 1, 4d + 9])
+    with per-dimension scales in [0.3, 2].  `frames=d + 1` for every
+    Gaussian gives the fewest frames a key may have, a G_r near singular."""
+    rng = np.random.default_rng(seed)
+    L = np.eye(d) + 0.3 * rng.standard_normal((d, d))
+    betas, scat = [], []
+    for _ in range(G):
+        n = frames or int(rng.integers(d + 1, 4 * d + 10))
+        z = rng.standard_normal((n, d)) * rng.uniform(0.3, 2.0, d)
+        scat.append(np.cov((z @ L.T).T, bias=True).reshape(d, d))
+        betas.append(float(n))
+    return np.asarray(betas), np.stack(scat)
+
+
+def aux_scale(betas, sigmas, aux):
+    """The scale K34's aux is held at: per job, the larger of |aux| and
+    its sigma term 0.5 sum_g beta_g sum_j |log sigma_gj| (final sigmas).
+    aux = beta_tot log|det A| minus that term's signed form, a difference
+    of two terms of this size, so where they cancel its rounding is
+    theirs.  betas (G,), sigmas (J, G, d), aux (J, n_iter) -> (J, n_iter)."""
+    import torch
+    term = 0.5 * (betas.to(sigmas.device)[:, None]
+                  * sigmas.log().abs()).sum((1, 2))
+    return torch.maximum(aux.abs(), term[:, None].to(aux.device))
+
+
+class UsageClock:
+    """While entered, what a run costs the process beside its wall
+    seconds: the main thread's user and system CPU, minor page faults and
+    context switches; CPython's small-object arenas mapped and unmapped;
+    the resident set; and the cyclic garbage collector's seconds and
+    passes per generation (`gc.callbacks`), with when each full pass
+    started and what it collected."""
+    USAGE = ("ru_utime", "ru_stime", "ru_minflt", "ru_nvcsw", "ru_nivcsw")
+
+    def __init__(self):
+        self.secs, self.count, self._t = [0.0] * 3, [0] * 3, 0.0
+        self.full = []
+
+    def __call__(self, phase, info):
+        now = time.perf_counter()
+        if phase == "start":
+            self._t = now
+            return
+        g = info["generation"]
+        self.secs[g] += now - self._t
+        self.count[g] += 1
+        if g == 2:
+            self.full.append((self._t - self._t0, info["collected"]))
+
+    @staticmethod
+    def arenas():
+        """(allocated in all, reclaimed) of CPython's small-object
+        arenas, from `sys._debugmallocstats`, which writes to fd 2."""
+        fd = os.dup(2)
+        with tempfile.TemporaryFile("w+") as f:
+            sys.stderr.flush()
+            os.dup2(f.fileno(), 2)
+            try:
+                sys._debugmallocstats()
+            finally:
+                os.dup2(fd, 2)
+                os.close(fd)
+            f.seek(0)
+            got = {ln.split("=")[0].strip("# ").strip():
+                   int(ln.split("=")[-1].replace(",", ""))
+                   for ln in f if ln.startswith("# arenas ")}
+        return got["arenas allocated total"], got["arenas reclaimed"]
+
+    @staticmethod
+    def rss_gib():
+        """(resident set, its peak so far) in GiB: VmRSS (NaN where
+        /proc does not give it) and `ru_maxrss`."""
+        with open("/proc/self/status") as f:
+            kb = {ln.split(":")[0]: int(ln.split()[1]) for ln in f
+                  if ln.startswith("VmRSS")}
+        peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        return kb.get("VmRSS", math.nan) / 2 ** 20, peak / 2 ** 20
+
+    def _usage(self):
+        u = resource.getrusage(resource.RUSAGE_THREAD)
+        return [getattr(u, k) for k in self.USAGE] + list(self.arenas())
+
+    def __enter__(self):
+        self._rss0 = self.rss_gib()[0]
+        self._t0, self._u0 = time.perf_counter(), self._usage()
+        gc.callbacks.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self)
+        self.wall = time.perf_counter() - self._t0
+        self.usage = [b - a for a, b in zip(self._u0, self._usage())]
+
+    def __str__(self):
+        ut, st, flt, vcs, ivcs, a_new, a_freed = self.usage
+        rss, hwm = self.rss_gib()
+        return (f"{self.wall:.2f} s wall, main thread user {ut:.2f} s, "
+                f"system {st:.2f} s, {flt} minor faults, {vcs} + {ivcs} "
+                f"context switches; {a_new} small-object arenas (1 MiB) "
+                f"mapped and {a_freed} unmapped; RSS {self._rss0:.2f} -> "
+                f"{rss:.2f} GiB (peak {hwm:.2f}); GC by generation "
+                + ", ".join(
+                    f"{s:.2f} s ({n})" for s, n in zip(self.secs,
+                                                       self.count))
+                + "".join(f"; a full pass at {t:.1f} s collected {n}"
+                          for t, n in self.full))
+
+
+def plain_equal(a, b) -> bool:
+    """Plain values (dicts, sequences, arrays, scalars) equal bit for
+    bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(plain_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(plain_equal(x, y)
+                                        for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return a.shape == np.shape(b) and bool(np.array_equal(a, b))
+    return a == b
+
+
+def variants_worst(a, b):
+    """{part: worst |a - b| / the bound's scale} of two recipes' mixture
+    and semi-tied sets (b the reference): each array's error over its
+    largest magnitude, logdets absolute."""
+    ma, mb = a.mixture, b.mixture
+    sa, sb = a.semitied, b.semitied
+
+    def rel(x, y):
+        return float(np.abs(x - y).max() / max(np.abs(y).max(), 1e-300))
+    params = [rel(getattr(ma, p)[k], getattr(mb, p)[k])
+              for p in ("means", "mix_logw", "msd_weights")
+              for k in getattr(mb, p)]
+    params += [rel(ma.dur_mean, mb.dur_mean), rel(ma.dur_var, mb.dur_var)]
+    params += [rel(sa.base.means[k], sb.base.means[k]) for k in sb.base.means]
+    variances = [rel(ma.variances[k], mb.variances[k]) for k in mb.variances]
+    variances += [rel(sa.base.variances[k], sb.base.variances[k])
+                  for k in sb.base.variances]
+    return dict(params=max(params), variances=max(variances),
+                transforms=max(rel(sa.transforms[k], sb.transforms[k])
+                               for k in sb.transforms),
+                logdets=max(abs(sa.logdets[k] - sb.logdets[k])
+                            for k in sb.logdets))
+
+
+class KeepVariants(list):
+    """The variant lane's launches worth replaying: K34's (one a stream),
+    the first ERST5 iteration's K33 posterior launches (one a stream) and
+    its first two chain launches."""
+    def append(self, item):
+        name, _ = item
+        n = sum(k == name for k, _ in self)
+        if (name == "semitied" or (name == "hsmm_mix_loglik[post]" and n < 4)
+                or (name == "hsmm_mix_loglik" and n < 2)):
+            super().append(item)
+
+
+def variants_lane(counted, profiled, utts, questions, ref, device="cuda",
+                  cfg=None, streams=None):
+    """Phase 18 (a): `train_voice(RecipeConfig(semitied=True,
+    upmix=True))` (SEMIT's 20 iterations, ERST5's 2) on phase 11's corpus
+    at full width, counted and recorded: the SEMIT and UPMIX stage seconds,
+    the K33 (chain and posterior), K34 and K20 launches, each stream's
+    logdet and aux first -> last, ERST5's total log-likelihood per
+    iteration; the mixture and the transforms finite (variances positive,
+    weights summing to 1); the clustered model, the alignments and the GV
+    model equal to `ref`'s (phase 11's run without the flags); then the two
+    stages again, each under the profiler, for the device's idle share.
+    The flagged run stands between two runs without the flags (controls)
+    at the same point of the script, which must give the same later
+    stages: their stage seconds beside its own say whether the variants
+    cost a later stage any time, apart from where the script stands.
+    Each run's main-thread user and system CPU, page faults and GC passes
+    (`UsageClock`) say where such time goes; a last flagged run with
+    glibc's mmap threshold at 64 KiB says whether the heap's reuse of
+    blocks that host-to-device copies read is it.
+    Returns (counts, recorded launches)."""
+    from hts_train_world_tpu_torch.models import clustering
+    from hts_train_world_tpu_torch.models import context_clustered as cc
+    from hts_train_world_tpu_torch.models import hsmm_variants as hv
+    from hts_train_world_tpu_torch.models import recipe
+    cfg = cfg or recipe.RecipeConfig(semitied=True, upmix=True)
+
+    def stage_line(label, st, clock):
+        print(f"variants: {label}: {len(gc.get_objects())} Python objects "
+              f"tracked after it; train_voice {clock}; stage seconds: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in
+                          st.stage_seconds.items()), flush=True)
+
+    def control(label):
+        with UsageClock() as clock:
+            st = recipe.train_voice(
+                utts, questions, dataclasses.replace(cfg, semitied=False,
+                                                     upmix=False),
+                streams=streams, log=lambda m: None, device=device)
+        stage_line(label, st, clock)
+        return st
+    before = control("control before (flags off)")
+    logs = []
+    with UsageClock() as clock:
+        st, counts, rec = counted("variants", lambda: recipe.train_voice(
+            utts, questions, cfg, streams=streams, log=logs.append,
+            device=device), record=KeepVariants())
+    stage_line("flagged", st, clock)
+    after = control("control after (flags off)")
+    # the flagged run once more with glibc mapping every block of 64 KiB
+    # or more afresh and unmapping it when freed (M_MMAP_THRESHOLD, which
+    # earlier phases' frees have raised to its 32 MiB cap), so that no
+    # later small block reuses memory that a host-to-device copy read;
+    # last in the script since the setting holds for the rest of the
+    # process
+    ok_m = ctypes.CDLL(None).mallopt(-3, 64 << 10) == 1
+    with UsageClock() as clock:
+        again = recipe.train_voice(utts, questions, cfg, streams=streams,
+                                   log=lambda m: None, device=device)
+    stage_line(f"flagged again, M_MMAP_THRESHOLD 64 KiB (set: {ok_m})",
+               again, clock)
+    del again
+    secs = st.stage_seconds
+    sb, sa = before.stage_seconds, after.stage_seconds
+    later = [k for k in sb if k not in ("IN_RE", "ERST0")]
+    print("variants: later stages, flagged minus the controls' mean "
+          "(s): " + ", ".join(f"{k} {secs[k] - (sb[k] + sa[k]) / 2:+.3f}"
+                              for k in later)
+          + f"; their sum flagged {sum(secs[k] for k in later):.3f}, "
+          f"controls {sum(sb[k] for k in later):.3f} and "
+          f"{sum(sa[k] for k in later):.3f}", flush=True)
+    print(f"variants: flagged: SEMIT {secs['SEMIT']:.3f} s, UPMIX (+ ERST5) "
+          f"{secs['UPMIX']:.3f} s; launches K33 chain "
+          f"{counts.get('hsmm_mix_loglik', 0)}, K33 posterior "
+          f"{counts.get('hsmm_mix_loglik[post]', 0)}, K34 "
+          f"{counts.get('semitied', 0)}, K20 {counts.get('hsmm_viterbi', 0)}"
+          f"; " + "; ".join(m for m in logs
+                            if m.startswith(("SEMIT ", "mixture EM"))),
+          flush=True)
+    mm, sm = st.mixture, st.semitied
+    fin = (all(np.isfinite(v).all()
+               for d in (mm.means, mm.variances, mm.mix_logw)
+               for v in d.values())
+           and all((v > 0).all() for v in mm.variances.values())
+           and all(np.allclose(np.exp(w).sum(-1), 1.0, rtol=0, atol=1e-12)
+                   for w in mm.mix_logw.values())
+           and all(np.isfinite(A).all() for A in sm.transforms.values())
+           and all(np.isfinite(v) for v in sm.logdets.values())
+           and sm.transforms.keys() == {s.name for s in mm.streams})
+
+    def same_as(r):
+        return dict(
+            clustered=plain_equal(cc.ClusteredModel.to_plain(st.clustered),
+                                  cc.ClusteredModel.to_plain(r.clustered)),
+            alignments=plain_equal(st.alignments, r.alignments),
+            gv=plain_equal({n: clustering.Tree.to_plain(t)
+                            for n, t in st.gv.trees.items()},
+                           {n: clustering.Tree.to_plain(t)
+                            for n, t in r.gv.trees.items()}))
+    same = same_as(ref)
+    same_c = [all(same_as(r).values()) for r in (before, after)]
+    del before, after
+    print(f"variants: mixture and transforms finite, variances > 0, weights "
+          f"summing to 1: {fin}; equal to phase 11's run without the flags: "
+          + ", ".join(f"{k} {v}" for k, v in same.items())
+          + f"; to the controls (all three parts): {same_c}", flush=True)
+    if not fin or not all(same.values()) or not all(same_c):
+        raise RuntimeError("variant lane: non-finite side products, or the "
+                           "variants changed a later stage")
+    mono = [(f, [cc.phone_of(c) for c in seq]) for f, seq in utts]
+
+    def semit():
+        hv.estimate_semitied(copy.deepcopy(st.monophone), mono,
+                             n_iter=cfg.semitied_iters, max_dur=cfg.max_dur,
+                             var_floor_scale=cfg.var_floor_scale,
+                             log=lambda m: None, device=device)
+
+    def upmix():
+        hv.embedded_reestimate_mix(hv.upmix(st.monophone), mono,
+                                   n_iters=cfg.upmix_iters,
+                                   var_floor_scale=cfg.var_floor_scale,
+                                   max_dur=cfg.max_dur, log=lambda m: None,
+                                   device=device)
+    for label, fn in (("SEMIT", semit), ("UPMIX + ERST5", upmix)):
+        w, busy, evs = profiled(fn)
+        top = ", ".join(f"{e.key[:40]} {e.count}x" for e in evs[:4])
+        print(f"variants: {label} under the profiler: wall {1e3 * w:.1f} ms, "
+              f"device busy {1e3 * busy:.1f} ms (idle "
+              f"{100 - 100 * busy / w:.1f} %); top: {top}", flush=True)
+    return counts, rec
+
+
+def variants_card_vs_cpu(devices=("cuda", "cpu")):
+    """Phase 18 (b): tests/test_recipe.py's corpus through `train_voice`
+    at TINY_RECIPE with both flags on the card and on the CPU: the mixture
+    and the semi-tied set within VARIANT_BOUNDS (the CPU tests' bounds
+    against the JAX package)."""
+    from hts_train_world_tpu_torch.features import qconf
+    from hts_train_world_tpu_torch.models import clustering, hsmm, recipe
+    utts_t, spans_t = recipe_tiny_corpus()
+    qs_t = clustering.questions_from_config(qconf.parse_config(TINY_QUESTIONS))
+    cfg = recipe.RecipeConfig(**TINY_RECIPE, semitied=True, upmix=True)
+    a, b = [recipe.train_voice(utts_t, qs_t, cfg, streams=tiny_streams(hsmm),
+                               bootstrap_spans=spans_t, log=lambda m: None,
+                               device=d) for d in devices]
+    worst = variants_worst(a, b)
+    print(f"variants, {devices[0]} vs {devices[1]} (tests/test_recipe.py's "
+          f"corpus, both flags): " + ", ".join(
+              f"{k} {v:.2e} (<= {VARIANT_BOUNDS[k]:.0e})"
+              for k, v in worst.items()), flush=True)
+    if any(v > VARIANT_BOUNDS[k] for k, v in worst.items()):
+        raise RuntimeError("the card's variants disagree with the CPU path")
+    return worst
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2474,6 +2898,7 @@ def main() -> int:
     from hts_train_world_tpu_torch.models import clustering, hsmm, hsmm_batch
     from hts_train_world_tpu_torch.models import context_clustered, recipe
     from hts_train_world_tpu_torch.models import voice
+    from hts_train_world_tpu_torch.models import hsmm_variants as hvar
     from hts_train_world_tpu_torch.ops import cheaptrick as ct_mod
     from hts_train_world_tpu_torch.ops import codec
     from hts_train_world_tpu_torch.ops import d4c as d4c_mod
@@ -2701,6 +3126,11 @@ def main() -> int:
         "synth_midpass": (syn.midpass, syn.midpass_plain),
         "d4c_band_sort": (d4c_mod.band_sort_sums,
                           d4c_mod.band_sort_sums_plain),
+        "hsmm_mix_loglik": (hvar.batch_frame_loglik_mix,
+                            hvar.batch_frame_loglik_mix_plain),
+        "hsmm_mix_loglik[post]": (hvar.responsibilities,
+                                  hvar.responsibilities_plain),
+        "semitied": (hvar.semitied_blocks, hvar.semitied_blocks_plain),
     }
 
     def nbytes(*ts):
@@ -2868,6 +3298,38 @@ def main() -> int:
                 + (nbytes(inp["msd_w"][i]) if inp["msd_flags"][i] else 0)
                 for i in range(n_s))
             t_o = B_ * Tb * Kb * (3.0 * cols + 8.0 * n_s) / F64_OPS_PER_S
+        elif name == "hsmm_mix_loglik" and "frames" in inp:
+            # K33 chain mode, every stream: per (b, t, k, component,
+            # column) a subtract, a square and a divide-add; per stream and
+            # component the logsumexp's max, exp and add (~10) and ~8 more
+            fr = inp["frames"]
+            B_, Tb, _ = fr.shape
+            Kb = inp["rows"][0].shape[1]
+            C_ = inp["means"][0].shape[1]
+            n_s = len(inp["stream_slices"])
+            cols = sum(b - a for a, b in inp["stream_slices"])
+            moved = nbytes(fr, *outs) + sum(
+                nbytes(inp["rows"][i], inp["means"][i], inp["variances"][i],
+                       inp["logws"][i])
+                + (nbytes(inp["msd_w"][i]) if inp["msd_flags"][i] else 0)
+                for i in range(n_s))
+            t_o = B_ * Tb * Kb * (3.0 * C_ * cols + (10.0 * C_ + 8.0) * n_s) \
+                / F64_OPS_PER_S
+        elif name == "hsmm_mix_loglik":
+            # K33 posterior mode: per (frame, component, column) 3
+            # operations, per (frame, component) ~10 for the max, exp and
+            # division
+            N_, D_ = inp["x"].shape
+            C_ = inp["means"].shape[1]
+            t_o = N_ * C_ * (3.0 * D_ + 10.0) / F64_OPS_PER_S
+        elif name == "semitied":
+            # per job: the sigmas (2 G d^3 a pass, n_iter + 1 passes), per
+            # outer step G_r for every row (2 G d^3), the two LUs a row
+            # (2/3 d^3 each) and the solves (~4 d^2 a row)
+            J_, G_, d_, _ = inp["scatters"].shape
+            n_it = inp["n_iter"]
+            per = 4.0 * G_ * d_ ** 3 + 4.0 / 3.0 * d_ ** 4 + 4.0 * d_ ** 3
+            t_o = J_ * (n_it * per + 2.0 * G_ * d_ ** 3) / F64_OPS_PER_S
         elif name == "hsmm_fb":
             # ~20 float64 operations (three exp counted as one each) per
             # valid (state, t0, d) term of this run's t_len / k_len
@@ -2976,6 +3438,42 @@ def main() -> int:
             W = torch.cat(iv + [-2.0 * m * v for m, v in zip(mu, iv)]
                           + [c[..., None]], -1).transpose(1, 2).contiguous()
             return lambda: torch.bmm(A, W)
+        if name == "hsmm_mix_loglik" and "frames" in inp:
+            # per stream one bmm of the expanded quadratic form [x^2, x, 1]
+            # against every chain state's components, then torch.logsumexp
+            # over the components with the log-weights, summed over the
+            # streams (no MSD switch, no weights; the gathered tables made
+            # here, not timed)
+            fr = inp["frames"]
+            B_, Tb, _ = fr.shape
+            Kb = inp["rows"][0].shape[1]
+            mats = []
+            for i, (a, e) in enumerate(inp["stream_slices"]):
+                x = fr[..., a:e]
+                A = torch.cat([x * x, x, torch.ones_like(x[..., :1])], -1)
+                r = inp["rows"][i]
+                mu, iv = inp["means"][i][r], 1.0 / inp["variances"][i][r]
+                C_ = mu.shape[2]
+                c = (mu * mu * iv).sum(-1) - torch.log(iv).sum(-1)
+                W = torch.cat([iv, -2.0 * mu * iv, c[..., None]], -1)
+                W = W.reshape(B_, Kb * C_, -1).transpose(1, 2).contiguous()
+                lw = inp["logws"][i][r].reshape(B_, 1, Kb * C_)
+                mats.append((A, W, lw, C_))
+
+            def lse():
+                tot = 0.0
+                for A, W, lw, C_ in mats:
+                    z = (-0.5 * torch.bmm(A, W) + lw).reshape(B_, Tb, Kb, C_)
+                    tot = tot + torch.logsumexp(z, -1)
+                return tot
+            return lse
+        if name == "hsmm_mix_loglik":
+            # the broadcast _gauss_ll of every frame's row and torch.softmax
+            # over the components (the gathered rows made here, not timed)
+            r = inp["rows"]
+            x, mu, va = inp["x"], inp["means"][r], inp["variances"][r]
+            lw = inp["logw"][r]
+            return lambda: torch.softmax(lw + hvar._comp_ll(x, mu, va), -1)
         if name == "hsmm_viterbi":
             # the twin's per-state max/argmax over the (T+1, max_dur)
             # candidates, as one torch.max over every state's slab of every
@@ -3489,9 +3987,48 @@ def main() -> int:
                 f"sp rel {r_sp:.1e}, ap rel {r_ap:.1e} (<= 1e-12); ap zero "
                 f"past bin {apl}: {tail}")
 
+    def check_k33(inp, out_k, out_p):
+        """Chain mode: within 1e-13 max(1, |ll|), NaN where the twin's
+        (a NaN in a weight-0 bap column); posterior mode: within 1e-13.
+        The kernel sums each quadratic form in sequence, the twin in
+        torch's reduction order."""
+        k, p = out_k[0], out_p[0]
+        if "x" in inp:
+            e = float((k - p).abs().max())
+            return (e <= 1e-13, e, f"posteriors |err| {e:.2e} <= 1e-13 "
+                    f"({k.shape[0]} frames x {k.shape[1]} components)")
+        fin = torch.isfinite(p)
+        same_nan = torch.equal(torch.isnan(k), torch.isnan(p))
+        err = (k - p).abs()[fin]
+        worst = float((err / p.abs()[fin].clamp(min=1.0)).max())
+        return (worst <= 1e-13 and same_nan, float(err.max()),
+                f"|err| <= 1e-13 max(1, |ll|): worst {worst:.2e}; NaN where "
+                f"the twin's: {same_nan} ({int((~fin).sum())} non-finite)")
+
+    def check_k34(inp, out_k, out_p):
+        """A within 1e-9 of each job's max|A|, sigmas 1e-8 relative (the
+        CPU tests' bounds against the JAX package), aux within 1e-12 of
+        `aux_scale`."""
+        (ak, sk, xk), (ap, sp, xp) = out_k, out_p
+        r_a = float(((ak - ap).abs().amax((1, 2))
+                     / ap.abs().amax((1, 2))).max())
+        r_s = float(((sk - sp).abs() / sp).max())
+        r_x = float(((xk - xp).abs() / aux_scale(inp["betas"], sp, xp))
+                    .max()) if xp.numel() else 0.0
+        J_, G_, d_, _ = inp["scatters"].shape
+        return (r_a <= 1e-9 and r_s <= 1e-8 and r_x <= 1e-12,
+                max_err(zip(out_k, out_p)),
+                f"{J_} jobs, d {d_}, G {G_}, {inp['n_iter']} iterations: A "
+                f"{r_a:.2e} of max|A| (<= 1e-9), sigmas rel {r_s:.2e} (<= "
+                f"1e-8), aux {r_x:.2e} of its scale (<= 1e-12)")
+
     def check(name, inp, out_k, out_p):
         """(passed, max abs err against the reference, what was held and
         what was read)."""
+        if kernels.base_name(name) == "hsmm_mix_loglik":
+            return check_k33(inp, out_k, out_p)
+        if name == "semitied":
+            return check_k34(inp, out_k, out_p)
         if name.endswith("[f64]") or name == "d4c_band_sort":
             return check_f64(name, inp, out_k, out_p)
         if name == "hsmm_loglik":
@@ -3699,7 +4236,8 @@ def main() -> int:
     heavy = ("fix_f0", "mlpg_solve", "dio_candidates", "harvest_candidates",
              "harvest_refine", "harvest_contour", "hsmm_loglik",
              "hsmm_fb", "hsmm_viterbi", "trajectory_nll",
-             "trajectory_adjoint")  # slow plain twins
+             "trajectory_adjoint", "hsmm_mix_loglik",
+             "hsmm_mix_loglik[post]", "semitied")  # slow plain twins
     replays = ([("copy_synth", n, i) for n, i in rec_cs]
                + [("feature_lane", n, i) for n, i in rec_fl]
                + [("synth_lane", n, i) for n, i in rec_sl]
@@ -3708,7 +4246,7 @@ def main() -> int:
     def replay(path, name, inp):
         """Hold one recorded launch against the plain version; time the
         kernel, the plain version, the bound and the library call."""
-        kern, plain = twins[kernels.base_name(name)]
+        kern, plain = twins.get(name) or twins[kernels.base_name(name)]
         debug = (dict(crossings=True)
                  if kernels.base_name(name) in ("dio_candidates",
                                                 "harvest_candidates")
@@ -4870,6 +5408,18 @@ def main() -> int:
     del rec_phc
     print(f"phase 17: {time.perf_counter() - t17:.1f} s", flush=True)
 
+    # ---- 18. the variant recipe lane: SEMIT and UPMIX/ERST5 at full width
+    # on phase 11's corpus, K33 and K34 replayed, card vs CPU ----
+    t18 = time.perf_counter()
+    counts_v, rec_v = variants_lane(counted, profiled, utts_r, questions_r,
+                                    st_r)
+    for name, inp in rec_v:
+        replay("variants", name, inp)
+    del rec_v
+    torch.cuda.empty_cache()
+    variants_card_vs_cpu()
+    print(f"phase 18: {time.perf_counter() - t18:.1f} s", flush=True)
+
     print(smi)
     src = "hts_train_world_tpu_torch/csrc/"
     by_path = {"copy_synth": counts_cs, "feature_lane": counts_fl,
@@ -4888,7 +5438,7 @@ def main() -> int:
                "parity_analysis_encode": counts_pe16,
                "parity_analysis_cli": counts_pac,
                "parity_harvest": counts_ph17,
-               "parity_harvest_cli": counts_phc}
+               "parity_harvest_cli": counts_phc, "variants": counts_v}
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": src + kernels.KERNELS[kernels.base_name(name)][0],

@@ -1,6 +1,6 @@
 """Build, load and launch the hand-written CUDA kernels.
 
-Thirty-two kernels, K1-K32 (`KERNELS`).  Each source under `csrc/` is
+Thirty-four kernels, K1-K34 (`KERNELS`).  Each source under `csrc/` is
 compiled by `nvcc` for `sm_90a` into its own shared library with a plain
 C interface, loaded with `ctypes`.  Nothing
 happens at import time: the first launch builds every kernel (one `nvcc`
@@ -132,6 +132,12 @@ KERNELS = {
     "harvest_detect": ("harvest_detect.cu", {
         "harvest_detect_launch": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
         "harvest_overlap_launch": [_P, _P, _P, _I, _I, _I, _I, _P]}),
+    "hsmm_mix_loglik": ("hsmm_mix_loglik.cu", {
+        "hsmm_mix_loglik_launch": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                                   _P, _P],
+        "hsmm_mix_post_launch": [_P, _I, _I, _I, _P, _P, _P, _P, _P]}),
+    "semitied": ("semitied.cu", "semitied_launch",
+                 [_P, _P, _I, _I, _I, _I, _P, _P, _P]),
 }
 
 launches: collections.Counter = collections.Counter()
@@ -218,7 +224,8 @@ def launch(name: str, args: list, inputs: dict | None,
     for a replay, None for a later stage of a call already recorded.  A
     `variant` (the float64 instantiation of a kernel that also runs in
     float32, K9's chunk mode) is counted and recorded as
-    `name[variant]`."""
+    `name[variant]`; so is a second mode of one kernel (K33's posterior
+    launcher, `hsmm_mix_loglik[post]`)."""
     build()
     fns, err = _libs[name]
     stream = torch.cuda.current_stream().cuda_stream

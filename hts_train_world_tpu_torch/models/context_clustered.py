@@ -279,63 +279,35 @@ def _chain_arrays(model: ClusteredModel, ctx_seq):
 
 def align_corpus_with_clustered(model: ClusteredModel, utterances,
                                 max_dur: int = 40, device="cuda",
-                                max_batch: int = 32, growth: float = 1.26):
+                                max_batch: int = 32):
     """HSMMAlign on the clustered mmf over a corpus of (frames,
-    ctx_seq), in padded batches: the utterances grouped on the JAX
-    package's bucket grid (T to 16, K to 4, as the batched E-step groups
-    them), each batch one K17 launch over the tied model's row tables and
-    one K20 launch (`hsmm.viterbi_segment_batch`).  Padded frames and
-    states are never read, so each utterance's log-likelihood and ends
-    are its own alone.  Returns per utterance, in order, (loglik, ends
-    (numpy)) or the ValueError of a chain longer than its frames."""
+    ctx_seq), in padded batches (`hsmm_batch.align_corpus`): each batch
+    one K17 launch over the tied model's row tables and one K20 launch.
+    Returns per utterance, in order, (loglik, ends (numpy)) or the
+    ValueError of a chain longer than its frames."""
     from hts_train_world_tpu_torch.models import hsmm_batch as hb
     dev = device_mod.resolve(device)
-    S = model.n_states
     tables, offsets, _ = hb.tables_from_clustered(model)
     names = [st.name for st in model.streams]
-    sls, flags, wts = hsmm.stream_args(model.streams)
-    out: List = [None] * len(utterances)
-    groups: Dict = {}
-    for ui, (frames, ctx_seq) in enumerate(utterances):
-        if len(frames) < len(ctx_seq) * S:
-            out[ui] = ValueError(
-                f"utterance has {len(frames)} frames but the chain needs "
-                f">= {len(ctx_seq) * S}; alignment is infeasible")
-            continue
-        rows, dur_rows = hb.chain_rows_clustered(model, ctx_seq, offsets)
-        key = (hb._bucket(len(frames), growth, 16),
-               hb._bucket(len(dur_rows), growth, 4))
-        groups.setdefault(key, []).append(
-            (ui, hb.ChainedUtterance(np.asarray(frames, float), rows,
-                                     dur_rows)))
-    if not groups:
-        return out
+    args = hsmm.stream_args(model.streams)
 
-    def t(a, dtype=torch.float64):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64,
                                device=dev)
     m_t = tuple(t(tables.means[n]) for n in names)
     v_t = tuple(t(tables.vars[n]) for n in names)
     w_t = tuple(t(tables.msd_w[n]) if f else t(np.zeros(1))
-                for n, f in zip(names, flags))
-    dm_t, dv_t = t(tables.dur_mean), t(tables.dur_var)
-    D = next(iter(groups.values()))[0][1].frames.shape[1]
-    for (Tb, Kb), group in sorted(groups.items()):
-        for at in range(0, len(group), max_batch):
-            part = group[at:at + max_batch]
-            frames, rows, dur_rows, t_len, k_len, _ = hb._pad_group(
-                [u for _, u in part], Tb, Kb, D, names)
-            obs_ll = hsmm.batch_frame_loglik(
-                t(frames), tuple(t(rows[n], torch.long) for n in names),
-                m_t, v_t, w_t, sls, flags, wts)
-            dr = t(dur_rows, torch.long)
-            ll, ends = hsmm.viterbi_segment_batch(
-                obs_ll, dm_t[dr], dv_t[dr], t(t_len, torch.long),
-                t(k_len, torch.long), max_dur)
-            ll, ends = ll.cpu().numpy(), ends.cpu().numpy()
-            for b, (ui, _) in enumerate(part):
-                out[ui] = (float(ll[b]), ends[b, :k_len[b]].copy())
-    return out
+                for n, f in zip(names, args[1]))
+
+    def chain(frames, ctx_seq):
+        return hb.ChainedUtterance(
+            np.asarray(frames, float),
+            *hb.chain_rows_clustered(model, ctx_seq, offsets))
+    return hb.align_corpus(
+        utterances, model.n_states, chain,
+        lambda fr, rows: hsmm.batch_frame_loglik(fr, rows, m_t, v_t, w_t,
+                                                 *args),
+        tables.dur_mean, tables.dur_var, max_dur, dev, max_batch)
 
 
 def align_with_clustered(model: ClusteredModel, frames, ctx_seq,

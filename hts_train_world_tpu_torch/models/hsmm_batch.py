@@ -31,6 +31,8 @@ from hts_train_world_tpu_torch import kernels
 from hts_train_world_tpu_torch.models import hsmm
 
 LOG_ZERO = hsmm.LOG_ZERO
+GROWTH = 1.26      # the bucket grid's step (the JAX package's)
+MAX_BATCH = 32     # utterances in one padded batch
 
 
 # ---------------------------------------------------------------------------
@@ -140,6 +142,7 @@ class ChainedUtterance:
     frames: np.ndarray                 # (T, D)
     rows: Dict[str, np.ndarray]        # per stream (K,)
     dur_rows: np.ndarray               # (K,)
+    index: int = 0                     # position in its corpus
 
 
 def _pad_group(group: List[ChainedUtterance], Tb: int, Kb: int, D: int,
@@ -166,7 +169,7 @@ def _pad_group(group: List[ChainedUtterance], Tb: int, Kb: int, D: int,
     return frames, rows, dur_rows, t_len, k_len, w
 
 
-def _groups(utts, growth: float):
+def _groups(utts, growth: float = GROWTH):
     """{(Tb, Kb): [utterance, ...]} on the JAX package's bucket grid."""
     groups: Dict = {}
     for u in utts:
@@ -174,6 +177,56 @@ def _groups(utts, growth: float):
                _bucket(len(u.dur_rows), growth, 4))
         groups.setdefault(key, []).append(u)
     return groups
+
+
+def align_corpus(utterances, n_states: int, chain, score, dur_mean,
+                 dur_var, max_dur: int, dev, max_batch: int = MAX_BATCH):
+    """HSMMAlign (hard Viterbi) over a corpus of (frames, labels) in
+    padded batches on the JAX package's bucket grid: per batch one
+    `score(frames (B, Tb, D), rows)` launch for the chain log-likelihoods
+    (K17 or K33; `rows` holds a (B, Kb) row-id tensor per stream, in the
+    chain's stream order) and one K20 launch.  `chain(frames, labels)`
+    gives an utterance's `ChainedUtterance`; `dur_mean` / `dur_var` are
+    the flat duration tables its `dur_rows` index.  Padded frames and
+    states are never read, so each utterance's result is its own alone.
+    Returns per utterance, in order, (loglik, ends (numpy)) or the
+    ValueError of a chain longer than its frames."""
+    out: List = [None] * len(utterances)
+    chained = []
+    for ui, (frames, labels) in enumerate(utterances):
+        K = len(labels) * n_states
+        if len(frames) < K:
+            out[ui] = ValueError(
+                f"utterance has {len(frames)} frames but the chain needs "
+                f">= {K} ({len(labels)} labels x {n_states} states); "
+                f"alignment is infeasible")
+            continue
+        chained.append(dataclasses.replace(chain(frames, labels),
+                                           index=ui))
+    if not chained:
+        return out
+
+    def t(a, dtype=torch.float64):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=dev)
+    names = list(chained[0].rows)
+    D = chained[0].frames.shape[1]
+    dm_t, dv_t = t(dur_mean), t(dur_var)
+    for (Tb, Kb), group in sorted(_groups(chained).items()):
+        for at in range(0, len(group), max_batch):
+            part = group[at:at + max_batch]
+            frames, rows, dur_rows, t_len, k_len, _ = _pad_group(
+                part, Tb, Kb, D, names)
+            obs_ll = score(t(frames),
+                           tuple(t(rows[n], torch.long) for n in names))
+            dr = t(dur_rows, torch.long)
+            ll, ends = hsmm.viterbi_segment_batch(
+                obs_ll, dm_t[dr], dv_t[dr], t(t_len, torch.long),
+                t(k_len, torch.long), max_dur)
+            ll, ends = ll.cpu().numpy(), ends.cpu().numpy()
+            for b, u in enumerate(part):
+                out[u.index] = (float(ll[b]), ends[b, :k_len[b]].copy())
+    return out
 
 
 # ---------------------------------------------------------------------------

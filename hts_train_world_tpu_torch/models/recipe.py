@@ -8,6 +8,12 @@ flow on the MSD-HSMM stack:
   IN_RE   init_modelset (HInit/HRest bootstrap from label spans)
   ERST0   monophone embedded re-estimation — full Baum-Welch (batched),
           DAEM-annealed, or segmental Viterbi (Training.pl:417-446)
+  SEMIT   semi-tied block-diagonal transforms of the monophones
+          (`cfg.semitied`; Training.pl:1017-1035; K17 + K20, K34), a side
+          product on a copy of the set
+  UPMIX/ERST5   1 -> 2 mixture components and their embedded
+          re-estimation (`cfg.upmix`; Training.pl:1086-1098, 2155-2177;
+          K33, K20, K19), a side product
   CXCL/ERST2   full-context stats -> MDL tree clustering -> tied model
   UNTIE/CXCL2/ERST4   untied statistics from the tied model, the second
           clustering round and its re-estimation (Training.pl:553-599)
@@ -23,16 +29,17 @@ flow on the MSD-HSMM stack:
           Training.pl:761-797)
 
 The E-steps, alignments and generation run on the card (`device="cuda"`,
-the default; K17-K20, K8, K21) or, with `device="cpu"`, through the
-kernels' plain twins; the tree search and the M-steps are host numpy.
-Not in the port yet: SEMIT and UPMIX (`cfg.semitied`, `cfg.upmix`: ROADMAP
-Queue A 7), which raise NotImplementedError.  `RecipeState.stage_seconds`
+the default; K17-K20, K8, K21, K33, K34) or, with `device="cpu"`, through
+the kernels' plain twins; the tree search and the M-steps are host numpy.
+SEMIT and UPMIX leave every later stage as it is without them (the
+clustering starts from ERST0's monophones).  `RecipeState.stage_seconds`
 records each stage's wall time (host clock; every stage ends in a read of
 its results to the host).  `state_from_numpy` builds a RecipeState from
 plain parts (a voice trained elsewhere, e.g. by the JAX package).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -42,6 +49,7 @@ import numpy as np
 from hts_train_world_tpu_torch import device as device_mod
 from hts_train_world_tpu_torch.models import clustering, context_clustered
 from hts_train_world_tpu_torch.models import gv_model, hsmm
+from hts_train_world_tpu_torch.models import hsmm_variants as hv
 from hts_train_world_tpu_torch.models import hsmm_batch as hb
 from hts_train_world_tpu_torch.models import pgen as pgen_mod
 from hts_train_world_tpu_torch.ops import postfilter as pf_mod
@@ -88,14 +96,15 @@ class RecipeConfig:
 class RecipeState:
     monophone: Optional[hsmm.ModelSet] = None
     clustered: Optional[context_clustered.ClusteredModel] = None
-    mixture: Optional[object] = None      # UPMIX: not in the port yet
-    semitied: Optional[object] = None     # SEMIT: not in the port yet
+    mixture: Optional[hv.MixtureModelSet] = None
+    semitied: Optional[hv.SemiTiedModelSet] = None
     alignments: Optional[Dict[int, np.ndarray]] = None
     gv: Optional[gv_model.GVModel] = None
     mspf: Optional[tuple] = None          # (nat, gen) MspfStats
     log_history: List[str] = dataclasses.field(default_factory=list)
-    # stage -> wall seconds: IN_RE, ERST0, CXCL estep, CXCL trees, ERST2,
-    # CXCL2 estep, CXCL2 trees, ERST4, FALGN, MCDGV, MSPF (those that ran)
+    # stage -> wall seconds: IN_RE, ERST0, SEMIT, UPMIX (with ERST5), CXCL
+    # estep, CXCL trees, ERST2, CXCL2 estep, CXCL2 trees, ERST4, FALGN,
+    # MCDGV, MSPF (those that ran)
     stage_seconds: Dict[str, float] = dataclasses.field(
         default_factory=dict)
 
@@ -113,12 +122,6 @@ def train_voice(corpus, questions, cfg: RecipeConfig = RecipeConfig(),
     supervised bootstrapping; uniform cuts otherwise.  device: where the
     E-steps and alignments run ("cuda" raises without a card).
     """
-    for flag, what, queue in (("semitied", "SEMIT", "Queue A 7"),
-                              ("upmix", "UPMIX/ERST5", "Queue A 7")):
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"cfg.{flag} ({what}) is not in the port yet (ROADMAP "
-                f"{queue})")
     device_mod.resolve(device)
     streams = tuple(streams or hsmm.world_streams())
     state = RecipeState()
@@ -177,6 +180,30 @@ def train_voice(corpus, questions, cfg: RecipeConfig = RecipeConfig(),
                                  mode="viterbi", device=device)
     state.monophone = ms
     lap("ERST0")
+
+    # ---- SEMIT ------------------------------------------------------
+    if cfg.semitied:
+        say("SEMIT: semi-tied covariance transforms")
+        # estimate_semitied updates the set it is given with
+        # transformed-space variances, while UPMIX, CXCL and FALGN consume
+        # untransformed frames: it runs on a copy, and the SemiTiedModelSet
+        # is the stage's side product
+        state.semitied = hv.estimate_semitied(
+            copy.deepcopy(ms), utts_mono, n_iter=cfg.semitied_iters,
+            max_dur=cfg.max_dur, var_floor_scale=cfg.var_floor_scale,
+            log=say, device=device)
+        lap("SEMIT")
+
+    # ---- UPMIX + ERST5 ----------------------------------------------
+    if cfg.upmix:
+        say("UPMIX: 1 -> 2 mixture components + embedded mixture EM")
+        mms = hv.upmix(ms)
+        hv.embedded_reestimate_mix(mms, utts_mono, n_iters=cfg.upmix_iters,
+                                   var_floor_scale=cfg.var_floor_scale,
+                                   max_dur=cfg.max_dur, log=say,
+                                   device=device)
+        state.mixture = mms
+        lap("UPMIX")
 
     # ---- MN2FL/ERST1/CXCL: full-context clustering -------------------
     say("CXCL: full-context statistics + MDL tree clustering")
@@ -391,13 +418,15 @@ def synthesize_utterance(state: RecipeState, label_seq: Sequence[str],
 
 
 def state_from_numpy(clustered, gv=None, mspf=None, alignments=None,
-                     gv_context_dependent: bool = True) -> RecipeState:
+                     gv_context_dependent: bool = True, mixture=None,
+                     semitied=None) -> RecipeState:
     """A RecipeState from plain parts: `clustered` the dict of
     `ClusteredModel.to_plain`; `gv` {stream: `Tree.to_plain` pair} or
     None; `mspf` ((nat_mean, nat_std), (gen_mean, gen_std)) arrays or
-    None; `alignments` {utterance: state end frames}.  `to_plain` reads
-    attributes only, so this carries a voice trained by the JAX package
-    across."""
+    None; `alignments` {utterance: state end frames}; `mixture` and
+    `semitied` the arguments of `hsmm_variants.mixture_from_numpy` and
+    `semitied_from_numpy`, or None.  `to_plain` reads attributes only, so
+    this carries a voice trained by the JAX package across."""
     g = None
     if gv is not None:
         g = gv_model.GVModel({n: clustering.tree_from_plain(*t)
@@ -411,7 +440,10 @@ def state_from_numpy(clustered, gv=None, mspf=None, alignments=None,
         clustered=context_clustered.clustered_from_plain(clustered),
         alignments=None if alignments is None else {
             int(k): np.array(v) for k, v in alignments.items()},
-        gv=g, mspf=m)
+        gv=g, mspf=m,
+        mixture=None if mixture is None else hv.mixture_from_numpy(*mixture),
+        semitied=None if semitied is None
+        else hv.semitied_from_numpy(*semitied))
 
 
 def export(state: RecipeState, path: str, fs: int, frame_shift: int,

@@ -14,6 +14,7 @@ from hts_train_world_tpu_torch import config as cfg
 from hts_train_world_tpu_torch import kernels, vocoder
 from hts_train_world_tpu_torch.features import decode, encode, windows
 from hts_train_world_tpu_torch.models import hsmm, hsmm_batch
+from hts_train_world_tpu_torch.models import hsmm_variants as hvar
 from hts_train_world_tpu_torch.ops import cheaptrick as ct
 from hts_train_world_tpu_torch.ops import d4c as d4c_mod
 from hts_train_world_tpu_torch.ops import dio, frames, mlpg, prims
@@ -2086,3 +2087,127 @@ def test_parity_analysis_matches_the_cpu_path(cuda, fs, dur):
                           atol=0)
     assert torch.allclose(a.aperiodicity.cpu(), b.aperiodicity, rtol=0,
                           atol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# the HSMM variants: K33 (chain and posterior modes) and K34
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("C", [2, 3])
+def test_k33_chain_kernel_matches_plain(cuda, C):
+    """K33's chain mode at the WORLD width on hostile inputs (an utterance
+    with unvoiced-only MSD frames, a NaN in a weight-0 bap column, a
+    component at the variance floor, one at the weight floor), one launch,
+    against its twin on the card: within 1e-13 max(1, |ll|) (the kernel
+    sums each quadratic form in sequence, the twin in torch's reduction
+    order), NaN exactly where the twin's."""
+    inp = chip_smoke.mix_chain_inputs(hsmm, cuda, C=C)
+    kernels.reset_counts()
+    got = hvar.batch_frame_loglik_mix(**inp)
+    assert dict(kernels.launches) == {"hsmm_mix_loglik": 1}
+    want = hvar.batch_frame_loglik_mix_plain(**inp)
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert int((~fin).sum()) == got.shape[2]      # the NaN bap frame
+    assert ((got - want).abs()[fin]
+            <= 1e-13 * want.abs()[fin].clamp(min=1.0)).all()
+
+
+def test_k33_posterior_kernel_matches_plain(cuda):
+    """K33's posterior mode, one launch for 4000 frames of 40 rows,
+    against its twin on the card within 1e-13; the frames of the row whose
+    second component sits at the variance floor get (1, 0) exactly, as the
+    twin and numpy give them."""
+    inp = chip_smoke.mix_post_inputs(cuda)
+    kernels.reset_counts()
+    got = hvar.responsibilities(**inp)
+    assert dict(kernels.launches) == {"hsmm_mix_loglik[post]": 1}
+    want = hvar.responsibilities_plain(**inp)
+    assert float((got - want).abs().max()) <= 1e-13
+    floored = inp["rows"] == 3
+    assert (got[floored, 0] == 1.0).all() and (got[floored, 1] == 0.0).all()
+    assert torch.equal(got[floored], want[floored])
+
+
+@pytest.mark.parametrize("d,G,frames", [
+    (1, 6, None), (2, 140, None), (25, 200, None), (50, 200, None),
+    (25, 1, 26)])
+def test_k34_kernel_matches_plain(cuda, d, G, frames):
+    """K34, two jobs in one launch (the scatters and the same scatters
+    doubled), against its twin on the CPU, 20 iterations: A within 1e-9 of
+    each job's max|A|, sigmas 1e-8 relative (the CPU tests' bounds against
+    the JAX package), aux within 1e-12 of the larger of |aux| and its
+    sigma term 0.5 sum_g beta_g sum_j |log sigma_gj| (`chip_smoke.
+    aux_scale`: aux is a difference of two such terms, and doubling the
+    scatters moves it from 235 to 9.6 at (25, 1, 26) while the terms stay
+    ~800).  (25, 1, 26): one Gaussian of d + 1 frames, a G_r near singular
+    (condition ~5e4)."""
+    betas, scat = chip_smoke.semitied_inputs(d, G, 7 + d, frames)
+    b = torch.as_tensor(betas, dtype=torch.float64)
+    s = torch.as_tensor(np.stack([scat, 2.0 * scat]), dtype=torch.float64)
+    kernels.reset_counts()
+    got = hvar.semitied_blocks(b.to(cuda), s.to(cuda), 20)
+    assert dict(kernels.launches) == {"semitied": 1}
+    want = hvar.semitied_blocks_plain(b, s, 20)
+    (ak, sk, xk), (ap, sp, xp) = [tuple(t.cpu() for t in o)
+                                  for o in (got, want)]
+    assert ((ak - ap).abs().amax((1, 2))
+            <= 1e-9 * ap.abs().amax((1, 2))).all()
+    assert ((sk - sp).abs() <= 1e-8 * sp).all()
+    scale = chip_smoke.aux_scale(b, sp, xp)
+    assert ((xk - xp).abs() <= 1e-12 * scale).all()
+
+
+def test_variant_recipe_matches_the_cpu_path(cuda):
+    """`train_voice` at TINY_RECIPE with SEMIT and UPMIX on the card and on
+    the CPU (`chip_smoke.variants_card_vs_cpu`): the mixture and the
+    semi-tied set within the CPU tests' bounds; K33's two launchers and
+    K34 launched on the card."""
+    kernels.reset_counts()
+    chip_smoke.variants_card_vs_cpu((cuda, "cpu"))
+    for name in ("hsmm_mix_loglik", "hsmm_mix_loglik[post]", "semitied",
+                 "hsmm_viterbi", "hsmm_loglik"):
+        assert kernels.launches[name] > 0, name
+
+
+def test_variant_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    inp = chip_smoke.mix_chain_inputs(hsmm, cuda)
+    with pytest.raises(ValueError):
+        hvar.batch_frame_loglik_mix(**{**inp, "frames": inp["frames"].float()})
+    with pytest.raises(ValueError):
+        hvar.batch_frame_loglik_mix(**{**inp, "rows": tuple(
+            r.int() for r in inp["rows"])})
+    with pytest.raises(ValueError):                 # log-weights of C + 1
+        hvar.batch_frame_loglik_mix(**{**inp, "logws": tuple(
+            torch.cat([w, w[:, :1]], 1) for w in inp["logws"])})
+    nine = tuple(m[:, :1].expand(-1, 9, -1).contiguous()
+                 for m in inp["means"])
+    with pytest.raises(ValueError):                 # C above the maximum
+        hvar.batch_frame_loglik_mix(**{**inp, "means": nine, "variances": nine,
+                                     "logws": tuple(w[:, :1].expand(-1, 9)
+                                                    for w in inp["logws"])})
+    post = chip_smoke.mix_post_inputs(cuda)
+    with pytest.raises(ValueError):
+        hvar.responsibilities(**{**post, "x": post["x"].float()})
+    with pytest.raises(ValueError):
+        hvar.responsibilities(**{**post, "rows": post["rows"][:-1]})
+    with pytest.raises(ValueError):
+        hvar.responsibilities(**{**post, "x": post["x"][:, :-1]})
+    m9 = post["means"][:, :1].expand(-1, 9, -1).contiguous()
+    with pytest.raises(ValueError):
+        hvar.responsibilities(**{**post, "means": m9, "variances": m9,
+                               "logw": post["logw"][:, :1].expand(-1, 9)})
+    betas, scat = chip_smoke.semitied_inputs(4, 5, 0)
+    b = torch.as_tensor(betas, device=cuda)
+    s = torch.as_tensor(scat, device=cuda)[None]
+    with pytest.raises(ValueError):
+        hvar.semitied_blocks(b.float(), s.float(), 2)
+    with pytest.raises(ValueError):
+        hvar.semitied_blocks(b, s[0], 2)               # not (J, G, d, d)
+    with pytest.raises(ValueError):
+        hvar.semitied_blocks(b[:-1], s, 2)
+    big = torch.ones((1, 200, 100, 100), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError):                  # past shared memory
+        hvar.semitied_blocks(torch.ones(200, dtype=torch.float64,
+                                      device=cuda), big, 2)

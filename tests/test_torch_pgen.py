@@ -317,17 +317,12 @@ def test_compose_and_msd_match_jax():
         msd.interpolate_gaps(np.full(5, msd.MAGIC))
 
 
-def test_what_is_not_ported_raises(voices):
-    st, port, jcfg, pcfg, corpus = voices
+def test_what_is_not_ported_raises():
     with pytest.raises(NotImplementedError, match="sptk"):
         pgen.generate_waveform({"lf0": np.zeros((4, 1)),
                                 "mgc": np.zeros((4, 12)),
                                 "bap": np.zeros((4, 3))},
                                np.ones(4, bool), FS, engine="sptk", **CPU)
-    for flag in ("semitied", "upmix"):
-        with pytest.raises(NotImplementedError, match=flag):
-            recipe.train_voice(corpus, [], dataclasses.replace(
-                pcfg, **{flag: True}), **CPU)
 
 
 def test_entry_points_default_to_the_card(voices):
