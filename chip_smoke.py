@@ -217,7 +217,22 @@ Phases (any failure raises):
    TINY_RECIPE with both flags on the card and on the CPU: the mixture and
    semi-tied sets within the CPU tests' bounds (`variants_lane`,
    `variants_card_vs_cpu`, which rehearse on the CPU with stub `counted`/
-   `profiled`).
+   `profiled`);
+19. the SPTK engine: (a) `pgen.generate_waveform(engine="sptk")` on phase
+   12's 16 unseen phrases (48 kHz, mgc 50, shift 240, N 2048, the voice's
+   alpha), counted: ms an utterance by stage (excitation, filter),
+   audio-s/s, the idle share under the profiler, K35-K37's launches; one
+   phrase card vs CPU with the same injected noise (1e-10 of max |y|).
+   Lane (a) is a run at the engine's shapes and timing only: the voice
+   was trained on WORLD-codec mgc, whose exp(mgc2sp) is no SPTK voice's
+   transfer function (the waveform's rms is ~1e7); (b) is the engine on
+   the mel-cepstra it is built for.  (b) the SPTK copy-synthesis of 4 of
+   phase 12's sung phrases: the parity analysis, `sptk.mcep` at order 49,
+   alpha 0.55 (K38), `synthesize_sptk`;
+   mc card vs CPU within 1e-9 of max |mc|, the waveform from the same mc
+   within 1e-10; (c) K35-K38 replayed against their twins (K35 bit for bit
+   against the CPU's) (`sptk_lane`, `sptk_card_vs_cpu`, `sptk_copy_lane`,
+   which rehearse on the CPU with stub `counted`/`profiled`).
 
 Prints each measurement, the card's name and power limit, a `kernels`
 JSON line, and as the last line {"ok": true, "device": {...}}.  Exits
@@ -252,6 +267,7 @@ FS, DUR, BATCH, ITERS, FRAME_PERIOD = 48000, 2.0, 16, 5, 5.0
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 F32_OPS_PER_S = 67e12           # f32 outside the tensor cores
 F64_OPS_PER_S = 34e12           # f64 outside the tensor cores
+F64_TC_OPS_PER_S = 67e12        # f64 matrix products on the tensor cores
 
 # kernel name -> (K number, TPU formulation it replaces)
 REPLACES = {
@@ -330,6 +346,11 @@ REPLACES = {
     "hsmm_mix_loglik[post]": (
         "K33 post", "hts_train_world_tpu/models/hsmm_variants.py:147"),
     "semitied": ("K34", "hts_train_world_tpu/models/hsmm_variants.py:257"),
+    # the SPTK engine
+    "excite": ("K35", "hts_train_world_tpu/ops/excitation.py:55"),
+    "band_fir": ("K36", "hts_train_world_tpu/ops/excitation.py:91"),
+    "mglsa_filter": ("K37", "hts_train_world_tpu/ops/excitation.py:110"),
+    "mcep_newton": ("K38", "hts_train_world_tpu/ops/sptk.py:116"),
 }
 BODY = ("cheaptrick_lifter", "d4c_group_delay", "d4c_aperiodicity")
 PARITY_ANALYSIS = tuple(f"{k}[f64]" for k in (
@@ -406,7 +427,12 @@ PATHS = {
     # UPMIX/ERST5 (K33 chain + K20, K33 posterior, K19)
     "variants": ("hsmm_loglik", "hsmm_fb", "hsmm_accumulate", "hsmm_viterbi",
                  "semitied", "hsmm_mix_loglik", "hsmm_mix_loglik[post]"),
+    # the SPTK engine: generate_waveform(engine="sptk") (K35-K37), and the
+    # SPTK copy-synthesis with mcep (K38)
+    "sptk_engine": ("excite", "band_fir", "mglsa_filter"),
+    "sptk_copy": ("mcep_newton", "excite", "band_fir", "mglsa_filter"),
 }
+SPTK_KERNELS = ("excite", "band_fir", "mglsa_filter", "mcep_newton")
 # the HSMM lane: RecipeConfig's defaults (models/recipe.py:45-47)
 HSMM_MODELS, HSMM_STATES, HSMM_MAX_DUR, HSMM_UTTS = 40, 5, 60, 128
 # the recipe lane: train_voice at RecipeConfig's defaults
@@ -2884,6 +2910,182 @@ def variants_card_vs_cpu(devices=("cuda", "cpu")):
     return worst
 
 
+# the SPTK engine (phase 19): phase 12's unseen phrases through
+# generate_waveform(engine="sptk") at the voice's warping; the SPTK
+# copy-synthesis (parity analysis, mcep, synthesize_sptk) of 4 of its sung
+# phrases at the HTS demo's 48 kHz warping and order
+SPTK_COPY_ALPHA, SPTK_COPY_ORDER, SPTK_COPY_UTTS = 0.55, 49, 4
+
+
+class KeepFirst(list):
+    """A `kernels.record` that keeps each kernel's first launch only."""
+
+    def append(self, item):
+        if all(name != item[0] for name, _ in self):
+            super().append(item)
+
+
+def sptk_noise(n: int, seed: int, device):
+    """The engine's injected noise pair (2, n), float64, from a seed."""
+    import torch
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.standard_normal((2, n)), device=device)
+
+
+def _sync(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def sptk_lane(counted, profiled, gens, fs, alpha, device="cuda"):
+    """Phase 19 (a), the engine's shapes and timing:
+    `pgen.generate_waveform(engine="sptk")` on each (statics, vuv) of
+    `gens` (phase 12's unseen phrases, whose mgc are WORLD-codec
+    coefficients, not SPTK mel-cepstra: the transfer function is no SPTK
+    voice's; `sptk_copy_lane` runs the engine on the input it is built
+    for), counted, each kernel's first launch recorded; ms an utterance
+    by stage (host clock, each stage ended by a synchronize), audio-s/s of
+    a later run of all, the device idle share of one more under the
+    profiler.  Returns
+    (counts, recorded launches, waveforms)."""
+    import torch
+    from hts_train_world_tpu_torch.models import pgen
+
+    def run():
+        return [pgen.generate_waveform(s, v, fs, engine="sptk", alpha=alpha,
+                                       seed=i, device=device)
+                for i, (s, v) in enumerate(gens)]
+
+    run()                                            # warm-up
+    ys, counts, rec = counted("sptk_engine", run, KeepFirst())
+    shift = int(fs * FRAME_PERIOD / 1000)
+    for (s, _), y in zip(gens, ys):
+        if y.dtype != torch.float64 or y.shape != (
+                (len(s["lf0"]) - 1) * shift,) or not bool(
+                torch.isfinite(y).all()):
+            raise RuntimeError("SPTK engine: unexpected dtype, shape or "
+                               "non-finite waveform")
+    rms = [float(y.pow(2).mean().sqrt()) for y in ys]
+    spans = {}
+    for i, (s, v) in enumerate(gens):
+        t_prev = time.perf_counter()
+        for stage, _ in pgen.waveform_stages(s, v, fs, engine="sptk",
+                                             alpha=alpha, seed=i,
+                                             device=device):
+            _sync(device)
+            t_now = time.perf_counter()
+            spans[stage] = spans.get(stage, 0.0) + t_now - t_prev
+            t_prev = t_now
+    _sync(device)
+    t0 = time.perf_counter()
+    run()
+    _sync(device)
+    dt = time.perf_counter() - t0
+    audio = sum(len(y) for y in ys) / fs
+    wall, busy, evs = profiled(run)
+    print(f"SPTK engine, shapes and timing ({len(gens)} phrases of "
+          f"WORLD-codec mgc, {audio:.2f} s at {fs} Hz, "
+          f"alpha {alpha}): ms an utterance by stage (host clock, mean): "
+          + ", ".join(f"{k} {1e3 * v / len(gens):.3f}"
+                      for k, v in spans.items())
+          + f"; {audio / dt:.2f} audio-s/s ({1e3 * dt:.1f} ms for all); "
+          f"under the profiler {1e3 * wall:.1f} ms, device busy "
+          f"{1e3 * busy:.2f} ms, idle {100 * (1 - busy / wall):.1f}%; "
+          f"y rms {min(rms):.4f}-{max(rms):.4f}", flush=True)
+    if not all(r > 0 for r in rms):
+        raise RuntimeError("SPTK engine: a silent waveform")
+    return counts, rec, ys
+
+
+def sptk_card_vs_cpu(gen, fs, alpha, devices=("cuda", "cpu")):
+    """Phase 19 (a'): one phrase's statics through the engine on the card
+    and on the CPU with the same injected noise: within 1e-10 of max
+    |y|."""
+    from hts_train_world_tpu_torch.models import pgen
+    s, v = gen
+    n = (len(s["lf0"]) - 1) * int(fs * FRAME_PERIOD / 1000)
+    ys = [pgen.generate_waveform(
+        {k: (a.to(d) if hasattr(a, "to") else a) for k, a in s.items()},
+        v.to(d) if hasattr(v, "to") else v, fs, engine="sptk", alpha=alpha,
+        noise=sptk_noise(n, 19, d), device=d).cpu() for d in devices]
+    rel = float((ys[0] - ys[1]).abs().max() / ys[1].abs().max())
+    print(f"SPTK engine, {devices[0]} vs {devices[1]} ({n} samples at {fs} "
+          f"Hz): max |dy| / max |y| {rel:.3e} (<= 1e-10)", flush=True)
+    if not rel <= 1e-10:
+        raise RuntimeError("SPTK engine: the card disagrees with the CPU "
+                           "path")
+
+
+def sptk_copy_lane(counted, sigs, fs, device="cuda", cpu="cpu"):
+    """Phase 19 (b): the SPTK copy-synthesis of `sigs`: the parity
+    analysis (`vocoder.analyze`), mcep at order 49 and alpha 0.55 (K38) of
+    the log amplitude spectra, then `synthesize_sptk` at the same alpha
+    with the analysis' F0, counted and each kernel's first launch
+    recorded.  The first phrase again with its spectra on `cpu`: mc within
+    1e-9 of max |mc|, and the waveform from the card's mc with the same
+    injected noise within 1e-10 of max |y|.  Returns (counts, recorded
+    launches)."""
+    import torch
+    from hts_train_world_tpu_torch import vocoder
+    from hts_train_world_tpu_torch.features import filters
+    from hts_train_world_tpu_torch.ops import excitation as ex
+    from hts_train_world_tpu_torch.ops import sptk
+    alpha, order = SPTK_COPY_ALPHA, SPTK_COPY_ORDER
+    low, high = filters.band_split_filters(fs)
+    shift = int(fs * FRAME_PERIOD / 1000)
+    t0 = time.perf_counter()
+    ans = [vocoder.analyze(x, fs, FRAME_PERIOD, device=device) for x in sigs]
+    _sync(device)
+    t_an = time.perf_counter() - t0
+
+    def logp(a):
+        return torch.log(a.spectrogram.clamp(min=1e-12)) / 2.0
+
+    def lf0(a):
+        return torch.where(a.f0 > 0, torch.log(a.f0.clamp(min=1e-300)),
+                           torch.full_like(a.f0, ex.MAGIC))
+
+    def run():
+        out = []
+        for i, a in enumerate(ans):
+            mc = sptk.mcep(logp(a), order, alpha, a.fft_size)
+            g = torch.Generator(device=device).manual_seed(i)
+            out.append((mc, ex.synthesize_sptk(lf0(a), mc, fs, shift, alpha,
+                                               low, high, a.fft_size,
+                                               generator=g)))
+        return out
+
+    t0 = time.perf_counter()
+    outs, counts, rec = counted("sptk_copy", run, KeepFirst())
+    dt = time.perf_counter() - t0
+    frames = sum(mc.shape[0] for mc, _ in outs)
+    if not all(bool(torch.isfinite(mc).all() and torch.isfinite(y).all())
+               for mc, y in outs):
+        raise RuntimeError("SPTK copy-synthesis: non-finite mc or waveform")
+    a = ans[0]
+    mc_c = sptk.mcep(logp(a).to(cpu), order, alpha, a.fft_size)
+    rel_mc = float((outs[0][0].to(cpu) - mc_c).abs().max()
+                   / mc_c.abs().max())
+    n = (a.f0.shape[0] - 1) * shift
+    ys = [ex.synthesize_sptk(lf0(a).to(d), outs[0][0].to(d), fs, shift,
+                             alpha, low, high, a.fft_size,
+                             noise=sptk_noise(n, 20, d)).cpu()
+          for d in (device, cpu)]
+    rel_y = float((ys[0] - ys[1]).abs().max() / ys[1].abs().max())
+    rms = [float(y.pow(2).mean().sqrt()) for _, y in outs]
+    print(f"SPTK copy-synthesis ({len(sigs)} phrases, {frames} frames at "
+          f"{fs} Hz, N {a.fft_size}, order {order}, alpha {alpha}): parity "
+          f"analysis {t_an:.3f} s, mcep + synthesize_sptk {1e3 * dt:.1f} ms; "
+          f"y rms {min(rms):.4f}-{max(rms):.4f}; {device} vs {cpu}: mc "
+          f"{rel_mc:.3e} of max |mc| (<= 1e-9), y from the same mc "
+          f"{rel_y:.3e} of max |y| (<= 1e-10)", flush=True)
+    if not (rel_mc <= 1e-9 and rel_y <= 1e-10 and all(r > 0 for r in rms)):
+        raise RuntimeError("SPTK copy-synthesis: the card disagrees with "
+                           "the CPU path, or a silent waveform")
+    return counts, rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2918,6 +3120,8 @@ def main() -> int:
     from hts_train_world_tpu_torch.ops import gv as gv_mod
     from hts_train_world_tpu_torch.ops import postfilter as pf_mod
     from hts_train_world_tpu_torch.ops import trajectory as traj_mod
+    from hts_train_world_tpu_torch.ops import excitation as ex_mod
+    from hts_train_world_tpu_torch.ops import sptk as sptk_mod
     from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda")
@@ -2941,6 +3145,31 @@ def main() -> int:
         b.record()
         b.synchronize()
         return a.elapsed_time(b) / reps
+
+    def device_ms(fn, reps: int = 10):
+        """ms a call of fn's device work alone: the calls are enqueued
+        behind a sleep kernel longer than their enqueue on the host, so
+        the events around them time the launches back to back, not the
+        wrapper's Python.  None if no sleep up to ~1 s hides the host."""
+        fn()
+        sync()
+        cycles = 1 << 21
+        for _ in range(6):
+            s, a, b = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(3))
+            s.record()
+            torch.cuda._sleep(cycles)
+            a.record()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            host_ms = 1e3 * (time.perf_counter() - t0)
+            b.record()
+            b.synchronize()
+            if s.elapsed_time(a) > 1.5 * host_ms:
+                return a.elapsed_time(b) / reps
+            cycles *= 4
+        return None
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -3131,6 +3360,11 @@ def main() -> int:
         "hsmm_mix_loglik[post]": (hvar.responsibilities,
                                   hvar.responsibilities_plain),
         "semitied": (hvar.semitied_blocks, hvar.semitied_blocks_plain),
+        "excite": (ex_mod.excite, ex_mod.excite_plain),
+        "band_fir": (ex_mod.band_fir, ex_mod.band_fir_plain),
+        "mglsa_filter": (ex_mod.mglsa_synthesis,
+                         ex_mod.mglsa_synthesis_plain),
+        "mcep_newton": (sptk_mod.mcep, sptk_mod.mcep_plain),
     }
 
     def nbytes(*ts):
@@ -3140,6 +3374,12 @@ def main() -> int:
     def rate(t):
         """The card's peak operation rate for t's type."""
         return F64_OPS_PER_S if t.dtype == torch.float64 else F32_OPS_PER_S
+
+    def mm_rate(t):
+        """The peak rate of matrix products in t's type: float64's on the
+        tensor cores (DGEMM), float32's outside them (no TF32)."""
+        return (F64_TC_OPS_PER_S if t.dtype == torch.float64
+                else F32_OPS_PER_S)
 
     def bound_of(name, inp, outs):
         """(bound ms, 'bytes' | 'operations') for one launch: each input
@@ -3347,6 +3587,42 @@ def main() -> int:
             terms = sum(k * (t + 1) * inp["max_dur"] for t, k in zip(
                 inp["t_len"].tolist(), inp["k_len"].tolist()))
             t_o = 4.0 * terms / F64_OPS_PER_S
+        elif name == "excite":
+            # a sample's lerp (4), 1/period, the scan's add, the onset
+            # base (2), the max, phase (2), two floors, the compare and
+            # the sqrt: ~14 operations; lf0 -> period (~25 a frame)
+            t_o = (14.0 * outs[0].numel() + (25.0 * inp["pitch"].numel()
+                                             if inp.get("sr") else 0.0)) \
+                / rate(outs[0])
+        elif name == "band_fir":
+            # two FIRs of K taps, a multiply-add each, and the final add
+            K = len(inp["lowpass"])
+            t_o = (4.0 * K + 1) * outs[0].numel() / rate(outs[0])
+        elif name == "mglsa_filter":
+            # a frame's log H (M x (N/2+1) multiply-adds: across frames a
+            # matrix product, at the tensor cores' rate), exp (~20 a bin),
+            # two real FFTs of N at 2.5 N log2 N, the product (2 a bin);
+            # the overlap-add's 6 adds a sample
+            Tn, M = inp["mgc"].shape
+            Nf = inp["fft_size"]
+            F = Nf // 2 + 1
+            t_o = (Tn * 2.0 * M * F / mm_rate(outs[0])
+                   + (Tn * (22.0 * F + 5.0 * Nf * math.log2(Nf))
+                      + 6.0 * outs[0].numel()) / rate(outs[0]))
+        elif name == "mcep_newton":
+            # per frame: the initial cepstrum (m+1 products of F) and F
+            # exps; a step's two table products ((m+1) + (2m+1) rows of F;
+            # across frames matrix products, at the tensor cores' rate),
+            # F exps and divides, the (m+1)^2 system, its LU ((m+1)^3 / 3
+            # multiply-adds) and two triangular solves
+            lp = inp["log_periodogram_half"]
+            Tn, F = lp.shape
+            m1 = inp["order"] + 1
+            mm = 2.0 * m1 * F + inp["itr"] * 2.0 * (3 * m1 - 1) * F
+            rest = 20.0 * F + inp["itr"] * (
+                22.0 * F + 2.0 * m1 * m1 + 2.0 * m1 ** 3 / 3
+                + 2.0 * m1 * m1)
+            t_o = Tn * (mm / mm_rate(lp) + rest / rate(lp))
         t_b = moved / HBM_BYTES_PER_S
         return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
@@ -3566,6 +3842,61 @@ def main() -> int:
                 return torch.cat([x, 0.5 * (hi - lo), hi - 2.0 * x + lo],
                                  dim=-1)
             return shifted
+        if name == "excite":
+            # the phase and the forward-filled onset base as two library
+            # scans of the per-sample frequency (built here, not timed)
+            pitch = (ex_mod.lf0_to_pitch(inp["pitch"], inp["sr"])
+                     if inp.get("sr") else inp["pitch"])
+            p = ex_mod._per_sample_pitch(pitch, inp["shift"])
+            freq = torch.where(p > 0, 1.0 / p.clamp(min=1e-6),
+                               torch.zeros_like(p))
+            return lambda: torch.cummax(torch.cumsum(freq, 0), 0)
+        if name == "band_fir":
+            # both FIRs as one grouped causal convolution, then the sum
+            x = torch.stack([inp["voiced_ex"], inp["noise_ex"]])[None]
+            w = torch.as_tensor(np.stack([inp["lowpass"], inp["highpass"]])
+                                [:, None, ::-1].copy(), dtype=x.dtype,
+                                device=dev)
+            K = w.shape[-1]
+            tnf = torch.nn.functional
+            return lambda: tnf.conv1d(tnf.pad(x, (K - 1, 0)), w,
+                                      groups=2)[0].sum(0)
+        if name == "mglsa_filter":
+            # rfft, the product with H and irfft of the frames' segments,
+            # then the scatter-add (segments, H and indices built here)
+            exc, mgc, shift, Nf = (inp["excitation"], inp["mgc"],
+                                   inp["shift"], inp["fft_size"])
+            Tn, L = mgc.shape[0], 2 * shift
+            H = torch.exp(codec.mgc2sp_real(mgc, inp["alpha"], Nf))
+            pad = torch.cat([exc.new_zeros(shift), exc, exc.new_zeros(L)])
+            st = torch.arange(Tn, device=dev) * shift
+            segs = pad[st[:, None] + torch.arange(L, device=dev)]
+            idx = (st[:, None] + torch.arange(3 * L, device=dev)).reshape(-1)
+            out = exc.new_zeros(Tn * shift + 3 * L)
+
+            def fft_ola():
+                f = torch.fft.irfft(torch.fft.rfft(segs, n=Nf) * H, n=Nf)
+                taps = torch.cat([f[:, Nf - L:], f[:, :2 * L]], 1)
+                return out.index_add(0, idx, taps.reshape(-1))
+            return fft_ola
+        if name == "mcep_newton":
+            # a step's library calls (rfft, irfft, the dense solve) at this
+            # input's shapes, repeated `itr` times
+            lp = inp["log_periodogram_half"]
+            Nf, m1 = inp["fft_size"], inp["order"] + 1
+            c = torch.zeros(lp.shape[0], Nf // 2 + 1, dtype=lp.dtype,
+                            device=dev)
+            A = torch.eye(m1, dtype=lp.dtype, device=dev).expand(
+                lp.shape[0], m1, m1) * 2.0
+            b = torch.ones(lp.shape[0], m1, 1, dtype=lp.dtype, device=dev)
+
+            def steps():
+                for _ in range(inp["itr"]):
+                    spec = torch.fft.rfft(c, n=Nf).real
+                    torch.fft.irfft(torch.exp(lp) / torch.exp(2.0 * spec),
+                                    n=Nf)
+                    torch.linalg.solve(A, b)
+            return steps
         return None
 
     def row_rel(err, want):
@@ -4022,9 +4353,31 @@ def main() -> int:
                 f"{r_a:.2e} of max|A| (<= 1e-9), sigmas rel {r_s:.2e} (<= "
                 f"1e-8), aux {r_x:.2e} of its scale (<= 1e-12)")
 
+    def check_sptk(name, inp, out_k, out_p):
+        """K35 bit for bit against its twin run on the CPU (the twin on the
+        card sums with torch.cumsum's CUDA order); K36 within 1e-13, K37
+        1e-11 and K38 1e-9 of the twin's max |value| on the card."""
+        if name == "excite":
+            y_c, v_c = ex_mod.excite_plain(**on_cpu(inp))
+            same = torch.equal(out_k[0].cpu(), y_c) and torch.equal(
+                out_k[1].cpu(), v_c)
+            pulses = int((v_c & (y_c != 0)).sum())
+            return (same, float((out_k[0].cpu() - y_c).abs().max()),
+                    f"bit for bit against the twin on the CPU: {same} "
+                    f"({pulses} pulses, {int((~v_c).sum())} unvoiced "
+                    f"samples)")
+        lim = {"band_fir": 1e-13, "mglsa_filter": 1e-11,
+               "mcep_newton": 1e-9}[name]
+        k, p = out_k[0], out_p[0]
+        err = float((k - p).abs().max())
+        rel = err / float(p.abs().max())
+        return (rel <= lim, err, f"|err| / max |twin| {rel:.2e} <= {lim:g}")
+
     def check(name, inp, out_k, out_p):
         """(passed, max abs err against the reference, what was held and
         what was read)."""
+        if name in SPTK_KERNELS:
+            return check_sptk(name, inp, out_k, out_p)
         if kernels.base_name(name) == "hsmm_mix_loglik":
             return check_k33(inp, out_k, out_p)
         if name == "semitied":
@@ -4258,6 +4611,10 @@ def main() -> int:
         out_p = out_p if isinstance(out_p, tuple) else (out_p,)
         ok, err, tol = check(name, inp, out_k, out_p)
         ms = cuda_ms(lambda: kern(**inp), reps=10, warm=2)
+        # the SPTK kernels' device time apart from their wrappers' host
+        # time (a 31-tap FIR takes less than its ctypes launch)
+        dev_ms = (device_ms(lambda: kern(**inp))
+                  if kernels.base_name(name) in SPTK_KERNELS else None)
         plain_ms = cuda_ms(lambda: plain(**inp),
                            reps=1 if name in heavy else 5)
         lib = library(name, inp)
@@ -4271,8 +4628,10 @@ def main() -> int:
             1 if kernels.base_name(name) in ("synth_time_base", "hsmm_fb")
             else 0].shape)
         print(f"{REPLACES[name][0]} {name} ({path}) out {shape}: max_abs_err "
-              f"{err:.3e} ({tol}) {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bms:.4f} ms ({by})"
+              f"{err:.3e} ({tol}) {ms:.4f} ms"
+              + (f" (device {dev_ms:.4f} ms behind a sleep)"
+                 if dev_ms is not None else "")
+              + f", plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})"
               + (f", library {lib_ms:.4f} ms" if lib_ms is not None else ""),
               flush=True)
         if not ok:
@@ -4405,16 +4764,7 @@ def main() -> int:
           # twice that for the gradient, and the variance term
           + f"; gv_refine (530, 3, 50) x 10 iterations "
           + stage_bound(8 * (2 * 530 * 3 * 50 + 530 * 50),
-                        ops64=10 * 530 * 50 * 3 * (3 * (6 + 4) + 8))
-          # the SPTK engine (ops/excitation.py, excite + mglsa_synthesis)
-          # for the same utterance at 48 kHz (shift 240, fft 2048): mgc
-          # in, the excitation and the waveform once; a frame's freqt
-          # product (50 x 1025 multiply-adds), two real FFTs at 2.5 n log2
-          # n, the exp (~20 a bin) and the complex product (6 a bin)
-          + f"; SPTK engine (530, 50) -> {530 * 240} samples "
-          + stage_bound(4 * (530 * 50 + 2 * 530 * 240),
-                        530 * (2.0 * 50 * 1025 + 2 * 2.5 * 2048 * 11
-                               + 26.0 * 1025)),
+                        ops64=10 * 530 * 50 * 3 * (3 * (6 + 4) + 8)),
           flush=True)
 
     # ---- 4. the card against the CPU (plain) path, small input ----
@@ -5154,6 +5504,7 @@ def main() -> int:
     # per generated utterance: the stages on the host clock, each ended by
     # a synchronize (the lane waits on its host)
     spans_g = {}
+    statics_g = []           # (statics, vuv) of each, for phase 19
     for i, ph in enumerate(unseen_v):
         t_prev = time.perf_counter()
         labels = voice_labels(ph)
@@ -5165,6 +5516,7 @@ def main() -> int:
             spans_g[stage] = spans_g.get(stage, 0.0) + t_now - t_prev
             t_prev = t_now
         statics, vuv, durs = res
+        statics_g.append((statics, vuv))
         for stage, res in pgen.waveform_stages(statics, vuv, VFS, seed=i):
             sync()
             t_now = time.perf_counter()
@@ -5420,6 +5772,22 @@ def main() -> int:
     variants_card_vs_cpu()
     print(f"phase 18: {time.perf_counter() - t18:.1f} s", flush=True)
 
+    # ---- 19. the SPTK engine: phase 12's unseen phrases through
+    # generate_waveform(engine="sptk"), the SPTK copy-synthesis of 4 of its
+    # phrases (mcep at order 49, alpha 0.55), K35-K38 replayed ----
+    t19 = time.perf_counter()
+    alpha_v = voice_v[2].alpha or 0.42
+    counts_sp, rec_sp, _ = sptk_lane(counted, profiled, statics_g, VFS,
+                                     alpha_v)
+    sptk_card_vs_cpu(statics_g[0], VFS, alpha_v)
+    counts_sc, rec_sc = sptk_copy_lane(counted, sigs_v[:SPTK_COPY_UTTS],
+                                       VFS)
+    for path, rec in (("sptk_engine", rec_sp), ("sptk_copy", rec_sc)):
+        for name, inp in rec:
+            replay(path, name, inp)
+    del rec_sp, rec_sc
+    print(f"phase 19: {time.perf_counter() - t19:.1f} s", flush=True)
+
     print(smi)
     src = "hts_train_world_tpu_torch/csrc/"
     by_path = {"copy_synth": counts_cs, "feature_lane": counts_fl,
@@ -5438,7 +5806,8 @@ def main() -> int:
                "parity_analysis_encode": counts_pe16,
                "parity_analysis_cli": counts_pac,
                "parity_harvest": counts_ph17,
-               "parity_harvest_cli": counts_phc, "variants": counts_v}
+               "parity_harvest_cli": counts_phc, "variants": counts_v,
+               "sptk_engine": counts_sp, "sptk_copy": counts_sc}
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": src + kernels.KERNELS[kernels.base_name(name)][0],

@@ -1,6 +1,6 @@
 """Build, load and launch the hand-written CUDA kernels.
 
-Thirty-four kernels, K1-K34 (`KERNELS`).  Each source under `csrc/` is
+Thirty-eight kernels, K1-K38 (`KERNELS`).  Each source under `csrc/` is
 compiled by `nvcc` for `sm_90a` into its own shared library with a plain
 C interface, loaded with `ctypes`.  Nothing
 happens at import time: the first launch builds every kernel (one `nvcc`
@@ -138,6 +138,15 @@ KERNELS = {
         "hsmm_mix_post_launch": [_P, _I, _I, _I, _P, _P, _P, _P, _P]}),
     "semitied": ("semitied.cu", "semitied_launch",
                  [_P, _P, _I, _I, _I, _I, _P, _P, _P]),
+    "excite": ("excite.cu", "excite_launch",
+               [_P, _I, _I, _D, _P, _I, _P, _P, _P]),
+    "band_fir": ("band_fir.cu", "band_fir_launch",
+                 [_P, _P, _L, _P, _I, _I, _P]),
+    "mglsa_filter": ("mglsa_filter.cu", {
+        "mglsa_frames_launch": [_P, _L, _P, _I, _I, _P, _P, _I, _I, _I, _P],
+        "mglsa_ola_launch": [_P, _I, _I, _I, _L, _I, _P]}),
+    "mcep_newton": ("mcep_newton.cu", "mcep_newton_launch",
+                    [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P]),
 }
 
 launches: collections.Counter = collections.Counter()

@@ -24,7 +24,8 @@ modulation-spectrum postfilter (K21) or the mel-cepstral postfilter
 (K22).  WGEN casts the statics to float32 and runs the synth CLI's
 decode (K12) and fast-mode WORLD synthesis (K9-K11), as `cli synth
 --f32` does; its noise comes from a seeded `torch.Generator` unless
-given.  `engine="sptk"` (mixed excitation + MLSA) is not in the port yet.
+given.  `engine="sptk"` is the reference's excite | mglsadf branch in
+float64: mixed excitation (K35, K36) through the MGLSA filter (K37).
 
 Entry points take `device="cuda"` (the default; raises without a card) or
 `device="cpu"`, where every kernel runs as its plain twin.  Statics come
@@ -41,10 +42,11 @@ import torch
 
 from hts_train_world_tpu_torch import config as wcfg
 from hts_train_world_tpu_torch import device as device_mod
-from hts_train_world_tpu_torch.features import decode
+from hts_train_world_tpu_torch.features import decode, filters
 from hts_train_world_tpu_torch.features import windows as win_mod
 from hts_train_world_tpu_torch.models import context_clustered as cc
 from hts_train_world_tpu_torch.models import hsmm
+from hts_train_world_tpu_torch.ops import excitation as ex_mod
 from hts_train_world_tpu_torch.ops import gv as gv_mod
 from hts_train_world_tpu_torch.ops import mlpg as mlpg_mod
 from hts_train_world_tpu_torch.ops import postfilter as pf_mod
@@ -53,9 +55,6 @@ from hts_train_world_tpu_torch.ops import synthesis as syn
 from hts_train_world_tpu_torch.parallel import batch as batch_mod
 
 MAGIC = -1.0e10
-SPTK_ENGINE = ("engine='sptk' (mixed excitation + MLSA: ops/excitation.py, "
-               "features/filters.py) is not in the port yet (ROADMAP "
-               "Queue A 10)")
 
 
 # ---------------------------------------------------------------------------
@@ -362,28 +361,55 @@ def generate_parameters(model: cc.ClusteredModel, label_seq: Sequence[str],
     return out
 
 
+def _f64(a, dev):
+    return torch.as_tensor(a, dtype=torch.float64, device=dev)
+
+
+def _sptk_stages(statics, vuv, fs: int, fft_size: int, frame_period: float,
+                 alpha: float, noise, seed: int, dev):
+    """The excite | mglsadf branch: "excitation" (the mixed excitation,
+    K35 + K36) and "filter" (the MGLSA filter, K37), float64."""
+    lf0 = _f64(statics["lf0"], dev)[:, 0]
+    vuv = torch.as_tensor(vuv, dtype=torch.bool, device=dev)
+    lf0_m = torch.where(vuv & (lf0 != MAGIC), lf0, torch.full_like(lf0,
+                                                                   MAGIC))
+    shift = int(fs * frame_period / 1000.0)
+    N = fft_size or wcfg.cheaptrick_fft_size(fs)
+    low, high = filters.band_split_filters(fs)
+    gen = None
+    if noise is None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+    exc, _ = ex_mod.mixed_excitation(lf0_m, shift, low, high, noise, gen,
+                                     sr=fs)
+    yield "excitation", exc
+    yield "filter", ex_mod.mglsa_synthesis(exc, _f64(statics["mgc"], dev),
+                                           alpha, shift, N)
+
+
 def waveform_stages(statics, vuv, fs: int, fft_size: int = 0,
                     frame_period: float = 5.0, engine: str = "world",
-                    noise=None, seed: int = 0, device="cuda"):
-    """WGEN one stage at a time, yielding (stage name, result): "decode"
-    (f0, sp, ap of the float32 features, K12), "count" (the pulse bucket,
-    one host read) and "synthesis" (the waveform (y_length,), float32)."""
-    if engine == "sptk":
-        raise NotImplementedError(SPTK_ENGINE)
-    if engine != "world":
+                    alpha: float = 0.42, noise=None, seed: int = 0,
+                    device="cuda"):
+    """WGEN one stage at a time, yielding (stage name, result).
+    engine="world": "decode" (f0, sp, ap of the float32 features, K12),
+    "count" (the pulse bucket, one host read) and "synthesis" (the
+    waveform (y_length,), float32).  engine="sptk": "excitation" and
+    "filter" (the waveform ((T-1)*shift,), float64)."""
+    if engine not in ("world", "sptk"):
         raise ValueError(f"unknown engine {engine!r}")
     dev = device_mod.resolve(device)
-
-    def f64(a):
-        return torch.as_tensor(a, dtype=torch.float64, device=dev)
-    lf0 = f64(statics["lf0"])
+    if engine == "sptk":
+        yield from _sptk_stages(statics, vuv, fs, fft_size, frame_period,
+                                alpha, noise, seed, dev)
+        return
+    lf0 = _f64(statics["lf0"], dev)
     vuv = torch.as_tensor(vuv, dtype=torch.bool, device=dev)
     lf0_1 = torch.where((lf0[:, 0] == MAGIC) | ~vuv, torch.zeros_like(
         lf0[:, 0]), lf0[:, 0])
     N = fft_size or wcfg.cheaptrick_fft_size(fs)
     f0, sp, ap = decode.decode_features(
-        lf0_1.float()[None], f64(statics["mgc"]).float()[None],
-        f64(statics["bap"]).float()[None], fs, N)
+        lf0_1.float()[None], _f64(statics["mgc"], dev).float()[None],
+        _f64(statics["bap"], dev).float()[None], fs, N)
     yield "decode", (f0, sp, ap)
     yl = wcfg.y_length_for(f0.shape[1], frame_period, fs)
     ncs = syn.count_pulses(f0, frame_period, fs, yl, N)
@@ -402,13 +428,16 @@ def waveform_stages(statics, vuv, fs: int, fft_size: int = 0,
 
 def generate_waveform(statics: Dict, vuv, fs: int, fft_size: int = 0,
                       frame_period: float = 5.0, engine: str = "world",
-                      noise=None, seed: int = 0, device="cuda"):
-    """WGEN for one utterance, engine="world": the statics (lf0 zeroed
+                      alpha: float = 0.42, noise=None, seed: int = 0,
+                      device="cuda"):
+    """WGEN for one utterance.  engine="world": the statics (lf0 zeroed
     where MAGIC or unvoiced) cast to float32, decoded as the synth CLI
     decodes (K12) and synthesised by WORLD's fast mode (K9-K11) ->
-    waveform (y_length,) float32 on `device`.  `noise` (y_length+16,)
-    replaces the draw from `seed`.  engine="sptk" raises
-    NotImplementedError."""
+    waveform (y_length,) float32 on `device`; `noise` (y_length+16,)
+    replaces the draw from `seed`.  engine="sptk": the excite | mglsadf
+    branch (Training.pl:2873-2899) in float64 at warping `alpha` ->
+    waveform ((T-1)*shift,) float64; `noise` is the pair (n0, n1) of (n,)
+    draws that `ops.excitation.mixed_excitation` takes."""
     *_, (_, y) = waveform_stages(statics, vuv, fs, fft_size, frame_period,
-                                 engine, noise, seed, device)
+                                 engine, alpha, noise, seed, device)
     return y

@@ -3,8 +3,10 @@ Training.pl:2642-2687) and the modulation-spectrum postfilter
 (postfiltering_mspf / msmp2seq / make_mspf, Training.pl:2950-3038,
 3133-3221).
 
-Counterpart of `hts_train_world_tpu/ops/postfilter.py:32-144`; the LSP
-postfilter (`:152-267`) belongs to the SPTK engine, not in the port yet.
+Counterpart of `hts_train_world_tpu/ops/postfilter.py`; the LSP
+postfilter (`:152-267`, the SPTK engine's gm > 0 preamble) is plain
+PyTorch: `lsp_sharpen`, `lsp_check` (a running max), `lsp_to_lpc`,
+`lsp_spectrum_energy`, `lsp_postfilter`.
 
 - `mcep_postfilter` (kernel K22, csrc/mcep_postfilter.cu): scale
   coefficients 2.. by pf, then move c0 by 0.5 ln(r0/r0'), r0 the lag-0
@@ -35,7 +37,7 @@ import torch
 
 from hts_train_world_tpu_torch import device as device_mod
 from hts_train_world_tpu_torch import kernels
-from hts_train_world_tpu_torch.ops import sptk
+from hts_train_world_tpu_torch.ops import prims, sptk
 from hts_train_world_tpu_torch.ops.codec import freqt_matrix
 
 CO = 2047          # cepstrum order for energy matching (Config.pm.in:188)
@@ -264,3 +266,103 @@ def apply_mspf(traj, nat: MspfStats, gen: MspfStats, weight: float = 1.0):
     stats = tuple(torch.as_tensor(a, dtype=torch.float64, device=traj.device)
                   for a in (nat.mean, nat.std, gen.mean, gen.std))
     return mspf(traj, stats, weight)
+
+
+# ---------------------------------------------------------------------------
+# LSP postfilter (postfiltering_lsp, Training.pl:2690-2752): plain PyTorch
+# ---------------------------------------------------------------------------
+
+
+def lsp_sharpen(lsp, pf: float = 0.7):
+    """The reference's per-frame LSP spacing sharpener
+    (Training.pl:2723-2731): for interior indices 1 < i < m-1,
+
+        d1 = pf*(w[i+1]-w[i]);  d2 = pf*(w[i]-w[i-1])
+        w'[i] = w[i-1] + d2 + d2^2*((w[i+1]-w[i-1]) - (d1+d2))
+                               / (d2^2 + d1^2)
+
+    first and last LSPs pass through.  lsp: (..., m-1) frequencies (gain
+    excluded)."""
+    prev, cur, nxt = lsp[..., :-2], lsp[..., 1:-1], lsp[..., 2:]
+    d1 = pf * (nxt - cur)
+    d2 = pf * (cur - prev)
+    den = d2 * d2 + d1 * d1
+    new = prev + d2 + d2 * d2 * ((nxt - prev) - (d1 + d2)) \
+        / torch.where(den == 0.0, torch.ones_like(den), den)
+    new = torch.where(den == 0.0, cur, new)
+    return torch.cat([lsp[..., :1], new, lsp[..., -1:]], dim=-1)
+
+
+def lsp_check(lsp, min_gap: float = 1e-3):
+    """lspcheck -c -r: each frame's LSPs projected onto the stable region,
+    ascending in (0, pi) with a minimal gap, as a running max of w[i] -
+    i*gap (a monotone envelope) instead of the C's pairwise swap loop."""
+    m = lsp.shape[-1]
+    lo = lsp.clamp(min_gap, math.pi - min_gap)
+    steps = torch.arange(1, m + 1, dtype=lsp.dtype,
+                         device=lsp.device) * min_gap
+    env = torch.cummax(lo - steps, dim=-1).values
+    return (env + steps).clamp(min_gap, math.pi - min_gap)
+
+
+def _times_1_plus(c, sign: float, lag: int):
+    """c(z) * (1 + sign z^-lag), the same padded length."""
+    return c + sign * torch.cat([torch.zeros_like(c[..., :lag]),
+                                 c[..., :-lag]], dim=-1)
+
+
+def _lsp_poly(cos_w, deg_out: int):
+    """prod over the roots of (1 - 2c z^-1 + z^-2), coefficients padded to
+    deg_out+1, one root at a time."""
+    c = torch.zeros(cos_w.shape[:-1] + (deg_out + 1,), dtype=cos_w.dtype,
+                    device=cos_w.device)
+    c[..., 0] = 1.0
+    for r in range(cos_w.shape[-1]):
+        s1 = torch.cat([torch.zeros_like(c[..., :1]), c[..., :-1]], dim=-1)
+        s2 = torch.cat([torch.zeros_like(c[..., :2]), c[..., :-2]], dim=-1)
+        # c - 2 cos(w) s1 fused, as XLA compiles the JAX package's scan body
+        c = prims.fma(-2.0 * cos_w[..., r, None].expand_as(s1), s1, c) + s2
+    return c
+
+
+def lsp_to_lpc(lsp):
+    """LSP frequencies (..., m) -> LPC coefficients a[1..m] (SPTK lsp2lpc).
+    Sorted LSPs alternate P/Q starting with P: even m: A = ((1+z^-1) P~ +
+    (1-z^-1) Q~) / 2; odd m: A = (P~ + (1-z^-2) Q~) / 2, X~ the product of
+    (1 - 2 cos(w) z^-1 + z^-2) over that set's roots."""
+    m = lsp.shape[-1]
+    cos_w = torch.cos(lsp)
+    P = _lsp_poly(cos_w[..., 0::2], m + 1)
+    Q = _lsp_poly(cos_w[..., 1::2], m + 1)
+    if m % 2 == 0:
+        P = _times_1_plus(P, +1.0, 1)
+        Q = _times_1_plus(Q, -1.0, 1)
+    else:
+        Q = _times_1_plus(Q, -1.0, 2)
+    return (0.5 * (P + Q))[..., 1:m + 1]
+
+
+def lsp_spectrum_energy(gain, lsp, n_fft: int = 512):
+    """0.5 ln sum |H|^2 of the all-pole filter exp(gain)/A(z): the energy
+    the reference's ene1/ene2 pipeline measures (Training.pl:2705-2706)."""
+    a = lsp_to_lpc(lsp)
+    A = torch.cat([torch.ones_like(a[..., :1]), a], dim=-1)
+    Af = torch.fft.rfft(A, n=n_fft, dim=-1)
+    mag2 = Af.real ** 2 + Af.imag ** 2
+    h2 = torch.exp(2.0 * gain)[..., None] / mag2.clamp(min=1e-20)
+    return 0.5 * torch.log(h2.sum(-1))
+
+
+def lsp_postfilter(mgc_lsp, pf: float = 0.7, energy_match: bool = False):
+    """postfiltering_lsp (Training.pl:2690-2752) on (T, m) frames of [gain,
+    lsp_1..lsp_{m-1}].  energy_match=False is the reference as written
+    (its gain correction divides ene2 by itself, so the gain passes
+    through); True moves the gain by the all-pole log energy lost to the
+    sharpening, gain + (ene1 - ene2)."""
+    gain = mgc_lsp[..., 0]
+    lsp = mgc_lsp[..., 1:]
+    plsp = lsp_check(lsp_sharpen(lsp, pf))
+    if energy_match:
+        gain = gain + (lsp_spectrum_energy(gain, lsp_check(lsp))
+                       - lsp_spectrum_energy(gain, plsp))
+    return torch.cat([gain[..., None], plsp], dim=-1)

@@ -2211,3 +2211,171 @@ def test_variant_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):                  # past shared memory
         hvar.semitied_blocks(torch.ones(200, dtype=torch.float64,
                                       device=cuda), big, 2)
+
+
+def _sptk_pitch(T, fs, seed=35):
+    """A per-frame period contour: 220 Hz with a 6 Hz vibrato, two unvoiced
+    runs."""
+    t = np.arange(T) * 0.005
+    p = fs / (220.0 * 2.0 ** (0.5 / 12.0 * np.sin(2 * np.pi * 6.0 * t)))
+    p[10:18] = 0.0
+    p[T // 2:T // 2 + 5] = 0.0
+    return p
+
+
+@pytest.mark.parametrize("fs,shift,period", [
+    (16000, 80, 80.0), (16000, 80, 100.0), (16000, 80, 120.0),
+    (48000, 240, 240.0), (48000, 240, "contour")])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k35_kernel_matches_the_cpu_twin_bit_for_bit(cuda, fs, shift, period,
+                                                     dtype):
+    """K35 against its twin run on the CPU, bit for bit (the pulses at
+    periods that divide the frame are rounding ties), one launch."""
+    from hts_train_world_tpu_torch.ops import excitation as ex
+    T = 530 if fs == 48000 else 60
+    p = (_sptk_pitch(T, fs) if period == "contour"
+         else np.full(T, float(period)))
+    if period != "contour":
+        p[20:26] = 0.0
+    n = (T - 1) * shift
+    noise = torch.as_tensor(np.random.default_rng(1).standard_normal(n),
+                            dtype=dtype)
+    pitch = torch.as_tensor(p, dtype=dtype)
+    kernels.reset_counts()
+    y, v = ex.excite(pitch.to(cuda), shift, noise.to(cuda))
+    assert dict(kernels.launches) == {"excite": 1}
+    y_c, v_c = ex.excite_plain(pitch, shift, noise)
+    assert torch.equal(v.cpu(), v_c) and torch.equal(y.cpu(), y_c)
+    assert int((v_c & (y_c != 0)).sum()) >= 20
+
+
+@pytest.mark.parametrize("fs,shift,T", [(16000, 80, 60), (48000, 240, 530)])
+def test_k35_kernel_from_lf0_matches_the_cpu_twin_bit_for_bit(cuda, fs,
+                                                              shift, T):
+    """K35 given lf0 and the sampling rate: the period from XLA's exp on
+    the card (the device's fma) and the pulses, bit for bit against the
+    twin (`lf0_to_pitch`, `prims.xla_exp`) on the CPU, one launch."""
+    from hts_train_world_tpu_torch.ops import excitation as ex
+    p = _sptk_pitch(T, fs)
+    lf0 = torch.as_tensor(np.where(p > 0, np.log(fs / np.maximum(p, 1.0)),
+                                   ex.MAGIC))
+    n = (T - 1) * shift
+    noise = torch.as_tensor(np.random.default_rng(2).standard_normal(n))
+    kernels.reset_counts()
+    y, v = ex.excite(lf0.to(cuda), shift, noise.to(cuda), sr=fs)
+    assert dict(kernels.launches) == {"excite": 1}
+    y_c, v_c = ex.excite_plain(lf0, shift, noise, sr=fs)
+    assert torch.equal(v.cpu(), v_c) and torch.equal(y.cpu(), y_c)
+    assert int((v_c & (y_c != 0)).sum()) >= 20
+
+
+def test_k36_kernel_matches_plain(cuda):
+    """K36 on the 48 kHz excitations against its twin on the card, within
+    1e-13 of max |y| (the same taps in the same order)."""
+    from hts_train_world_tpu_torch.features import filters
+    from hts_train_world_tpu_torch.ops import excitation as ex
+    rng = np.random.default_rng(36)
+    n = 529 * 240
+    v = torch.as_tensor(rng.standard_normal(n), device=cuda)
+    u = torch.as_tensor(rng.standard_normal(n), device=cuda)
+    low, high = filters.band_split_filters(48000)
+    kernels.reset_counts()
+    got = ex.band_fir(v, u, low, high)
+    assert dict(kernels.launches) == {"band_fir": 1}
+    want = ex.band_fir_plain(v, u, low, high)
+    assert float((got - want).abs().max()) <= 1e-13 * float(
+        want.abs().max())
+
+
+@pytest.mark.parametrize("fs,N", [(16000, 1024), (16000, 1000),
+                                  (48000, 2048), (96000, 4096)])
+def test_k37_kernel_matches_plain(cuda, fs, N):
+    """K37's two launchers against the twin (torch.fft, index_add_) on the
+    card, within 1e-11 of max |y|: the radix-2 FFT in shared memory (64 KB
+    of it at N 4096), and the direct DFT at an N that is not a power of
+    two."""
+    from hts_train_world_tpu_torch.ops import excitation as ex
+    rng = np.random.default_rng(37)
+    shift, T, M = fs // 200, 80, 50
+    mgc = rng.standard_normal((T, M)) * 0.1 / (1.0 + np.arange(M))
+    mgc[:, 0] += 0.5
+    exc = torch.as_tensor(rng.standard_normal((T - 1) * shift),
+                          device=cuda)
+    mgc = torch.as_tensor(mgc, device=cuda)
+    kernels.reset_counts()
+    got = ex.mglsa_synthesis(exc, mgc, 0.42, shift, N)
+    assert dict(kernels.launches) == {"mglsa_filter": 2}
+    want = ex.mglsa_synthesis_plain(exc, mgc, 0.42, shift, N)
+    assert float((got - want).abs().max()) <= 1e-11 * float(
+        want.abs().max())
+
+
+def _smooth_logp(T, N, seed=38):
+    """Log amplitude spectra (T, N/2+1) of a random 20-term cepstrum (a
+    vowel-like envelope) with a 2 % ripple."""
+    rng = np.random.default_rng(seed)
+    k = np.arange(N // 2 + 1)
+    c = rng.standard_normal((T, 20)) * 0.5 / (1.0 + np.arange(20))
+    env = c @ np.cos(np.pi * np.outer(np.arange(20), k) / (N // 2))
+    return env + 0.02 * rng.standard_normal((T, N // 2 + 1)) - 2.0
+
+
+@pytest.mark.parametrize("N,order,alpha", [(1024, 24, 0.42),
+                                           (2048, 49, 0.55)])
+def test_k38_kernel_matches_plain(cuda, N, order, alpha):
+    """K38 against its twin (FFT form, torch.linalg.solve) on the card,
+    30 Newton steps, within 1e-9 of max |mc|."""
+    from hts_train_world_tpu_torch.ops import sptk
+    lp = torch.as_tensor(_smooth_logp(64, N), device=cuda)
+    kernels.reset_counts()
+    got = sptk.mcep(lp, order, alpha, N)
+    assert dict(kernels.launches) == {"mcep_newton": 1}
+    want = sptk.mcep_plain(lp, order, alpha, N)
+    assert torch.isfinite(want).all()
+    assert float((got - want).abs().max()) <= 1e-9 * float(
+        want.abs().max())
+
+
+def test_sptk_engine_matches_the_cpu_path(cuda):
+    """`generate_waveform(engine="sptk")` at 48 kHz with mgc 50 on the
+    card and on the CPU with the same injected noise, within 1e-10 of max
+    |y|; K35-K37 launched (`chip_smoke.sptk_card_vs_cpu`)."""
+    rng = np.random.default_rng(39)
+    T = 200
+    lf0 = np.log(48000.0 / _sptk_pitch(T, 48000).clip(min=1.0))[:, None]
+    lf0[_sptk_pitch(T, 48000) == 0.0] = -1e10
+    mgc = rng.standard_normal((T, 50)) * 0.05 / (1.0 + np.arange(50))
+    mgc[:, 0] -= 2.0
+    statics = {"lf0": torch.as_tensor(lf0), "mgc": torch.as_tensor(mgc)}
+    kernels.reset_counts()
+    chip_smoke.sptk_card_vs_cpu((statics, torch.ones(T, dtype=torch.bool)),
+                                48000, 0.55, (cuda, "cpu"))
+    for name in ("excite", "band_fir", "mglsa_filter"):
+        assert kernels.launches[name] > 0, name
+
+
+def test_sptk_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from hts_train_world_tpu_torch.ops import excitation as ex
+    from hts_train_world_tpu_torch.ops import sptk
+    p = torch.full((10,), 100.0, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError):                 # noise of another type
+        ex.excite(p, 80, torch.zeros(720, device=cuda))
+    with pytest.raises(ValueError):                 # noise of another length
+        ex.excite(p, 80, torch.zeros(700, dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError):                 # lf0 in float32
+        ex.excite(p.float(), 80, torch.zeros(720, device=cuda), sr=16000)
+    x = torch.zeros(720, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError):                 # 65 taps
+        ex.band_fir(x, x, np.ones(65), np.ones(65))
+    with pytest.raises(ValueError):                 # N below 4 shift
+        ex.mglsa_synthesis(x, torch.zeros(10, 5, dtype=torch.float64,
+                                          device=cuda), 0.42, 80, 256)
+    with pytest.raises(ValueError):                 # mgc of another type
+        ex.mglsa_synthesis(x, torch.zeros(10, 5, device=cuda), 0.42, 80,
+                           1024)
+    with pytest.raises(ValueError):                 # bins for another N
+        sptk.mcep(torch.zeros(4, 100, dtype=torch.float64, device=cuda), 24,
+                  0.42, 1024)
+    with pytest.raises(ValueError):                 # order above 127
+        sptk.mcep(torch.zeros(4, 513, dtype=torch.float64, device=cuda), 128,
+                  0.42, 1024)

@@ -317,12 +317,13 @@ def test_compose_and_msd_match_jax():
         msd.interpolate_gaps(np.full(5, msd.MAGIC))
 
 
-def test_what_is_not_ported_raises():
-    with pytest.raises(NotImplementedError, match="sptk"):
+def test_an_unknown_engine_raises():
+    with pytest.raises(ValueError, match="unknown engine"):
         pgen.generate_waveform({"lf0": np.zeros((4, 1)),
                                 "mgc": np.zeros((4, 12)),
                                 "bap": np.zeros((4, 3))},
-                               np.ones(4, bool), FS, engine="sptk", **CPU)
+                               np.ones(4, bool), FS, engine="straight",
+                               **CPU)
 
 
 def test_entry_points_default_to_the_card(voices):
@@ -337,7 +338,10 @@ def test_entry_points_default_to_the_card(voices):
         lambda: engine.synthesize((port.clustered, port.gv, engine.VoiceMeta(
             FS, SHIFT, 3, ("mgc", "lf0", "bap", "vib"))), UNSEEN),
         lambda: compose.compose_cmp(np.zeros((5, 2)), np.zeros((5, 1)),
-                                    np.zeros((5, 2)), np.zeros((5, 1)))]
+                                    np.zeros((5, 2)), np.zeros((5, 1))),
+        lambda: pgen.generate_waveform({"lf0": np.zeros((4, 1)),
+                                        "mgc": np.zeros((4, 12))},
+                                       np.ones(4, bool), FS, engine="sptk")]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -59,18 +59,38 @@ def _coded(shape, n_dims, seed):
     return c
 
 
+def _numpy_decode(c, fs, N, n_dims):
+    """DecodeSpectralEnvelope in float64 numpy from the port's decoding
+    tables (bit-equal to the JAX package's): IDCT, boundary duplication,
+    the Hz-axis lerp, exp(x / (N/2))."""
+    k, s, Dinv = codec._decoding_tables(fs, N, n_dims)
+    mel = c @ Dinv
+    padded = np.concatenate([mel[..., :1], mel, mel[..., -1:]], axis=-1)
+    v0 = padded[..., k - 1]
+    v1 = padded[..., np.minimum(k, padded.shape[-1] - 1)]
+    return np.exp((v0 + s * (v1 - v0)) / (N // 2))
+
+
 @pytest.mark.parametrize("fs", [16000, 48000])
 def test_decode_spectral_envelope_matches_jax(fs):
     """float64 rel <= 1e-10; float32 rel <= 1e-4 (exp of an IDCT row
-    summed in f32, scaled by 1 / (N/2))."""
+    summed in f32, scaled by 1 / (N/2)).  The port and the JAX package are
+    each held to a float64 numpy decode from the same tables first, so a
+    failure says which side moved."""
     N = cfg.cheaptrick_fft_size(fs)
     c = _coded((2, 6), 50, 0)
     got = codec.decode_spectral_envelope(_t(c), fs, N, 50).numpy()
     got32 = codec.decode_spectral_envelope(_t(c, torch.float32), fs, N,
                                            50).numpy()
+    ref = _numpy_decode(c, fs, N, 50)
+    np.testing.assert_allclose(got, ref, rtol=1e-10, atol=0,
+                               err_msg="the port against numpy")
     for u in range(2):
         want = np.asarray(jcodec.decode_spectral_envelope(jnp.asarray(c[u]),
                                                           fs, N, 50))
+        np.testing.assert_allclose(want, ref[u], rtol=1e-10, atol=0,
+                                   err_msg=f"the JAX package against "
+                                   f"numpy, row {u}")
         np.testing.assert_allclose(got[u], want, rtol=1e-10, atol=0)
         np.testing.assert_allclose(got32[u], want, rtol=1e-4, atol=0)
 
