@@ -433,6 +433,8 @@ PATHS = {
     "sptk_copy": ("mcep_newton", "excite", "band_fir", "mglsa_filter"),
 }
 SPTK_KERNELS = ("excite", "band_fir", "mglsa_filter", "mcep_newton")
+# kernels also timed on the device alone, behind a sleep
+DEVICE_TIMED = SPTK_KERNELS + ("synth_time_base", "hsmm_loglik")
 # the HSMM lane: RecipeConfig's defaults (models/recipe.py:45-47)
 HSMM_MODELS, HSMM_STATES, HSMM_MAX_DUR, HSMM_UTTS = 40, 5, 60, 128
 # the recipe lane: train_voice at RecipeConfig's defaults
@@ -4611,10 +4613,11 @@ def main() -> int:
         out_p = out_p if isinstance(out_p, tuple) else (out_p,)
         ok, err, tol = check(name, inp, out_k, out_p)
         ms = cuda_ms(lambda: kern(**inp), reps=10, warm=2)
-        # the SPTK kernels' device time apart from their wrappers' host
-        # time (a 31-tap FIR takes less than its ctypes launch)
+        # the device time of the SPTK kernels, K9 and K17 apart from their
+        # wrappers' host time (a 31-tap FIR takes less than its ctypes
+        # launch)
         dev_ms = (device_ms(lambda: kern(**inp))
-                  if kernels.base_name(name) in SPTK_KERNELS else None)
+                  if kernels.base_name(name) in DEVICE_TIMED else None)
         plain_ms = cuda_ms(lambda: plain(**inp),
                            reps=1 if name in heavy else 5)
         lib = library(name, inp)
@@ -4639,7 +4642,7 @@ def main() -> int:
                                f"version (max abs err {err:.3e})")
         s = summary.setdefault(name, dict(err=0.0, ms=0.0, plain_ms=0.0,
                                           bound_ms=0.0, lib_ms=None,
-                                          by={}))
+                                          dev_ms=None, by={}))
         s["err"] = max(s["err"], err)
         if path != primary(name):
             return
@@ -4649,6 +4652,79 @@ def main() -> int:
         s["by"][by] = s["by"].get(by, 0.0) + bms
         if lib_ms is not None:
             s["lib_ms"] = (s["lib_ms"] or 0.0) + lib_ms
+        if dev_ms is not None:
+            s["dev_ms"] = (s["dev_ms"] or 0.0) + dev_ms
+
+    def fmt_ms(v):
+        return "not measured" if v is None else f"{v:.4f} ms"
+
+    def k9_routes(f0):
+        """K9's two routes in one launch: the headline batch's contours,
+        the first with its last two frames at 119.998 and 40 Hz and
+        y_length run one frame past them (the extrapolation passes 0.001
+        Hz at a sample: the exactness condition fails, the serial route);
+        the others as they come (the tiled route where the condition
+        holds).  float32 and float64 bit for bit against the twin on the
+        CPU, ms a launch and device ms of each."""
+        f0 = f0.clone()
+        f0[0, -2:] = torch.tensor([119.998, 40.0])
+        T_ = f0.shape[1]
+        N = cfg.cheaptrick_fft_size(FS)
+        yl = cfg.y_length_for(T_, FRAME_PERIOD, FS) + FS // 200
+        P = syn.default_max_pulses(yl, FS)
+        exact = syn.phase_sum_exact(syn.phase_increments(
+            f0.cpu(), FRAME_PERIOD, FS, yl, N))
+        text = []
+        for x in (f0, f0.double()):
+            args = (FRAME_PERIOD, FS, yl, N, P)
+            got = syn.time_base(x, *args)
+            want = syn.time_base_plain(x.cpu(), *args)
+            bad = [f for f, g, w in zip(syn.Pulses._fields, got, want)
+                   if not bit_same(g, w)]
+            ms = cuda_ms(lambda: syn.time_base(x, *args), reps=10, warm=2)
+            d_ms = device_ms(lambda: syn.time_base(x, *args))
+            text.append(f"{str(x.dtype)[6:]} bit-equal to the CPU: "
+                        f"{not bad}{' ' + str(bad) if bad else ''}, {ms:.4f}"
+                        f" ms (device {fmt_ms(d_ms)})")
+            if bad:
+                raise RuntimeError(f"K9 ({x.dtype}) with a serial row "
+                                   f"disagrees with the CPU twin: {bad}")
+        print(f"K9 routes: {int((~exact).sum())} of {len(exact)} rows fail "
+              f"the exactness condition (row 0's tail through 0 Hz) and are "
+              f"summed in sequence, y_length {yl}; " + "; ".join(text),
+              flush=True)
+        if exact[0]:
+            raise RuntimeError("K9 routes: row 0 passed the exactness "
+                               "condition")
+
+    def check_row_prologue(inp):
+        """K17's cached row tables (1/v, sum log v, log w, log1p(-w)) for
+        a recorded launch's model set against `loglik_rows_plain` on the
+        card: 1/v bit for bit, the rest within 1e-13 relative."""
+        hsmm.batch_frame_loglik(**inp)       # cached, if it was evicted
+        buf, meta, _, entry = hsmm._row_tables(
+            inp["means"], inp["variances"], inp["msd_w"],
+            inp["stream_slices"], inp["msd_flags"], inp["weights_static"])
+        if entry is not None:
+            raise RuntimeError("K17: the row tables were not cached")
+        meta = np.asarray(list(meta)).reshape(-1, 9)
+        plain = hsmm.loglik_rows_plain(inp["means"], inp["variances"],
+                                       inp["msd_w"], inp["msd_flags"])
+        same_iv, rel = True, 0.0
+        for (a, e, f, R, _, o_iv, o_slv, o_lw, o_l1), (iv, slv, lw, l1) in \
+                zip(meta, plain):
+            same_iv &= bit_same(buf[o_iv:o_iv + R * (e - a)],
+                                iv.reshape(-1))
+            for o, ref in ((o_slv, slv), (o_lw, lw), (o_l1, l1)):
+                if ref is not None:
+                    rel = max(rel, float(((buf[o:o + R] - ref).abs()
+                                          / ref.abs().clamp(min=1e-300))
+                                         .max()))
+        print(f"K17 row prologue (cached per model set) against "
+              f"loglik_rows_plain: 1/v bit-equal {same_iv}; sum log v, "
+              f"log w, log1p(-w) rel {rel:.2e} <= 1e-13", flush=True)
+        if not (same_iv and rel <= 1e-13):
+            raise RuntimeError("K17's row prologue disagrees with its twin")
 
     def replay_chunks(rec):
         """K9's chunk mode: every launch the streaming lane recorded
@@ -4711,6 +4787,7 @@ def main() -> int:
 
     for path, name, inp in replays:
         replay(path, name, inp)
+    k9_routes(next(i for n, i in rec_cs if n == "synth_time_base")["f0"])
     del rec_cs, rec_fl, rec_sl, rec_hl, replays
     torch.cuda.empty_cache()
 
@@ -5139,6 +5216,12 @@ def main() -> int:
                            "log-likelihood or dropped utterances")
     for name, inp in rec_hm:
         replay("hsmm_em", name, inp)
+    check_row_prologue(next(i for n, i in rec_hm if n == "hsmm_loglik"))
+    k17 = summary["hsmm_loglik"]
+    print(f"K17 over the E-step's {counts_hm['hsmm_loglik']} launches: "
+          f"{k17['ms']:.4f} ms under events, device {fmt_ms(k17['dev_ms'])} "
+          f"behind a sleep, library {k17['lib_ms']:.4f} ms, bound "
+          f"{k17['bound_ms']:.4f} ms", flush=True)
     del rec_hm
     torch.cuda.empty_cache()
 
@@ -5815,7 +5898,7 @@ def main() -> int:
          "launches": by_path[primary(name)][name],
          "max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
          "bound_ms": s["bound_ms"], "bound_by": max(s["by"], key=s["by"].get),
-         "library_ms": s["lib_ms"],
+         "library_ms": s["lib_ms"], "device_ms": s.get("dev_ms"),
          "launches_by_path": {p: c.get(name, 0) for p, c in by_path.items()}}
         for name, s in summary.items()]}
     print(json.dumps(line))

@@ -65,7 +65,7 @@ KERNELS = {
                    [_P, _P, _I, _I, _I, _I, _P, _I, _P, _P]),
     "synth_time_base": ("synth_time_base.cu", {
         "synth_time_base_launch": [_P, _I, _I, _I, _I, _D, _D, _D, _I]
-        + [_P] * 7,
+        + [_P] * 8 + [_L],
         "synth_time_base_chunk_launch": [_P, _I, _L, _I, _I, _D, _D, _D]
         + [_P] * 9}),
     "synth_pulse_spectra": ("synth_pulse_spectra.cu",
@@ -91,7 +91,7 @@ KERNELS = {
                         [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                          _P, _P, _P, _P]),
     "hsmm_loglik": ("hsmm_loglik.cu", "hsmm_loglik_launch",
-                    [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
+                    [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P]),
     "hsmm_fb": ("hsmm_fb.cu", "hsmm_fb_launch",
                 [_P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _P, _P, _P, _P, _P,
                  _P, _P]),

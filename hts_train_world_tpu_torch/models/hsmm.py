@@ -28,6 +28,8 @@ its kernel (or raises); on a CPU tensor it runs the plain twin beside it.
 """
 from __future__ import annotations
 
+import collections
+import ctypes
 import dataclasses
 from typing import Dict, List, Sequence, Tuple
 
@@ -227,6 +229,67 @@ def batch_frame_loglik_plain(frames, rows, means, variances, msd_w,
     return out
 
 
+def loglik_rows_plain(means, variances, msd_w, msd_flags):
+    """The plain twin of K17's row prologue: per stream (1/v (R, D_s),
+    sum log v (R,), log w (R,), log1p(-w) (R,)), w clipped to [1e-4,
+    1 - 1e-4]; the last two are None for a non-MSD stream.  The kernel
+    scores -0.5 ((sum (x - mu)^2 (1/v) + sum log v) + D_s log 2pi) from
+    them."""
+    out = []
+    for m, v, w, f in zip(means, variances, msd_w, msd_flags):
+        lw = l1 = None
+        if f:
+            wc = torch.clamp(w, 1e-4, 1.0 - 1e-4)
+            lw, l1 = torch.log(wc), torch.log1p(-wc)
+        out.append((1.0 / v, torch.log(v).sum(-1), lw, l1))
+    return out
+
+
+# K17's row tables on the card, per model set: key -> (the tables the key
+# names, kept alive so their addresses cannot be reused; the buffer the row
+# prologue fills; the launcher's host meta and weights)
+_ROW_TABLES: "collections.OrderedDict" = collections.OrderedDict()
+_ROW_TABLES_KEPT = 4
+
+
+def _row_tables(means, variances, msd_w, stream_slices, msd_flags,
+                weights_static):
+    """(buffer, meta, weights, entry): K17's tables for this model set,
+    cached on the tables' addresses, versions and shapes and the stream
+    arguments; entry is None on a hit.  On a miss a new buffer holds the
+    means, the variances and the MSD weights, the launch runs the row
+    prologue over it first, and `entry` (key, tables) goes into the cache
+    once the launch succeeds.  An in-place change of a table bumps its
+    version and misses."""
+    tabs_in = (*means, *variances, *msd_w)
+    key = (tuple((t.data_ptr(), t._version, tuple(t.shape), t.stride())
+                 for t in tabs_in),
+           tuple(map(tuple, stream_slices)), tuple(map(bool, msd_flags)),
+           tuple(map(float, weights_static)))
+    hit = _ROW_TABLES.get(key)
+    if hit is not None:
+        _ROW_TABLES.move_to_end(key)
+        return hit[1], hit[2], hit[3], None
+    sizes = [(m.numel(), m.shape[0]) for m in means]
+    buf = torch.empty(sum(2 * n + 3 * r for n, r in sizes),
+                      dtype=torch.float64, device=means[0].device)
+    meta, at = [], 0
+    for (a, e), m, v, w, f in zip(stream_slices, means, variances, msd_w,
+                                  msd_flags):
+        n, r = m.numel(), m.shape[0]
+        offs = [at, at + n, at + 2 * n, at + 2 * n + r, at + 2 * n + 2 * r]
+        buf[offs[0]:offs[0] + n].copy_(m.reshape(-1))
+        buf[offs[1]:offs[1] + n].copy_(v.reshape(-1))
+        if f:
+            buf[offs[3]:offs[3] + r].copy_(w.reshape(-1))
+        meta += [a, e, int(bool(f)), r] + offs
+        at += 2 * n + 3 * r
+    meta_c = (ctypes.c_longlong * len(meta))(*meta)
+    wts_c = (ctypes.c_double * len(weights_static))(
+        *map(float, weights_static))
+    return buf, meta_c, wts_c, (key, tabs_in)
+
+
 def batch_frame_loglik(frames, rows, means, variances, msd_w,
                        stream_slices, msd_flags, weights_static):
     """K17: frames (B, Tb, D); per stream i, rows[i] (B, Kb) int64 ids into
@@ -235,7 +298,9 @@ def batch_frame_loglik(frames, rows, means, variances, msd_w,
     the sum over streams of weight * [-0.5 (sum (x-mu)^2/v + sum log v +
     D_i log 2pi)], where an MSD stream scores log w + ll on frames whose
     first column is non-zero and log1p(-w) elsewhere (w clipped to
-    [1e-4, 1-1e-4])."""
+    [1e-4, 1-1e-4]).  On the card the row prologue (1/v, sum log v, log w,
+    log1p(-w)) runs once per model set: its buffer is cached on the
+    tables (`_row_tables`)."""
     if not frames.is_cuda:
         return batch_frame_loglik_plain(frames, rows, means, variances, msd_w,
                                         stream_slices, msd_flags,
@@ -258,35 +323,29 @@ def batch_frame_loglik(frames, rows, means, variances, msd_w,
                          "(R, D_s) [+ msd weights (R,)], at most 8 streams")
     dev = frames.device
     frames = frames.contiguous()
-    parts, meta, at = [], [], 0
-    for (a, e), m, v, f, w in zip(stream_slices, means, variances, msd_flags,
-                                  msd_w):
-        off_m = at
-        off_v = at + m.numel()
-        at = off_v + v.numel()
-        parts += [m.reshape(-1), v.reshape(-1)]
-        off_w = at
-        if f:
-            parts.append(w.reshape(-1))
-            at += w.numel()
-        meta.append([a, e, int(bool(f)), off_m, off_v, off_w])
-    tabs = torch.cat(parts).contiguous()
-    meta_t = torch.tensor(meta, dtype=torch.long, device=dev)
-    wts_t = torch.tensor([float(w) for w in weights_static], dtype=f64,
-                         device=dev)
-    rows_t = torch.stack([r.contiguous() for r in rows]).contiguous()
-    kernels.check_cuda("batch_frame_loglik", frames, tabs, meta_t, wts_t,
-                       rows_t)
+    rows_c = [r.contiguous() for r in rows]
+    kernels.check_cuda("batch_frame_loglik", frames, *rows_c)
+    if any(t.device != dev for t in (*means, *variances, *msd_w)):
+        raise ValueError("batch_frame_loglik: the tables must be on the "
+                         "frames' device")
+    buf, meta, wts, entry = _row_tables(means, variances, msd_w,
+                                        stream_slices, msd_flags,
+                                        weights_static)
     out = torch.empty((B, Tb, Kb), dtype=f64, device=dev)
     kernels.launch("hsmm_loglik", [
-        frames.data_ptr(), B, Tb, D, Kb, n, meta_t.data_ptr(),
-        wts_t.data_ptr(), rows_t.data_ptr(), tabs.data_ptr(),
-        out.data_ptr()],
+        frames.data_ptr(), B, Tb, D, Kb, n, meta, wts,
+        (ctypes.c_void_p * n)(*(r.data_ptr() for r in rows_c)),
+        buf.data_ptr(), int(entry is not None), out.data_ptr()],
         dict(frames=frames, rows=tuple(rows), means=tuple(means),
              variances=tuple(variances), msd_w=tuple(msd_w),
              stream_slices=tuple(stream_slices),
              msd_flags=tuple(msd_flags),
              weights_static=tuple(weights_static)))
+    if entry is not None:
+        key, tabs_in = entry
+        _ROW_TABLES[key] = (tabs_in, buf, meta, wts)
+        while len(_ROW_TABLES) > _ROW_TABLES_KEPT:
+            _ROW_TABLES.popitem(last=False)
     return out
 
 

@@ -8,11 +8,13 @@ each with its plain PyTorch twin here, which runs for CPU tensors:
 - K9 `time_base` (csrc/synth_time_base.cu): GetTimeBase (coarse f0/vuv,
   interpolation to the sample rate, the phase sum, the wrapped-phase jump
   mask), the compaction of the pulses to the pulse cap and each pulse's
-  time shift, time, noise size and offset and V/UV flag.  The phase sum
-  runs sequentially in a float64 accumulator, rounding each output to the
-  working dtype, in the kernel and in the twin (the CPU's `torch.cumsum`
-  of f32 does the same), so the card and the CPU fire the same pulses; in
-  float64 it is the JAX exact path's left fold.  `count_pulses` is the
+  time shift, time, noise size and offset and V/UV flag.  The twin sums
+  the phase in sequence in a float64 accumulator, rounding each output to
+  the working dtype (the CPU's `torch.cumsum` of f32 does the same); the
+  kernel sums float32 rows in tiles where `phase_sum_exact` shows that
+  every order gives those sums, and in sequence elsewhere, so the card and
+  the CPU fire the same pulses; in float64 it is the JAX exact path's left
+  fold, always in sequence.  `count_pulses` is the
   same launch without the per-pulse outputs.  `chunk_pulses` is its chunk
   mode, the streaming synthesizer's per-chunk pulses (ops/synthesis_rt.py).
 - K10 `pulse_spectra` (csrc/synth_pulse_spectra.cu): per pulse the
@@ -140,10 +142,39 @@ def time_base_plain(f0, frame_period: float, fs: int, y_length: int,
                   vuv)
 
 
+# the float route's tile (csrc/synth_time_base.cu's BT_TILE): the scratch
+# holds per tile 32 bytes, per utterance 4 and per sample 5
+K9_TILE = 2048
+
+
+def phase_sum_exact(inc) -> torch.Tensor:
+    """The condition under which K9's float route sums the float32
+    increments inc (B, y) in tiles, per row (B,) bool.  Each increment is
+    a multiple of 2^(e - 150), e the smallest biased exponent (at least
+    1) of a non-zero one, so every partial sum in float64 is exact while
+    sum |inc| < 2^(e - 97), and then any order of addition gives the
+    sequential sum bit for bit.  True where every increment is finite and
+    the float64 sum of |inc| is below 2^(e - 98) (a margin of 2 for that
+    sum's own rounding); rows of zeros are exact.  Where it is False the
+    kernel sums the row in sequence."""
+    bits = inc.contiguous().view(torch.int32)
+    e = (bits >> 23) & 0xFF
+    finite = (e != 0xFF).all(dim=1)
+    e = torch.where(inc != 0, e.clamp(min=1), torch.full_like(e, 1 << 30))
+    emin = e.min(dim=1).values
+    total = inc.abs().to(torch.float64).sum(dim=1)
+    bound = torch.ldexp(torch.ones_like(total),
+                        (emin - 98).clamp(max=1023).to(torch.float64))
+    return finite & ((emin == 1 << 30) | (total < bound))
+
+
 def time_base(f0, frame_period: float, fs: int, y_length: int,
               fft_size: int, max_pulses: int) -> Pulses:
     """K9: the time base and the first max_pulses pulses of f32 or f64
-    contours f0 (B, T >= 2), one block per utterance."""
+    contours f0 (B, T >= 2).  float32 rows where `phase_sum_exact` holds
+    are split into tiles over many blocks; the other float32 rows and
+    every float64 row (the left fold) are summed in sequence, a block an
+    utterance."""
     if not f0.is_cuda:
         return time_base_plain(f0, frame_period, fs, y_length, fft_size,
                                max_pulses)
@@ -161,13 +192,17 @@ def time_base(f0, frame_period: float, fs: int, y_length: int,
     ints = torch.empty((3, B, P), dtype=torch.long, device=dev)
     flts = torch.empty((3, B, P), dtype=f0.dtype, device=dev)
     fp, lowest = frame_period / 1000.0, fs / fft_size + 1.0
+    scratch = torch.empty(0, dtype=torch.uint8, device=dev)
     if not f64:
         fp, lowest = float(np.float32(fp)), float(np.float32(lowest))
+        nt = -(-y_length // K9_TILE)
+        scratch = torch.empty(32 * B * nt + 4 * B + 5 * B * y_length,
+                              dtype=torch.uint8, device=dev)
     kernels.launch("synth_time_base", [
         f0.data_ptr(), B, T, y_length, P, fp, lowest, float(fs), int(f64),
         n.data_ptr(), ints[0].data_ptr(), ints[1].data_ptr(),
         ints[2].data_ptr(), flts[0].data_ptr(), flts[1].data_ptr(),
-        flts[2].data_ptr()],
+        flts[2].data_ptr(), scratch.data_ptr(), scratch.numel()],
         dict(f0=f0, frame_period=frame_period, fs=fs, y_length=y_length,
              fft_size=fft_size, max_pulses=max_pulses),
         fn="synth_time_base_launch", variant="f64" if f64 else None)

@@ -362,6 +362,71 @@ def test_k9_kernel_bit_equal_to_cpu_twin(cuda, fs, T, B, kind):
         assert _same(g, w)
 
 
+def _k9_same_as_cpu(f0, fs, yl, caps):
+    """time_base on the card against the twin on the CPU at each cap:
+    every field bit for bit."""
+    N = cfg.cheaptrick_fft_size(fs)
+    for P in caps:
+        got = syn.time_base(f0, 5.0, fs, yl, N, P)
+        want = syn.time_base_plain(f0.cpu(), 5.0, fs, yl, N, P)
+        for name, g, w in zip(syn.Pulses._fields, got, want):
+            assert _same(g, w), (P, name)
+
+
+@pytest.mark.parametrize("fs,yl", [(16000, 1000), (16000, 2048),
+                                   (16000, 2049), (48000, 6145),
+                                   (48000, 96001)])
+def test_k9_tiles_bit_equal_to_cpu_twin(cuda, fs, yl):
+    """float32 rows below one tile, at a tile's edge, one sample past it
+    and across many tiles, all on the tiled route: every output bit for
+    bit against the twin on the CPU at the default cap, a cap below the
+    count and P = 0 (the count alone)."""
+    T = -(-(yl - 1) * 200 // fs) + 1           # frames that cover yl
+    f0 = torch.as_tensor(np.stack([_contour(T, s, k) for s, k in
+                                   ((0, "unvoiced"), (1, "voiced"),
+                                    (2, "boundary"))]),
+                         dtype=torch.float32, device=cuda)
+    inc = syn.phase_increments(f0.cpu(), 5.0, fs, yl,
+                               cfg.cheaptrick_fft_size(fs))
+    assert syn.phase_sum_exact(inc).all()
+    _k9_same_as_cpu(f0, fs, yl, (syn.default_max_pulses(yl, fs), 5, 0))
+
+
+@pytest.mark.parametrize("fs", [16000, 48000])
+def test_k9_pulse_on_a_tile_boundary(cuda, fs):
+    """At 375 Hz (and 187.5 Hz after the middle) the phase wraps where a
+    tile of 2048 samples starts: a pulse at the last sample of a tile,
+    its jump read across the tiles' seam, bit for bit."""
+    T = 60
+    yl = cfg.y_length_for(T, 5.0, fs)
+    f0 = torch.full((2, T), 375.0)
+    f0[1, T // 2:] = 187.5
+    want = syn.time_base_plain(f0, 5.0, fs, yl, cfg.cheaptrick_fft_size(fs),
+                               syn.default_max_pulses(yl, fs))
+    p = want.pidx[0, :int(want.n[0])]
+    assert ((p + 1) % syn.K9_TILE == 0).any()
+    _k9_same_as_cpu(f0.to(cuda), fs, yl,
+                    (syn.default_max_pulses(yl, fs), 3, 0))
+
+
+@pytest.mark.parametrize("fs", [16000, 48000])
+def test_k9_serial_route_where_tiles_would_not_be_exact(cuda, fs):
+    """A frame past its end a contour falling from 119.998 to 40 Hz
+    extrapolates through 0 Hz (0.001 Hz at a sample): tiny and negative
+    increments fail `phase_sum_exact`, so that row is summed in sequence,
+    in the same launch as a row on the tiled route; both bit for bit
+    against the twin on the CPU."""
+    T = 200
+    yl = cfg.y_length_for(T, 5.0, fs) + fs // 200
+    f0 = np.stack([_contour(T, 3, "voiced"), _contour(T, 4, "voiced")])
+    f0[0, -2:] = (119.998, 40.0)
+    f0 = torch.as_tensor(f0, dtype=torch.float32, device=cuda)
+    inc = syn.phase_increments(f0.cpu(), 5.0, fs, yl,
+                               cfg.cheaptrick_fft_size(fs))
+    assert syn.phase_sum_exact(inc).tolist() == [False, True]
+    _k9_same_as_cpu(f0, fs, yl, (syn.default_max_pulses(yl, fs), 7, 0))
+
+
 def _synth_inputs(cuda, fs, T, seed):
     rng = np.random.default_rng(seed)
     N = cfg.cheaptrick_fft_size(fs)
@@ -542,7 +607,7 @@ def _parity_inputs(cuda, fs, T, kind="unvoiced", B=2, seed=0):
             yl)
 
 
-@pytest.mark.parametrize("fs,T", [(16000, 60), (48000, 401)])
+@pytest.mark.parametrize("fs,T", [(16000, 60), (44100, 401), (48000, 401)])
 @pytest.mark.parametrize("kind", ["voiced", "unvoiced", "boundary"])
 def test_k9_float64_bit_equal_to_cpu_twin(cuda, fs, T, kind):
     """The float64 instantiation: counts, pulses and every per-pulse value
@@ -1134,6 +1199,71 @@ def test_k17_kernel_matches_plain(cuda):
     want = hsmm.batch_frame_loglik_plain(t(fr), rows, means, vars_, msd_w,
                                          *args)
     assert ((got - want).abs() <= 1e-12 * (1 + want.abs())).all()
+
+
+def _k17_inputs(cuda, Kb, B=3, Tb=301, R=150, seed=17):
+    """World streams (D 237, lf0 and vib MSD with unvoiced frames), a NaN
+    in one frame's bap columns, small and large variances, random rows."""
+    rng = np.random.default_rng(seed + Kb)
+    sts = hsmm.world_streams()
+    fr = rng.standard_normal((B, Tb, 237)) * 1.5 + 0.5
+    fr[:, ::3, 150:156] = 0.0
+    fr[:, 1::4, 231:237] = 0.0
+    fr[min(1, B - 1), 5, 160] = np.nan                   # bap, weight 0
+
+    def t(a, dt=torch.float64):
+        return torch.as_tensor(a, dtype=dt, device=cuda)
+    w = [st.sl.stop - st.sl.start for st in sts]
+    return dict(
+        frames=t(fr),
+        rows=tuple(t(rng.integers(0, R, (B, Kb)), torch.long) for _ in sts),
+        means=tuple(t(rng.standard_normal((R, d)) + 1.0) for d in w),
+        variances=tuple(t(10.0 ** rng.uniform(-3, 0.5, (R, d))) for d in w),
+        msd_w=tuple(t(rng.uniform(0.0, 1.0, R)) for _ in sts),
+        **dict(zip(("stream_slices", "msd_flags", "weights_static"),
+                   hsmm.stream_args(sts))))
+
+
+def _k17_close(got, want):
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert ((got - want).abs()[fin] <= 1e-12 * (1 + want.abs()[fin])).all()
+
+
+@pytest.mark.parametrize("Kb", [1, 128, 132, 133, 200])
+def test_k17_tiles_match_plain_at_any_chain_length(cuda, Kb):
+    """Chain lengths at, across and past the state tiles, 301 frames (not
+    a multiple of a frame tile), D = 237 with MSD streams, a NaN bap frame
+    NaN in every state: within 1e-12 (1 + |ll|) of the twin."""
+    inp = _k17_inputs(cuda, Kb)
+    got = hsmm.batch_frame_loglik(**inp)
+    want = hsmm.batch_frame_loglik_plain(**inp)
+    _k17_close(got, want)
+    assert torch.isnan(got[1, 5]).all() and int(torch.isnan(got).sum()) == Kb
+
+
+def test_k17_reuses_its_row_tables_across_launches(cuda):
+    """The row prologue runs once per model set: a second launch on the
+    same tables (other frames and rows) reuses the cached buffer, an
+    in-place change of a table builds a new one; every launch matches the
+    twin."""
+    inp = _k17_inputs(cuda, 40, B=2, Tb=97)
+    other = _k17_inputs(cuda, 40, B=2, Tb=97, seed=5)
+    hsmm._ROW_TABLES.clear()
+    kernels.reset_counts()
+    for frames, rows in ((inp["frames"], inp["rows"]),
+                         (other["frames"], other["rows"])):
+        x = {**inp, "frames": frames, "rows": rows}
+        _k17_close(hsmm.batch_frame_loglik(**x),
+                   hsmm.batch_frame_loglik_plain(**x))
+    assert len(hsmm._ROW_TABLES) == 1
+    buf = next(iter(hsmm._ROW_TABLES.values()))[1]
+    inp["means"][0].add_(0.25)
+    _k17_close(hsmm.batch_frame_loglik(**inp),
+               hsmm.batch_frame_loglik_plain(**inp))
+    assert len(hsmm._ROW_TABLES) == 2
+    assert next(iter(hsmm._ROW_TABLES.values()))[1] is buf
+    assert kernels.launches["hsmm_loglik"] == 3
 
 
 @pytest.mark.parametrize("temper", [0.3, 1.0])
