@@ -65,9 +65,10 @@ Drives the port's paths at full size on a corpus made from a seed:
 - the variant recipe lane (`models.recipe.train_voice` with
   `RecipeConfig(semitied=True, upmix=True)`): the recipe lane's corpus
   through SEMIT (20 iterations, 3 blocks a stream) and UPMIX + ERST5 (2
-  iterations) besides every stage of the recipe lane.
+  iterations) besides every stage of the recipe lane, and SEMIT with
+  mgc's full 150 x 150 transform.
 
-Thirty-four kernels, K1-K34, are built, driven and held to their twins;
+Thirty-eight kernels, K1-K38, are built, driven and held to their twins;
 K9-K12 and K30 also in float64 for the parity synthesis, K1, K2, K4-K6
 and K24-K27 in float64 for the parity analysis, K13-K16 and K32 in
 float64 for its Harvest, and K9 in its chunk mode (the streaming
@@ -210,14 +211,21 @@ Phases (any failure raises):
    UPMIX's stage seconds, the launches of K33 (chain and posterior), K34
    and K20, each stream's logdet and aux first -> last, ERST5's total
    log-likelihood per iteration, the clustered model, alignments and GV
-   model equal to phase 11's, each stage again under the profiler (the
-   idle share); K34's launches, the first ERST5 iteration's K33 posterior
-   launches and its first two chain launches replayed against the twins
-   and timed (phase 3 for the lane); (b) tests/test_recipe.py's corpus at
-   TINY_RECIPE with both flags on the card and on the CPU: the mixture and
-   semi-tied sets within the CPU tests' bounds (`variants_lane`,
-   `variants_card_vs_cpu`, which rehearse on the CPU with stub `counted`/
-   `profiled`);
+   model equal to phase 11's and to a run without the flags just before
+   it, each stage again under the profiler (the idle share); K34's
+   launches, every K33 chain launch (ERST5's batches, with a second
+   library line that gathers the rows' tables inside its timed call) and
+   the first ERST5 iteration's K33 posterior launches replayed against the
+   twins, timed under events and on the device behind a sleep (phase 3
+   for the lane), and K33's quotient held to IEEE division bit for bit on
+   2e7 draws; (b) tests/test_recipe.py's corpus at TINY_RECIPE with both
+   flags on the card and on the CPU: the mixture and semi-tied sets within
+   the CPU tests' bounds; (c) SEMIT with mgc's full 150 x 150 transform
+   (`estimate_semitied(n_blocks={"mgc": 1})`) from the lane's monophone
+   set, card vs CPU at SEMIT_FULL_ITERS iterations, and its d = 150 K34
+   launch replayed (`variants_lane`, `variants_card_vs_cpu`,
+   `semitied_full_card_vs_cpu`, `quotient_check`, which rehearse on the
+   CPU with stub `counted`/`profiled`);
 19. the SPTK engine: (a) `pgen.generate_waveform(engine="sptk")` on phase
    12's 16 unseen phrases (48 kHz, mgc 50, shift 240, N 2048, the voice's
    alpha), counted: ms an utterance by stage (excitation, filter),
@@ -245,7 +253,6 @@ from __future__ import annotations
 import contextlib
 import copy
 import cProfile
-import ctypes
 import dataclasses
 import filecmp
 import gc
@@ -434,7 +441,8 @@ PATHS = {
 }
 SPTK_KERNELS = ("excite", "band_fir", "mglsa_filter", "mcep_newton")
 # kernels also timed on the device alone, behind a sleep
-DEVICE_TIMED = SPTK_KERNELS + ("synth_time_base", "hsmm_loglik")
+DEVICE_TIMED = SPTK_KERNELS + ("synth_time_base", "hsmm_loglik",
+                               "hsmm_mix_loglik", "semitied")
 # the HSMM lane: RecipeConfig's defaults (models/recipe.py:45-47)
 HSMM_MODELS, HSMM_STATES, HSMM_MAX_DUR, HSMM_UTTS = 40, 5, 60, 128
 # the recipe lane: train_voice at RecipeConfig's defaults
@@ -2523,6 +2531,12 @@ def parity_analysis_cli(counted, devices=("cuda", "cpu"), fs=16000,
 # the variant recipe lane (phase 18): SEMIT and UPMIX/ERST5
 # ---------------------------------------------------------------------------
 
+# SEMIT with mgc's full transform on the card against the CPU (phase 18
+# (c)): its outer steps (the CPU's 150 x 150 twin takes ~0.6 s a step)
+SEMIT_FULL_ITERS = 5
+# K33's quotient check: draws from the recorded batches (as many again
+# over wide ranges)
+QUOT_DRAWS = 10_000_000
 # the bounds the CPU tests hold the port's variants to against the JAX
 # package (tests/test_torch_hsmm_variants.py), relative to each array's
 # largest magnitude: parameters, variances, transforms; logdets absolute
@@ -2530,22 +2544,24 @@ VARIANT_BOUNDS = dict(params=1e-9, variances=1e-8, transforms=1e-9,
                       logdets=1e-9)
 
 
-def mix_chain_inputs(hsmm, dev, C: int = 2, seed: int = 33):
-    """K33 chain-mode inputs at the WORLD width (D = 237), 3 utterances of
-    37 frames and 21 chain states over 30 rows of C components: unvoiced
-    lf0/vib frames, an utterance whose MSD frames are all unvoiced, a NaN
-    in one bap frame (weight 0: that frame's totals are NaN), row 5's
-    second component at the variance floor (1e-8) and row 7's at the
-    mixture weight floor (ERST5's min_mix_w, 1e-3)."""
+def mix_chain_inputs(hsmm, dev, C: int = 2, seed: int = 33, B: int = 3,
+                     Tb: int = 37, Kb: int = 21):
+    """K33 chain-mode inputs at the WORLD width (D = 237), B utterances of
+    Tb frames and Kb chain states over 30 rows of C components: unvoiced
+    lf0/vib frames, an utterance whose MSD frames are all unvoiced (the
+    third, or the last of fewer), a NaN in one bap frame (weight 0: that
+    frame's totals are NaN), row 5's second component (its only one at C =
+    1) at the variance floor (1e-8) and row 7's at the mixture weight floor
+    (ERST5's min_mix_w, 1e-3)."""
     import torch
     rng = np.random.default_rng(seed)
     sts = hsmm.world_streams()
-    B, Tb, Kb, R, D = 3, 37, 21, 30, 237
+    R, D, c1 = 30, 237, min(1, C - 1)
     fr = rng.standard_normal((B, Tb, D))
     for st in sts:
         if st.msd:
             fr[:, ::3, st.sl] = 0.0
-            fr[2, :, st.sl] = 0.0
+            fr[min(2, B - 1), :, st.sl] = 0.0
     fr[1, 4, 160] = np.nan
 
     def t(a, dt=torch.float64):
@@ -2554,16 +2570,16 @@ def mix_chain_inputs(hsmm, dev, C: int = 2, seed: int = 33):
     for st in sts:
         Ds = st.sl.stop - st.sl.start
         v = rng.uniform(0.05, 3.0, (R, C, Ds))
-        v[5, 1] = 1e-8
+        v[5, c1] = 1e-8
         w = rng.uniform(0.1, 1.0, (R, C))
         w[7] = 1.0
-        w[7, 1] = 1e-3
+        w[7, c1] = 1e-3
         means.append(t(rng.standard_normal((R, C, Ds))))
         vars_.append(t(v))
         logws.append(t(np.log(w / w.sum(1, keepdims=True))))
         msd_w.append(t(rng.uniform(0.0, 1.0, R)))
         r = rng.integers(0, R, (B, Kb))
-        r[:, :2] = (5, 7)
+        r[:, :2] = (5, 7)[:min(2, Kb)]
         rows.append(t(r, torch.long))
     sls, flags, wts = hsmm.stream_args(sts)
     return dict(frames=t(fr), rows=tuple(rows), means=tuple(means),
@@ -2748,13 +2764,13 @@ def variants_worst(a, b):
 
 class KeepVariants(list):
     """The variant lane's launches worth replaying: K34's (one a stream),
-    the first ERST5 iteration's K33 posterior launches (one a stream) and
-    its first two chain launches."""
+    every K33 chain launch (ERST5's padded batches) and the first ERST5
+    iteration's K33 posterior launches (one a stream)."""
     def append(self, item):
         name, _ = item
         n = sum(k == name for k, _ in self)
-        if (name == "semitied" or (name == "hsmm_mix_loglik[post]" and n < 4)
-                or (name == "hsmm_mix_loglik" and n < 2)):
+        if (name in ("semitied", "hsmm_mix_loglik")
+                or (name == "hsmm_mix_loglik[post]" and n < 4)):
             super().append(item)
 
 
@@ -2774,10 +2790,9 @@ def variants_lane(counted, profiled, utts, questions, ref, device="cuda",
     stages: their stage seconds beside its own say whether the variants
     cost a later stage any time, apart from where the script stands.
     Each run's main-thread user and system CPU, page faults and GC passes
-    (`UsageClock`) say where such time goes; a last flagged run with
-    glibc's mmap threshold at 64 KiB says whether the heap's reuse of
-    blocks that host-to-device copies read is it.
-    Returns (counts, recorded launches)."""
+    (`UsageClock`) say where such time goes.
+    Returns (counts, recorded launches, (the monophone set SEMIT starts
+    from, the corpus with monophone labels))."""
     from hts_train_world_tpu_torch.models import clustering
     from hts_train_world_tpu_torch.models import context_clustered as cc
     from hts_train_world_tpu_torch.models import hsmm_variants as hv
@@ -2806,19 +2821,6 @@ def variants_lane(counted, profiled, utts, questions, ref, device="cuda",
             device=device), record=KeepVariants())
     stage_line("flagged", st, clock)
     after = control("control after (flags off)")
-    # the flagged run once more with glibc mapping every block of 64 KiB
-    # or more afresh and unmapping it when freed (M_MMAP_THRESHOLD, which
-    # earlier phases' frees have raised to its 32 MiB cap), so that no
-    # later small block reuses memory that a host-to-device copy read;
-    # last in the script since the setting holds for the rest of the
-    # process
-    ok_m = ctypes.CDLL(None).mallopt(-3, 64 << 10) == 1
-    with UsageClock() as clock:
-        again = recipe.train_voice(utts, questions, cfg, streams=streams,
-                                   log=lambda m: None, device=device)
-    stage_line(f"flagged again, M_MMAP_THRESHOLD 64 KiB (set: {ok_m})",
-               again, clock)
-    del again
     secs = st.stage_seconds
     sb, sa = before.stage_seconds, after.stage_seconds
     later = [k for k in sb if k not in ("IN_RE", "ERST0")]
@@ -2886,7 +2888,7 @@ def variants_lane(counted, profiled, utts, questions, ref, device="cuda",
         print(f"variants: {label} under the profiler: wall {1e3 * w:.1f} ms, "
               f"device busy {1e3 * busy:.1f} ms (idle "
               f"{100 - 100 * busy / w:.1f} %); top: {top}", flush=True)
-    return counts, rec
+    return counts, rec, (st.monophone, mono)
 
 
 def variants_card_vs_cpu(devices=("cuda", "cpu")):
@@ -2910,6 +2912,118 @@ def variants_card_vs_cpu(devices=("cuda", "cpu")):
     if any(v > VARIANT_BOUNDS[k] for k, v in worst.items()):
         raise RuntimeError("the card's variants disagree with the CPU path")
     return worst
+
+
+def semitied_full_card_vs_cpu(ms, utts, devices=("cuda", "cpu"),
+                              n_iter: int = SEMIT_FULL_ITERS):
+    """Phase 18 (c): SEMIT with mgc's full transform (`estimate_semitied(
+    n_blocks={"mgc": 1})`, the reference's NMGCTRANSBLK = 1: one block as
+    wide as the stream, 150 x 150 at the WORLD width) from the model set
+    `ms` on `utts` (monophone labels), the other streams at their default
+    blocks, on the card and on the CPU: the transforms within 1e-9 of each
+    one's max |A| and the logdets 1e-9 absolute (VARIANT_BOUNDS, the CPU
+    tests' bounds against the JAX package).  Returns the worst of each."""
+    from hts_train_world_tpu_torch.models import hsmm_variants as hv
+    out = []
+    for dv in devices:
+        t0 = time.perf_counter()
+        out.append(hv.estimate_semitied(
+            copy.deepcopy(ms), utts, n_blocks={"mgc": 1}, n_iter=n_iter,
+            log=lambda m: None, device=dv))
+        _sync(dv)
+        out[-1] = (out[-1], time.perf_counter() - t0)
+    (a, ta), (b, tb) = out
+    d = a.transforms["mgc"].shape[0]
+    worst = dict(
+        transforms=max(float(np.abs(a.transforms[k] - A).max()
+                             / np.abs(A).max())
+                       for k, A in b.transforms.items()),
+        logdets=max(abs(a.logdets[k] - v) for k, v in b.logdets.items()))
+    print(f"SEMIT with mgc in one block ({d} x {d}), {n_iter} iterations, "
+          f"{devices[0]} {ta:.2f} s vs {devices[1]} {tb:.2f} s: "
+          + ", ".join(f"{k} {v:.2e} (<= {VARIANT_BOUNDS[k]:.0e})"
+                      for k, v in worst.items())
+          + f"; mgc logdet {a.logdets['mgc']:+.4f}", flush=True)
+    if (a.transforms.keys() != b.transforms.keys()
+            or any(v > VARIANT_BOUNDS[k] for k, v in worst.items())):
+        raise RuntimeError("the card's full mgc transform disagrees with the "
+                           "CPU path")
+    return worst
+
+
+def quotient_draws(chain_inputs, n: int = QUOT_DRAWS, seed: int = 33):
+    """(x, mu, v) triples on the inputs' device for the check of K33's
+    terms: n draws across recorded chain launches' frames and tables (a
+    random utterance, frame, chain state, component and column of every
+    stream), and n draws of x = +-2^U(-530, 530) and v = 2^U(-70, 70)
+    (past the corrections' range both ways; random mantissas) with mu
+    drawn alike, within 2^-U(1, 53) of x relative, or 0, a third each, and
+    zeros, subnormals, infinities, NaNs and the range tests' edges among
+    them."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    dev = chain_inputs[0]["frames"].device
+    xs, mus, vs = [], [], []
+    per = -(-n // sum(len(i["stream_slices"]) for i in chain_inputs))
+    for inp in chain_inputs:
+        fr = inp["frames"]
+        B, Tb, _ = fr.shape
+        Kb = inp["rows"][0].shape[1]
+        for i, (a, e) in enumerate(inp["stream_slices"]):
+            C = inp["means"][i].shape[1]
+            b, t, k, c, j = (torch.randint(hi, (per,), generator=g).to(dev)
+                             for hi in (B, Tb, Kb, C, e - a))
+            r = inp["rows"][i][b, k]
+            xs.append(fr[b, t, a + j])
+            mus.append(inp["means"][i][r, c, j])
+            vs.append(inp["variances"][i][r, c, j])
+
+    def wide(lo, hi, signed=False):
+        m = 1.0 + torch.rand(n, generator=g, dtype=torch.float64)
+        if signed:
+            m = m * (torch.randint(2, (n,), generator=g) * 2 - 1)
+        e = torch.randint(lo, hi, (n,), generator=g).double()
+        return m * torch.exp2(e)
+    x_s, v_s = wide(-530, 530, True), wide(-70, 70)
+    near = x_s * (1.0 + wide(-53, 0, True) * 0.5)
+    pick = torch.randint(3, (n,), generator=g)
+    mu_s = torch.where(pick == 0, wide(-530, 530, True),
+                       torch.where(pick == 1, near, torch.zeros_like(x_s)))
+    special = torch.tensor([0.0, 5e-324, 2.2e-308, 2.0 ** -401, 2.0 ** -400,
+                            2.0 ** 479, 2.0 ** 479 * (1 - 2.0 ** -53),
+                            1e300, float("inf"), float("nan"), -3.0],
+                           dtype=torch.float64)
+    vsp = torch.tensor([1e-8, 3.0, 5e-324, 2.0 ** 61, 2.0 ** -60, 2.0 ** 60,
+                        float("inf"), float("nan"), 0.0, -2.0, 7.0],
+                       dtype=torch.float64)
+    ns = len(special)
+    x_s[:ns ** 3] = special.repeat_interleave(ns * ns)
+    mu_s[:ns ** 3] = special.repeat_interleave(ns).repeat(ns)
+    v_s[:ns ** 3] = vsp.repeat(ns * ns)
+    return tuple(torch.cat([torch.cat(p)[:n], q.to(dev)])
+                 for p, q in ((xs, x_s), (mus, mu_s), (vs, v_s)))
+
+
+def quotient_check(hvar, chain_inputs, n: int = QUOT_DRAWS):
+    """K33's terms (`mix_quotients`: the chain kernel's arithmetic and its
+    choice between the corrections and the division) on `quotient_draws`
+    against IEEE division on the CPU, bit for bit (NaN where it is NaN).
+    Returns (draws, mismatches)."""
+    import torch
+    x, mu, v = quotient_draws(chain_inputs, n)
+    got = hvar.mix_quotients(x, mu, v).cpu()
+    dx = x.cpu() - mu.cpu()
+    want = dx * dx / v.cpu()
+    same = (got.view(torch.int64) == want.view(torch.int64)) | (
+        torch.isnan(got) & torch.isnan(want))
+    bad = int((~same).sum())
+    print(f"K33 quotient: {x.numel()} draws ({n} from the recorded "
+          f"batches' frames and tables, {x.numel() - n} over 2^+-530 / "
+          f"2^+-70 and special values) against IEEE division on the CPU: "
+          f"{bad} differ", flush=True)
+    if bad:
+        raise RuntimeError("K33's quotient differs from the division")
+    return x.numel(), bad
 
 
 # the SPTK engine (phase 19): phase 12's unseen phrases through
@@ -3565,13 +3679,19 @@ def main() -> int:
             C_ = inp["means"].shape[1]
             t_o = N_ * C_ * (3.0 * D_ + 10.0) / F64_OPS_PER_S
         elif name == "semitied":
-            # per job: the sigmas (2 G d^3 a pass, n_iter + 1 passes), per
-            # outer step G_r for every row (2 G d^3), the two LUs a row
-            # (2/3 d^3 each) and the solves (~4 d^2 a row)
+            # per job: the sigmas (2 G d^3 a pass, n_iter + 1 passes) and
+            # per outer step G_r for every row (2 G d^3), matrix products
+            # at the tensor cores' rate; per outer step each G_r's LU (2/3
+            # d^3 each), A's LU and inverse (2 d^3) and per row G_r's
+            # solves (2 d^2) and the rank-one update of inv(A) (4 d^2), the
+            # LU of the new A (2/3 d^3)
             J_, G_, d_, _ = inp["scatters"].shape
             n_it = inp["n_iter"]
-            per = 4.0 * G_ * d_ ** 3 + 4.0 / 3.0 * d_ ** 4 + 4.0 * d_ ** 3
-            t_o = J_ * (n_it * per + 2.0 * G_ * d_ ** 3) / F64_OPS_PER_S
+            mm = n_it * 4.0 * G_ * d_ ** 3 + 2.0 * G_ * d_ ** 3
+            rest = n_it * (2.0 / 3.0 * d_ ** 4
+                           + (2.0 + 6.0 + 2.0 / 3.0) * d_ ** 3)
+            t_o = J_ * (mm / mm_rate(inp["scatters"])
+                        + rest / F64_OPS_PER_S)
         elif name == "hsmm_fb":
             # ~20 float64 operations (three exp counted as one each) per
             # valid (state, t0, d) term of this run's t_len / k_len
@@ -3627,6 +3747,46 @@ def main() -> int:
             t_o = Tn * (mm / mm_rate(lp) + rest / rate(lp))
         t_b = moved / HBM_BYTES_PER_S
         return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+    def mix_library(inp, gathered):
+        """K33 chain mode's library line: per stream the rows' tables
+        gathered and formed into the expanded quadratic form's weights W
+        (outside the timed call, or inside it when `gathered`), one bmm of
+        [x^2, x, 1] against W and torch.logsumexp with the log-weights,
+        summed over the streams."""
+        fr = inp["frames"]
+        B_, Tb, _ = fr.shape
+        Kb = inp["rows"][0].shape[1]
+
+        def tables(i, a, e):
+            x = fr[..., a:e]
+            A = torch.cat([x * x, x, torch.ones_like(x[..., :1])], -1)
+            r = inp["rows"][i]
+            mu, iv = inp["means"][i][r], 1.0 / inp["variances"][i][r]
+            C_ = mu.shape[2]
+            c = (mu * mu * iv).sum(-1) - torch.log(iv).sum(-1)
+            W = torch.cat([iv, -2.0 * mu * iv, c[..., None]], -1)
+            W = W.reshape(B_, Kb * C_, -1).transpose(1, 2).contiguous()
+            lw = inp["logws"][i][r].reshape(B_, 1, Kb * C_)
+            return A, W, lw, C_
+        slices = list(enumerate(inp["stream_slices"]))
+        mats = None if gathered else [tables(i, a, e) for i, (a, e) in slices]
+
+        def lse():
+            tot = 0.0
+            for A, W, lw, C_ in (mats or [tables(i, a, e)
+                                          for i, (a, e) in slices]):
+                z = (-0.5 * torch.bmm(A, W) + lw).reshape(B_, Tb, Kb, C_)
+                tot = tot + torch.logsumexp(z, -1)
+            return tot
+        return lse
+
+    def library_gathered(key, inp):
+        """The library line with the work outside its timed call moved in:
+        K33 chain mode's gathers of the rows' tables."""
+        if key == "hsmm_mix_loglik" and "frames" in inp:
+            return mix_library(inp, gathered=True)
+        return None
 
     def library(key, inp):
         """One PyTorch call for the same job, where there is one.  K2's is
@@ -3721,30 +3881,8 @@ def main() -> int:
             # against every chain state's components, then torch.logsumexp
             # over the components with the log-weights, summed over the
             # streams (no MSD switch, no weights; the gathered tables made
-            # here, not timed)
-            fr = inp["frames"]
-            B_, Tb, _ = fr.shape
-            Kb = inp["rows"][0].shape[1]
-            mats = []
-            for i, (a, e) in enumerate(inp["stream_slices"]):
-                x = fr[..., a:e]
-                A = torch.cat([x * x, x, torch.ones_like(x[..., :1])], -1)
-                r = inp["rows"][i]
-                mu, iv = inp["means"][i][r], 1.0 / inp["variances"][i][r]
-                C_ = mu.shape[2]
-                c = (mu * mu * iv).sum(-1) - torch.log(iv).sum(-1)
-                W = torch.cat([iv, -2.0 * mu * iv, c[..., None]], -1)
-                W = W.reshape(B_, Kb * C_, -1).transpose(1, 2).contiguous()
-                lw = inp["logws"][i][r].reshape(B_, 1, Kb * C_)
-                mats.append((A, W, lw, C_))
-
-            def lse():
-                tot = 0.0
-                for A, W, lw, C_ in mats:
-                    z = (-0.5 * torch.bmm(A, W) + lw).reshape(B_, Tb, Kb, C_)
-                    tot = tot + torch.logsumexp(z, -1)
-                return tot
-            return lse
+            # here, not timed; `library_gathered` times them too)
+            return mix_library(inp, gathered=False)
         if name == "hsmm_mix_loglik":
             # the broadcast _gauss_ll of every frame's row and torch.softmax
             # over the components (the gathered rows made here, not timed)
@@ -4612,16 +4750,21 @@ def main() -> int:
         out_k = out_k if isinstance(out_k, tuple) else (out_k,)
         out_p = out_p if isinstance(out_p, tuple) else (out_p,)
         ok, err, tol = check(name, inp, out_k, out_p)
-        ms = cuda_ms(lambda: kern(**inp), reps=10, warm=2)
-        # the device time of the SPTK kernels, K9 and K17 apart from their
-        # wrappers' host time (a 31-tap FIR takes less than its ctypes
-        # launch)
-        dev_ms = (device_ms(lambda: kern(**inp))
+        # K34 past d = 100 takes ~0.1-1 s a launch: two timed launches
+        reps = (2 if name == "semitied" and inp["scatters"].shape[2] > 100
+                else 10)
+        ms = cuda_ms(lambda: kern(**inp), reps=reps, warm=min(reps, 2))
+        # the device time of the SPTK kernels, K9, K17, K33 and K34 apart
+        # from their wrappers' host time (a 31-tap FIR takes less than its
+        # ctypes launch)
+        dev_ms = (device_ms(lambda: kern(**inp), reps=reps)
                   if kernels.base_name(name) in DEVICE_TIMED else None)
         plain_ms = cuda_ms(lambda: plain(**inp),
                            reps=1 if name in heavy else 5)
         lib = library(name, inp)
         lib_ms = cuda_ms(lib, reps=10, warm=2) if lib else None
+        lib2 = library_gathered(name, inp)
+        lib2_ms = cuda_ms(lib2, reps=10, warm=2) if lib2 else None
         base = kernels.base_name(name)
         outs = (out_k[:2] if base == "dio_candidates"
                 else out_k[:1] if base in ("harvest_candidates",
@@ -4635,14 +4778,17 @@ def main() -> int:
               + (f" (device {dev_ms:.4f} ms behind a sleep)"
                  if dev_ms is not None else "")
               + f", plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})"
-              + (f", library {lib_ms:.4f} ms" if lib_ms is not None else ""),
+              + (f", library {lib_ms:.4f} ms" if lib_ms is not None else "")
+              + (f", library with its gather {lib2_ms:.4f} ms"
+                 if lib2_ms is not None else ""),
               flush=True)
         if not ok:
             raise RuntimeError(f"{name}: kernel disagrees with its plain "
                                f"version (max abs err {err:.3e})")
         s = summary.setdefault(name, dict(err=0.0, ms=0.0, plain_ms=0.0,
                                           bound_ms=0.0, lib_ms=None,
-                                          dev_ms=None, by={}))
+                                          lib2_ms=None, dev_ms=None,
+                                          by={}))
         s["err"] = max(s["err"], err)
         if path != primary(name):
             return
@@ -4652,6 +4798,8 @@ def main() -> int:
         s["by"][by] = s["by"].get(by, 0.0) + bms
         if lib_ms is not None:
             s["lib_ms"] = (s["lib_ms"] or 0.0) + lib_ms
+        if lib2_ms is not None:
+            s["lib2_ms"] = (s["lib2_ms"] or 0.0) + lib2_ms
         if dev_ms is not None:
             s["dev_ms"] = (s["dev_ms"] or 0.0) + dev_ms
 
@@ -5846,13 +5994,25 @@ def main() -> int:
     # ---- 18. the variant recipe lane: SEMIT and UPMIX/ERST5 at full width
     # on phase 11's corpus, K33 and K34 replayed, card vs CPU ----
     t18 = time.perf_counter()
-    counts_v, rec_v = variants_lane(counted, profiled, utts_r, questions_r,
-                                    st_r)
+    counts_v, rec_v, (mono_ms, mono_utts) = variants_lane(
+        counted, profiled, utts_r, questions_r, st_r)
     for name, inp in rec_v:
         replay("variants", name, inp)
+    # K33's quotient against IEEE division on draws from ERST5's batches
+    quotient_check(hvar, [i for n, i in rec_v if n == "hsmm_mix_loglik"])
     del rec_v
     torch.cuda.empty_cache()
     variants_card_vs_cpu()
+    # (c) SEMIT with mgc's full 150 x 150 transform, card vs CPU, and its
+    # K34 launch (d = 150) replayed
+    kernels.record = []
+    semitied_full_card_vs_cpu(mono_ms, mono_utts)
+    rec_full, kernels.record = kernels.record, None
+    for name, inp in rec_full:
+        if name == "semitied" and inp["scatters"].shape[2] == 150:
+            replay("semitied_full", name, inp)
+    del rec_full, mono_ms, mono_utts
+    torch.cuda.empty_cache()
     print(f"phase 18: {time.perf_counter() - t18:.1f} s", flush=True)
 
     # ---- 19. the SPTK engine: phase 12's unseen phrases through
@@ -5899,6 +6059,7 @@ def main() -> int:
          "max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
          "bound_ms": s["bound_ms"], "bound_by": max(s["by"], key=s["by"].get),
          "library_ms": s["lib_ms"], "device_ms": s.get("dev_ms"),
+         "library_gathered_ms": s.get("lib2_ms"),
          "launches_by_path": {p: c.get(name, 0) for p, c in by_path.items()}}
         for name, s in summary.items()]}
     print(json.dumps(line))

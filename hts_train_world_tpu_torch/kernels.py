@@ -134,10 +134,11 @@ KERNELS = {
         "harvest_overlap_launch": [_P, _P, _P, _I, _I, _I, _I, _P]}),
     "hsmm_mix_loglik": ("hsmm_mix_loglik.cu", {
         "hsmm_mix_loglik_launch": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
-                                   _P, _P],
-        "hsmm_mix_post_launch": [_P, _I, _I, _I, _P, _P, _P, _P, _P]}),
+                                   _P, _I, _P],
+        "hsmm_mix_post_launch": [_P, _I, _I, _I, _P, _P, _P, _P, _P],
+        "hsmm_mix_quot_launch": [_P, _P, _P, _L, _P]}),
     "semitied": ("semitied.cu", "semitied_launch",
-                 [_P, _P, _I, _I, _I, _I, _P, _P, _P]),
+                 [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
     "excite": ("excite.cu", "excite_launch",
                [_P, _I, _I, _D, _P, _I, _P, _P, _P]),
     "band_fir": ("band_fir.cu", "band_fir_launch",

@@ -252,6 +252,32 @@ _ROW_TABLES: "collections.OrderedDict" = collections.OrderedDict()
 _ROW_TABLES_KEPT = 4
 
 
+def table_cache_lookup(cache, tabs_in, stream_slices, msd_flags,
+                       weights_static):
+    """(key, hit) of a row-table cache (K17's `_ROW_TABLES`, K33's): the
+    key is the tables' addresses, versions, shapes and strides and the
+    stream arguments, so an in-place change of a table bumps its version
+    and misses; hit is the cached tuple after the tables, or None."""
+    key = (tuple((t.data_ptr(), t._version, tuple(t.shape), t.stride())
+                 for t in tabs_in),
+           tuple(map(tuple, stream_slices)), tuple(map(bool, msd_flags)),
+           tuple(map(float, weights_static)))
+    hit = cache.get(key)
+    if hit is None:
+        return key, None
+    cache.move_to_end(key)
+    return key, hit[1:]
+
+
+def table_cache_store(cache, entry, value, kept: int = _ROW_TABLES_KEPT):
+    """File `value` (a tuple) under a miss's `entry` (key, tables) once its
+    launch succeeded; the least recently used past `kept` go."""
+    key, tabs_in = entry
+    cache[key] = (tabs_in, *value)
+    while len(cache) > kept:
+        cache.popitem(last=False)
+
+
 def _row_tables(means, variances, msd_w, stream_slices, msd_flags,
                 weights_static):
     """(buffer, meta, weights, entry): K17's tables for this model set,
@@ -262,14 +288,10 @@ def _row_tables(means, variances, msd_w, stream_slices, msd_flags,
     once the launch succeeds.  An in-place change of a table bumps its
     version and misses."""
     tabs_in = (*means, *variances, *msd_w)
-    key = (tuple((t.data_ptr(), t._version, tuple(t.shape), t.stride())
-                 for t in tabs_in),
-           tuple(map(tuple, stream_slices)), tuple(map(bool, msd_flags)),
-           tuple(map(float, weights_static)))
-    hit = _ROW_TABLES.get(key)
+    key, hit = table_cache_lookup(_ROW_TABLES, tabs_in, stream_slices,
+                                  msd_flags, weights_static)
     if hit is not None:
-        _ROW_TABLES.move_to_end(key)
-        return hit[1], hit[2], hit[3], None
+        return (*hit, None)
     sizes = [(m.numel(), m.shape[0]) for m in means]
     buf = torch.empty(sum(2 * n + 3 * r for n, r in sizes),
                       dtype=torch.float64, device=means[0].device)
@@ -342,10 +364,7 @@ def batch_frame_loglik(frames, rows, means, variances, msd_w,
              msd_flags=tuple(msd_flags),
              weights_static=tuple(weights_static)))
     if entry is not None:
-        key, tabs_in = entry
-        _ROW_TABLES[key] = (tabs_in, buf, meta, wts)
-        while len(_ROW_TABLES) > _ROW_TABLES_KEPT:
-            _ROW_TABLES.popitem(last=False)
+        table_cache_store(_ROW_TABLES, entry, (buf, meta, wts))
     return out
 
 

@@ -20,8 +20,10 @@ per-frame work runs in torch:
   mixture analogue of K17, (B, T, K) over a padded batch of chains;
 - `responsibilities` (K33 posterior mode): every segment's component
   posteriors of one stream in one launch;
-- `semitied_blocks` (K34, csrc/semitied.cu): Gales' update, one block of
-  threads a (stream, block) job;
+- `semitied_blocks` (K34, csrc/semitied.cu): Gales' update for every
+  (stream, block) job of a stream at once, any block size: per outer step
+  the sigmas, every row's G_r and their LU factors over the whole card,
+  then the rows in order, a block of threads a job;
 - the alignments go through K20 (`hsmm.viterbi_segment_batch`) in padded
   batches, with K17 (SEMIT's E-step) or K33 (ERST5's) before it.
 
@@ -30,6 +32,8 @@ CPU tensor it runs the plain twin beside it.
 """
 from __future__ import annotations
 
+import collections
+import ctypes
 import dataclasses
 from typing import Dict, List, Sequence, Tuple
 
@@ -160,6 +164,79 @@ def batch_frame_loglik_mix_plain(frames, rows, means, variances, logws,
     return out
 
 
+def mix_rows_plain(means, variances, logws, msd_w, msd_flags):
+    """The plain twin of K33's row prologue: per stream (1/v (R, C, D_s),
+    sum log v (R, C), the log-weights (R, C), log w (R,), log1p(-w) (R,)),
+    w the MSD weight clipped to [1e-4, 1 - 1e-4]; the last two are None for
+    a non-MSD stream.  1/v is NaN where |v| is outside [2^-60, 2^60] or mu
+    is neither 0 nor of magnitude in [2^-400, 2^479): the kernel divides
+    those terms (its quotient corrections need no overflow or underflow).
+    The kernel scores log w_c - 0.5 ((sum (x - mu)^2 / v + sum log v) +
+    D_s log 2pi) from them, each quotient correctly rounded from 1/v and
+    v."""
+    out = []
+    for m, v, lw, w, f in zip(means, variances, logws, msd_w, msd_flags):
+        a, am = v.abs(), m.abs()
+        ok = ((a >= 2.0 ** -60) & (a <= 2.0 ** 60)
+              & ((am == 0) | ((am >= 2.0 ** -400) & (am < 2.0 ** 479))))
+        rv = torch.where(ok, 1.0 / v, torch.full_like(v, float("nan")))
+        ml = m1 = None
+        if f:
+            wc = torch.clamp(w, 1e-4, 1.0 - 1e-4)
+            ml, m1 = torch.log(wc), torch.log1p(-wc)
+        out.append((rv, torch.log(v).sum(-1), lw, ml, m1))
+    return out
+
+
+# K33's row tables on the card, per mixture set, as K17's
+# (`hsmm._ROW_TABLES`): key -> (the tables the key names, kept alive so
+# their addresses cannot be reused; the buffer the row prologue fills; the
+# launcher's host meta and weights)
+_MIX_ROW_TABLES: "collections.OrderedDict" = collections.OrderedDict()
+
+
+def _mix_row_tables(means, variances, logws, msd_w, stream_slices,
+                    msd_flags, weights_static):
+    """(buffer, meta, weights, entry): K33's tables for this mixture set,
+    cached on the tables' addresses, versions and shapes and the stream
+    arguments; entry is None on a hit.  On a miss a new buffer holds per
+    stream the (mu, v) pairs (R, C, D_s, 2) at an even offset, room for 1/v
+    and sum log v, the log-weights and the MSD weights; the launch runs the
+    row prologue over it first, and `entry` (key, tables) goes into the
+    cache once the launch succeeds.  An in-place change of a table bumps
+    its version and misses."""
+    tabs_in = (*means, *variances, *logws, *msd_w)
+    key, hit = hsmm.table_cache_lookup(_MIX_ROW_TABLES, tabs_in,
+                                       stream_slices, msd_flags,
+                                       weights_static)
+    if hit is not None:
+        return (*hit, None)
+    meta, at, parts = [], 0, []
+    for (a, e), m, f in zip(stream_slices, means, msd_flags):
+        R, C, _ = m.shape
+        n, rc = m.numel(), R * C
+        offs = [at, at + 2 * n, at + 3 * n, at + 3 * n + rc,
+                at + 3 * n + 2 * rc, at + 3 * n + 2 * rc + R]
+        meta += [a, e, int(bool(f)), R] + offs
+        parts.append(offs)
+        at = offs[5] + R
+        at += at % 2                       # the next pairs 16-byte aligned
+    buf = torch.empty(at, dtype=torch.float64, device=means[0].device)
+    for offs, m, v, lw, w, f in zip(parts, means, variances, logws, msd_w,
+                                    msd_flags):
+        n, rc, R = m.numel(), lw.numel(), m.shape[0]
+        mv = buf[offs[0]:offs[0] + 2 * n].view(*m.shape, 2)
+        mv[..., 0].copy_(m)
+        mv[..., 1].copy_(v)
+        buf[offs[3]:offs[3] + rc].copy_(lw.reshape(-1))
+        if f:
+            buf[offs[4]:offs[4] + R].copy_(w.reshape(-1))
+    meta_c = (ctypes.c_longlong * len(meta))(*meta)
+    wts_c = (ctypes.c_double * len(weights_static))(
+        *map(float, weights_static))
+    return buf, meta_c, wts_c, (key, tabs_in)
+
+
 def batch_frame_loglik_mix(frames, rows, means, variances, logws, msd_w,
                            stream_slices, msd_flags, weights_static):
     """K33, chain mode: frames (B, Tb, D); per stream i, rows[i] (B, Kb)
@@ -170,7 +247,9 @@ def batch_frame_loglik_mix(frames, rows, means, variances, logws, msd_w,
     mu)^2/v + sum log v + D_i log 2pi)] (the max shift taken as 0 where it
     is not finite), and an MSD stream scores log w + ll on frames whose
     first column is non-zero and log1p(-w) elsewhere (w clipped to [1e-4,
-    1-1e-4]).  1 <= C <= MAX_COMPONENTS."""
+    1-1e-4]).  1 <= C <= MAX_COMPONENTS.  On the card the row prologue
+    (1/v, sum log v, log w, log1p(-w)) runs once per mixture set: its
+    buffer is cached on the tables (`_mix_row_tables`)."""
     if not frames.is_cuda:
         return batch_frame_loglik_mix_plain(
             frames, rows, means, variances, logws, msd_w, stream_slices,
@@ -200,34 +279,50 @@ def batch_frame_loglik_mix(frames, rows, means, variances, logws, msd_w,
             "most 8 streams")
     dev = frames.device
     frames = frames.contiguous()
-    parts, meta, at = [], [], 0
-    for (a, e), m, v, lw, f, w in zip(stream_slices, means, variances, logws,
-                                      msd_flags, msd_w):
-        offs = []
-        for t in (m, v, lw) + ((w,) if f else ()):
-            offs.append(at)
-            parts.append(t.reshape(-1))
-            at += t.numel()
-        meta.append([a, e, int(bool(f)), *offs[:3],
-                     offs[3] if f else 0])
-    tabs = torch.cat(parts).contiguous()
-    meta_t = torch.tensor(meta, dtype=torch.long, device=dev)
-    wts_t = torch.tensor([float(w) for w in weights_static], dtype=f64,
-                         device=dev)
-    rows_t = torch.stack([r.contiguous() for r in rows]).contiguous()
-    kernels.check_cuda("batch_frame_loglik_mix", frames, tabs, meta_t, wts_t,
-                       rows_t)
+    rows_c = [r.contiguous() for r in rows]
+    kernels.check_cuda("batch_frame_loglik_mix", frames, *rows_c)
+    if any(t.device != dev for t in (*means, *variances, *logws, *msd_w)):
+        raise ValueError("batch_frame_loglik_mix: the tables must be on the "
+                         "frames' device")
+    buf, meta, wts, entry = _mix_row_tables(means, variances, logws, msd_w,
+                                            stream_slices, msd_flags,
+                                            weights_static)
     out = torch.empty((B, Tb, Kb), dtype=f64, device=dev)
     kernels.launch("hsmm_mix_loglik", [
-        frames.data_ptr(), B, Tb, D, Kb, n, C, meta_t.data_ptr(),
-        wts_t.data_ptr(), rows_t.data_ptr(), tabs.data_ptr(),
-        out.data_ptr()],
+        frames.data_ptr(), B, Tb, D, Kb, n, C, meta, wts,
+        (ctypes.c_void_p * n)(*(r.data_ptr() for r in rows_c)),
+        buf.data_ptr(), int(entry is not None), out.data_ptr()],
         dict(frames=frames, rows=tuple(rows), means=tuple(means),
              variances=tuple(variances), logws=tuple(logws),
              msd_w=tuple(msd_w), stream_slices=tuple(stream_slices),
              msd_flags=tuple(msd_flags),
              weights_static=tuple(weights_static)),
         fn="hsmm_mix_loglik_launch")
+    if entry is not None:
+        hsmm.table_cache_store(_MIX_ROW_TABLES, entry, (buf, meta, wts))
+    return out
+
+
+def mix_quotients(x, mu, v):
+    """The terms K33's chain kernel adds, (x - mu)^2 / v elementwise
+    (float64, one shape): on the card its arithmetic and its choice (1/v
+    as the row prologue forms it, then two corrections to the correctly
+    rounded quotient wherever the chain kernel's range tests on x, mu and
+    v pass, the division elsewhere), so a check can hold both against the
+    division bit for bit; on the CPU `(x - mu)^2 / v`."""
+    if not x.is_cuda:
+        dx = x - mu
+        return dx * dx / v
+    if (any(t.dtype != torch.float64 for t in (x, mu, v))
+            or not x.shape == mu.shape == v.shape):
+        raise ValueError("mix_quotients: float64 x, mu and v of one shape")
+    x, mu, v = x.contiguous(), mu.contiguous(), v.contiguous()
+    kernels.check_cuda("mix_quotients", x, mu, v)
+    out = torch.empty_like(x)
+    kernels.launch("hsmm_mix_loglik", [x.data_ptr(), mu.data_ptr(),
+                                       v.data_ptr(), x.numel(),
+                                       out.data_ptr()], None,
+                   fn="hsmm_mix_quot_launch", variant="quot")
     return out
 
 
@@ -556,6 +651,18 @@ def semitied_blocks_plain(betas, scatters, n_iter: int = 20):
     return A_out, sig_out, aux_out
 
 
+def semitied_gr_plain(betas, scatters, sigmas):
+    """The plain form of K34's G_r stage: every row's G_r of every job at
+    once, G[j, r] = sum_g (beta_g / sigmas[j, g, r]) scatters[j, g] -> (J,
+    d, d, d), as one (d x G) by (G x d^2) product a job (the twin forms each
+    row's by an einsum as it reaches the row; the sigmas are fixed for the
+    whole outer step)."""
+    J, G, d, _ = scatters.shape
+    coef = betas[None, None, :] / sigmas.transpose(1, 2)          # (J, d, G)
+    return torch.matmul(coef, scatters.reshape(J, G, d * d)).reshape(
+        J, d, d, d)
+
+
 def semitied_blocks(betas, scatters, n_iter: int = 20):
     """K34: Gales' semi-tied covariance estimation for J independent
     blocks that share their Gaussians' occupancies.  betas (G,) float64,
@@ -566,7 +673,8 @@ def semitied_blocks(betas, scatters, n_iter: int = 20):
     det(A) inv(A)[:, r] by LU with partial pivoting, u = G_r^-1 cof, row r
     = u sqrt(beta_tot / max(cof.u, 1e-300))}, and aux = beta_tot log|det A|
     - 0.5 sum_g beta_g sum_j log sigma_gj after each step; the sigmas
-    returned are those of the final A."""
+    returned are those of the final A.  Any d on the card: the G_r stack
+    (J d^3 doubles) lives in device memory."""
     if not scatters.is_cuda:
         return semitied_blocks_plain(betas, scatters, n_iter)
     f64 = torch.float64
@@ -577,21 +685,21 @@ def semitied_blocks(betas, scatters, n_iter: int = 20):
         raise ValueError("semitied_blocks: float64 betas (G,) and scatters "
                          "(J, G, d, d), n_iter >= 0")
     J, G, d, _ = scatters.shape
-    # csrc/semitied.cu's shared memory: A, its LU and G_r (d x d each), the
-    # G coefficients, four d-vectors, 64 doubles of reduction scratch and
-    # two pivot rows, within a block's 227 KB
-    if 8 * (3 * d * d + G + 4 * d + 64) + 4 * 2 * d > 227 * 1024:
-        raise ValueError(f"semitied_blocks: a block of {d} dimensions and "
-                         f"{G} Gaussians needs more shared memory than a "
-                         f"block of threads has")
     betas, scatters = betas.contiguous(), scatters.contiguous()
     kernels.check_cuda("semitied_blocks", betas, scatters)
-    A = torch.empty((J, d, d), dtype=f64, device=scatters.device)
-    sig = torch.empty((J, G, d), dtype=f64, device=scatters.device)
-    aux = torch.empty((J, max(n_iter, 1)), dtype=f64, device=scatters.device)
+    dev = scatters.device
+    A = torch.empty((J, d, d), dtype=f64, device=dev)
+    sig = torch.empty((J, G, d), dtype=f64, device=dev)
+    aux = torch.empty((J, max(n_iter, 1)), dtype=f64, device=dev)
+    # csrc/semitied.cu's scratch: the G_r stack (J, d, d, d), inv(A) and
+    # A's LU (J, d, d) each where they do not fit in shared memory, det A
+    # (J,); G_r's row permutations (J, d, d)
+    work = torch.empty(J * (d ** 3 + 2 * d * d + 1), dtype=f64, device=dev)
+    iwork = torch.empty(J * d * d, dtype=torch.int32, device=dev)
     kernels.launch("semitied", [
         betas.data_ptr(), scatters.data_ptr(), J, G, d, int(n_iter),
-        A.data_ptr(), sig.data_ptr(), aux.data_ptr()],
+        A.data_ptr(), sig.data_ptr(), aux.data_ptr(), work.data_ptr(),
+        iwork.data_ptr()],
         dict(betas=betas, scatters=scatters, n_iter=int(n_iter)))
     return A, sig, aux[:, :n_iter]
 

@@ -2262,24 +2262,34 @@ def test_k33_posterior_kernel_matches_plain(cuda):
 
 @pytest.mark.parametrize("d,G,frames", [
     (1, 6, None), (2, 140, None), (25, 200, None), (50, 200, None),
-    (25, 1, 26)])
+    (25, 1, 26), (150, 161, None), (150, 2, 160), (180, 64, None),
+    (260, 8, None)])
 def test_k34_kernel_matches_plain(cuda, d, G, frames):
     """K34, two jobs in one launch (the scatters and the same scatters
-    doubled), against its twin on the CPU, 20 iterations: A within 1e-9 of
-    each job's max|A|, sigmas 1e-8 relative (the CPU tests' bounds against
-    the JAX package), aux within 1e-12 of the larger of |aux| and its
-    sigma term 0.5 sum_g beta_g sum_j |log sigma_gj| (`chip_smoke.
-    aux_scale`: aux is a difference of two such terms, and doubling the
-    scatters moves it from 235 to 9.6 at (25, 1, 26) while the terms stay
-    ~800).  (25, 1, 26): one Gaussian of d + 1 frames, a G_r near singular
-    (condition ~5e4)."""
+    doubled), against its twin on the CPU, 20 iterations (3 at d = 180,
+    1 at d = 260):
+    A within 1e-9 of each job's max|A|, sigmas 1e-8 relative (the CPU
+    tests' bounds against the JAX package), aux within 1e-12 of the larger
+    of |aux| and its sigma term 0.5 sum_g beta_g sum_j |log sigma_gj|
+    (`chip_smoke.aux_scale`: aux is a difference of two such terms, and
+    doubling the scatters moves it from 235 to 9.6 at (25, 1, 26) while the
+    terms stay ~800).  (25, 1, 26): one Gaussian of d + 1 frames, a G_r
+    near singular (condition ~5e4).  d = 150 is mgc's full transform: the
+    sweep keeps inv(A) in shared memory and A, A's LU and G_r's factors in
+    device memory, and each G_r is factorised in shared memory;
+    (150, 2, 160): two Gaussians of 160 frames, scatters of condition
+    ~1e7, for the rank-one updates' error over 150 rows on ill-conditioned
+    data; d = 180 factorises every G_r in place in device memory and keeps
+    inv(A) there too; d = 260 solves with the vector in shared memory
+    rather than in registers."""
+    n_iter = 20 if d <= 166 else 3 if d <= 256 else 1
     betas, scat = chip_smoke.semitied_inputs(d, G, 7 + d, frames)
     b = torch.as_tensor(betas, dtype=torch.float64)
     s = torch.as_tensor(np.stack([scat, 2.0 * scat]), dtype=torch.float64)
     kernels.reset_counts()
-    got = hvar.semitied_blocks(b.to(cuda), s.to(cuda), 20)
+    got = hvar.semitied_blocks(b.to(cuda), s.to(cuda), n_iter)
     assert dict(kernels.launches) == {"semitied": 1}
-    want = hvar.semitied_blocks_plain(b, s, 20)
+    want = hvar.semitied_blocks_plain(b, s, n_iter)
     (ak, sk, xk), (ap, sp, xp) = [tuple(t.cpu() for t in o)
                                   for o in (got, want)]
     assert ((ak - ap).abs().amax((1, 2))
@@ -2287,6 +2297,83 @@ def test_k34_kernel_matches_plain(cuda, d, G, frames):
     assert ((sk - sp).abs() <= 1e-8 * sp).all()
     scale = chip_smoke.aux_scale(b, sp, xp)
     assert ((xk - xp).abs() <= 1e-12 * scale).all()
+
+
+def test_estimate_semitied_full_mgc_matches_the_cpu_path(cuda):
+    """`estimate_semitied(n_blocks={"mgc": 1})` on the HSMM lane's corpus
+    (`chip_smoke.hsmm_corpus`, D = 237: mgc's transform is 150 x 150) on
+    the card and on the CPU (`chip_smoke.semitied_full_card_vs_cpu`):
+    transforms within 1e-9 of max|A|, logdets 1e-9; K34 launched once a
+    stream, the mgc launch at d = 150."""
+    ms, utts = chip_smoke.hsmm_corpus(hsmm)
+    mono = [(f, list(seq)) for f, seq in utts]
+    kernels.reset_counts()
+    kernels.record = []
+    try:
+        chip_smoke.semitied_full_card_vs_cpu(ms, mono, (cuda, "cpu"))
+        rec = kernels.record
+    finally:
+        kernels.record = None
+    ds = [i["scatters"].shape[2] for n, i in rec if n == "semitied"]
+    assert kernels.launches["semitied"] == len(ms.streams)
+    assert 150 in ds
+
+
+@pytest.mark.parametrize("C,Kb,Tb", [(1, 1, 37), (2, 84, 130), (3, 85, 129),
+                                     (8, 132, 200), (2, 132, 256)])
+def test_k33_chain_tiles_match_plain(cuda, C, Kb, Tb):
+    """K33's chain mode at the WORLD width over state and frame counts
+    that leave its tiles partly filled (Kb 1, 85, 132; T of 37, 129, 130
+    and 200, not a multiple of its 64 frames, beside 256, which fills its
+    tiles) and C = 1, 2, 3, 8 (each C's own tile): within 1e-13
+    max(1, |ll|) of the twin, NaN where the twin's."""
+    inp = chip_smoke.mix_chain_inputs(hsmm, cuda, C=C, B=2, Tb=Tb, Kb=Kb,
+                                      seed=33 + Kb)
+    kernels.reset_counts()
+    got = hvar.batch_frame_loglik_mix(**inp)
+    assert dict(kernels.launches) == {"hsmm_mix_loglik": 1}
+    want = hvar.batch_frame_loglik_mix_plain(**inp)
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert ((got - want).abs()[fin]
+            <= 1e-13 * want.abs()[fin].clamp(min=1.0)).all()
+
+
+def test_k33_reuses_its_row_tables_across_launches(cuda):
+    """The row prologue's buffer is cached per mixture set: a second
+    launch on the same tables hits (the same buffer, equal results); an
+    in-place change of a variance table misses, and the result follows the
+    change (equal to the twin on the changed tables)."""
+    inp = chip_smoke.mix_chain_inputs(hsmm, cuda)
+    hvar._MIX_ROW_TABLES.clear()
+    first = hvar.batch_frame_loglik_mix(**inp)
+    assert len(hvar._MIX_ROW_TABLES) == 1
+    buf = next(iter(hvar._MIX_ROW_TABLES.values()))[1]
+    again = hvar.batch_frame_loglik_mix(**inp)
+    assert len(hvar._MIX_ROW_TABLES) == 1
+    assert next(iter(hvar._MIX_ROW_TABLES.values()))[1] is buf
+    assert torch.equal(torch.isnan(first), torch.isnan(again))
+    assert torch.equal(torch.nan_to_num(first), torch.nan_to_num(again))
+    inp["variances"][0].mul_(2.0)
+    changed = hvar.batch_frame_loglik_mix(**inp)
+    assert len(hvar._MIX_ROW_TABLES) == 2
+    want = hvar.batch_frame_loglik_mix_plain(**inp)
+    fin = torch.isfinite(want)
+    assert ((changed - want).abs()[fin]
+            <= 1e-13 * want.abs()[fin].clamp(min=1.0)).all()
+    assert not torch.equal(torch.nan_to_num(changed),
+                           torch.nan_to_num(first))
+
+
+def test_k33_quotient_is_the_division(cuda):
+    """The chain kernel's terms (1/v, then two corrections where its range
+    tests on x, mu and v pass, else the division) against IEEE division
+    bit for bit on 2e7 draws (`chip_smoke.quotient_check`: x, mu and v of
+    the test batch, and x, mu over 2^+-530 and v over 2^+-70 with special
+    values)."""
+    inp = chip_smoke.mix_chain_inputs(hsmm, cuda)
+    n, bad = chip_smoke.quotient_check(hvar, [inp])
+    assert n == 2 * chip_smoke.QUOT_DRAWS and bad == 0
 
 
 def test_variant_recipe_matches_the_cpu_path(cuda):
@@ -2337,10 +2424,6 @@ def test_variant_wrappers_reject_what_the_kernels_do_not_take(cuda):
         hvar.semitied_blocks(b, s[0], 2)               # not (J, G, d, d)
     with pytest.raises(ValueError):
         hvar.semitied_blocks(b[:-1], s, 2)
-    big = torch.ones((1, 200, 100, 100), dtype=torch.float64, device=cuda)
-    with pytest.raises(ValueError):                  # past shared memory
-        hvar.semitied_blocks(torch.ones(200, dtype=torch.float64,
-                                      device=cuda), big, 2)
 
 
 def _sptk_pitch(T, fs, seed=35):
