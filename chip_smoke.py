@@ -442,7 +442,8 @@ PATHS = {
 SPTK_KERNELS = ("excite", "band_fir", "mglsa_filter", "mcep_newton")
 # kernels also timed on the device alone, behind a sleep
 DEVICE_TIMED = SPTK_KERNELS + ("synth_time_base", "hsmm_loglik",
-                               "hsmm_mix_loglik", "semitied")
+                               "hsmm_mix_loglik", "semitied", "codec_encode",
+                               "d4c_band_sort")
 # the HSMM lane: RecipeConfig's defaults (models/recipe.py:45-47)
 HSMM_MODELS, HSMM_STATES, HSMM_MAX_DUR, HSMM_UTTS = 40, 5, 60, 128
 # the recipe lane: train_voice at RecipeConfig's defaults
@@ -2084,7 +2085,11 @@ def parity_lane(counted, profiled, feats, device="cuda", timed=ITERS):
         lane()
     sync()
     dt = time.perf_counter() - t0
-    wall, busy, _ = profiled(lane)
+    wall, busy, evs = profiled(lane)
+    top = ", ".join(f"{e.key[:40]} " + "{:.3f} ms x{}".format(getattr(
+        e, "self_device_time_total", getattr(e, "self_cuda_time_total",
+                                             0.0)) / 1e3, e.count)
+        for e in evs[:6])
     peak = 0.0
     if torch.device(device).type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -2292,8 +2297,8 @@ def parity_analysis_lane(counted, profiled, device="cuda", batch=BATCH,
     Harvest in float64; then CheapTrick and D4C on the reseeded streams):
     counted and recorded, stage ms, audio-s/s over `timed` batches after
     one warm batch, the idle share of one batch under the profiler and
-    its peak device memory.  Returns (counts, recorded launches, (t, f0,
-    sp, ap))."""
+    its peak device memory and top kernels.  Returns (counts, recorded
+    launches, (t, f0, sp, ap))."""
     import torch
     from hts_train_world_tpu_torch.parallel import batch as batch_mod
     xs = torch.as_tensor(corpus(batch, int(FS * dur)), dtype=torch.float64,
@@ -2358,7 +2363,11 @@ def parity_analysis_lane(counted, profiled, device="cuda", batch=BATCH,
         lane()
     sync()
     dt = time.perf_counter() - t0
-    wall, busy, _ = profiled(lane)
+    wall, busy, evs = profiled(lane)
+    top = ", ".join(f"{e.key[:40]} " + "{:.3f} ms x{}".format(getattr(
+        e, "self_device_time_total", getattr(e, "self_cuda_time_total",
+                                             0.0)) / 1e3, e.count)
+        for e in evs[:6])
     peak = 0.0
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -2372,9 +2381,10 @@ def parity_analysis_lane(counted, profiled, device="cuda", batch=BATCH,
           f"{timed} batches ({1e3 * dt / timed:.1f} ms a batch); stages "
           + ", ".join(f"{n} {v:.1f} ms" for n, v in stage_ms.items())
           + f"; under the profiler {1e3 * wall:.1f} ms, device busy "
-          f"{1e3 * busy:.1f} ms, idle {100 * (1 - busy / wall):.1f}%; peak "
-          f"device memory of a batch {peak:.2f} GiB; voiced rate "
-          f"{voiced:.3f}, median f0 {med:.1f} Hz", flush=True)
+          f"{1e3 * busy:.1f} ms, idle {100 * (1 - busy / wall):.1f}%; top "
+          f"kernels: {top or 'none'}; peak device memory of a batch "
+          f"{peak:.2f} GiB; voiced rate {voiced:.3f}, median f0 {med:.1f} "
+          f"Hz", flush=True)
     if not (0.8 <= voiced <= 1.0 and 150.0 <= med <= 250.0):
         raise RuntimeError("parity analysis lane: implausible V/UV rate or "
                            "f0")
@@ -3200,6 +3210,163 @@ def sptk_copy_lane(counted, sigs, fs, device="cuda", cpu="cpu"):
         raise RuntimeError("SPTK copy-synthesis: the card disagrees with "
                            "the CPU path, or a silent waveform")
     return counts, rec
+
+
+def library_whole(key, inp):
+    """The whole job of K23, K2 in float64, K32 in float64 and K35 in
+    PyTorch library calls, where `library` in `main` times only a part
+    of it: (the call, a check of its outputs against the kernel's that
+    returns (passed, text naming its bound)), or None for another
+    kernel.  Timed beside the kernel; used nowhere in the port."""
+    import torch
+    import torch.nn.functional as tnf
+    name = key.split("[", 1)[0]
+    f64 = key.endswith("[f64]")
+    if name == "gv_scale":
+        # torch.var_mean and the rescale; lf0's rows under its mask
+        x, gv, w, mask = (inp["statics"], inp["gv_mean"], inp["weight"],
+                          inp["mask"])
+
+        def scaled():
+            xs = x if mask is None else x[mask]
+            var, mu = torch.var_mean(xs, dim=0, correction=0)
+            y = mu + (gv / var.clamp(min=1e-12)).sqrt().pow(w) * (xs - mu)
+            if mask is None:
+                return y
+            return x.index_put((mask,), y) if xs.shape[0] > 2 else x.clone()
+
+        def check(out, out_k):
+            k = out_k[0]
+            worst = float(((out - k).abs().amax(0)
+                           / k.abs().amax(0).clamp(min=1e-300)).max())
+            return worst <= 1e-9, (f"worst |err| / column max {worst:.1e} "
+                                   f"<= 1e-9")
+        return scaled, check
+    if name == "spectral_smooth" and f64:
+        # the DC correction as the replica of the row's own bins, the
+        # mirror with the static extent, one torch.cumsum, the two
+        # shifted lerps and their difference (the fast forms' order)
+        from hts_train_world_tpu_torch.ops import prims
+        ps, fs, N = inp["ps"], inp["fs"], inp["fft_size"]
+
+        def smoothed():
+            y = ps
+            if inp["f0"] is not None:
+                y = prims._dc_correction_plain(y, inp["f0"], fs, N,
+                                               inp["ul_max"])
+            if inp["width"] is not None:
+                y = prims._linear_smoothing_plain(y, inp["width"], fs, N,
+                                                  inp["b_max"])
+            return y
+
+        def check(out, out_k):
+            k = out_k[0]
+            worst = float(((out - k).abs().amax(1)
+                           / k.abs().amax(1).clamp(min=1e-300)).max())
+            return worst <= 1e-9, (f"worst row |err| / row max {worst:.1e} "
+                                   f"<= 1e-9 (another mirror and order)")
+        return smoothed, check
+    if name == "harvest_detect" and f64:
+        # the runs of >= 10 voiced channels by shifted masks, compacted by
+        # a stable torch.sort, their means from one float64 torch.cumsum,
+        # the counts, then the 7-block overlap by torch.gather
+        raw, cap = inp["raw"], inp["nc_cap"]
+
+        def compact(mask, n):
+            idx = torch.sort((~mask).to(torch.uint8), dim=-1,
+                             stable=True).indices
+            return tnf.pad(idx, (0, max(0, n - idx.shape[-1])))[..., :n]
+
+        def detected():
+            col = raw.transpose(1, 2)
+            B, T, C = col.shape
+            v = col > 0
+            v[..., 0] = False
+            v[..., -1] = False
+            st = v & ~tnf.pad(v[..., :-1], (1, 0))
+            ed = v & ~tnf.pad(v[..., 1:], (0, 1))
+            rc = C // 2 + 1
+            s0, e1 = compact(st, rc), compact(ed, rc) + 1
+            ok = ((torch.arange(rc, device=raw.device)
+                   < st.sum(-1, keepdim=True)) & (e1 - s0 >= 10))
+            cs = tnf.pad(torch.cumsum(col, -1, dtype=torch.float64), (1, 0))
+            means = (cs.gather(-1, e1) - cs.gather(-1, s0)) \
+                / (e1 - s0).clamp(min=1)
+            k = ok.sum(-1, keepdim=True)
+            cand = torch.where(torch.arange(cap, device=raw.device) < k,
+                               means.gather(-1, compact(ok, cap).clamp(
+                                   max=rc - 1)), 0.0)
+            nc = k[..., 0].amax(1)
+            cols = torch.arange(cap, device=raw.device)[None]
+            ncb = nc.clamp(min=1)[:, None]
+            blk = cols // ncb
+            sh = torch.where(blk <= 3, blk, 3 - blk)
+            src = torch.arange(T, device=raw.device)[None, :, None] \
+                - sh[:, None, :]
+            live = (blk < 7)[:, None, :] & (src >= 0) & (src < T)
+            flat = (src.clamp(0, T - 1) * cap
+                    + (cols - blk * ncb)[:, None, :]).reshape(B, -1)
+            g = cand.reshape(B, -1).gather(1, flat).reshape(B, T, cap)
+            return torch.where(live, g, 0.0), nc
+
+        def check(out, out_k):
+            (o, nc), (ok_, nck) = out, out_k
+            rel = float(((o - ok_).abs() / ok_.abs().clamp(min=1e-300))
+                        .max())
+            same = bool(torch.equal(nc, nck.to(nc.dtype))
+                        and torch.equal(o > 0, ok_ > 0))
+            return rel <= 1e-12 and same, (
+                f"counts and non-zero places equal: {same}; candidates rel "
+                f"{rel:.1e} <= 1e-12")
+        return detected, check
+    if name == "excite":
+        # lf0 -> period by torch.exp, the per-sample lerp, torch.cumsum
+        # (not XLA's order), torch.cummax of the onset bases, the pulses
+        # (torch.sqrt) and the noise where unvoiced
+        from hts_train_world_tpu_torch.ops import excitation as ex
+        pitch, shift, noise, sr = (inp["pitch"], inp["shift"], inp["noise"],
+                                   inp.get("sr"))
+
+        def excited():
+            per = (torch.where(pitch == ex.MAGIC, 0.0, sr / torch.exp(pitch))
+                   if sr else pitch)
+            T = per.shape[0]
+            pos = torch.arange((T - 1) * shift, dtype=per.dtype,
+                               device=per.device) / shift
+            i0 = pos.floor().long().clamp(0, T - 2)
+            p0, p1 = per[i0], per[i0 + 1]
+            p = torch.where((p0 > 0) & (p1 > 0),
+                            p0 + (p1 - p0) * (pos - i0.to(per.dtype)), p0)
+            voiced = p > 0
+            freq = torch.where(voiced, 1.0 / p.clamp(min=ex.PITCH_FLOOR),
+                               0.0)
+            raw = torch.cumsum(freq, 0)
+            onset = voiced & ~tnf.pad(voiced[:-1], (1, 0))
+            base = torch.cummax(torch.where(onset, raw - freq, 0.0),
+                                0).values
+            ph = (raw - base).floor()
+            fired = ph > tnf.pad(ph[:-1], (1, 0))
+            pulse = torch.where(voiced & fired,
+                                p.clamp(min=ex.PITCH_FLOOR).sqrt(), 0.0)
+            return torch.where(voiced, pulse, noise), voiced
+
+        def check(out, out_k):
+            (y, v), (yk, vk) = out, out_k
+            at, at_k = v & (y != 0), vk & (yk != 0)
+            pulses = int(at_k.sum())
+            moved = int((at != at_k).sum())
+            both = at & at_k
+            rel = float(((y - yk).abs() / yk.abs())[both].max()) \
+                if bool(both.any()) else 0.0
+            same = bool(torch.equal(v, vk)
+                        and torch.equal(y[~vk], yk[~vk]))
+            ok = same and moved <= 0.02 * pulses + 2 and rel <= 1e-9
+            return ok, (f"voiced and noise equal: {same}; {moved} pulse "
+                        f"places differ <= 2 % of the kernel's {pulses} "
+                        f"pulses + 2 (another exp and scan order); heights "
+                        f"rel {rel:.1e} <= 1e-9")
+        return excited, check
+    return None
 
 
 def main() -> int:
@@ -4321,14 +4488,14 @@ def main() -> int:
         """The parity analysis' float64 kernels against their twins on
         the card (sums in other orders, so within a few float64
         roundings of the scale they round at); K31 bit for bit against its
-        twin on the CPU (the same values sorted, the same sequential
-        sum)."""
+        twin on the CPU (the same values sorted, the same blocked sum in
+        jnp.cumsum's order)."""
         if base == "d4c_band_sort":
             num_c, den_c = d4c_mod.band_sort_sums_plain(**on_cpu(inp))
             same = bit_same(out_k[0], num_c) and bit_same(out_k[1], den_c)
             return (same, max_err(zip(out_k, (num_c, den_c))),
-                    f"bit-equal to the plain version on the CPU "
-                    f"(sort + sequential sum): {same}")
+                    f"bit-equal to the plain version on the CPU (sort + "
+                    f"XLA's blocked sum, blocks of 16 in parallel): {same}")
         if base == "frame_window":
             pairs = [((k - p).abs(), p) for k, p in zip(out_k, out_p)
                      if p is not None]
@@ -4765,6 +4932,14 @@ def main() -> int:
         lib_ms = cuda_ms(lib, reps=10, warm=2) if lib else None
         lib2 = library_gathered(name, inp)
         lib2_ms = cuda_ms(lib2, reps=10, warm=2) if lib2 else None
+        whole = library_whole(name, inp)
+        lib3_ms, lib3_text = None, None
+        if whole is not None:
+            ok3, lib3_text = whole[1](whole[0](), out_k)
+            if not ok3:
+                raise RuntimeError(f"{name}: the whole-job library line "
+                                   f"disagrees with the kernel: {lib3_text}")
+            lib3_ms = cuda_ms(whole[0], reps=10, warm=2)
         base = kernels.base_name(name)
         outs = (out_k[:2] if base == "dio_candidates"
                 else out_k[:1] if base in ("harvest_candidates",
@@ -4780,15 +4955,17 @@ def main() -> int:
               + f", plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})"
               + (f", library {lib_ms:.4f} ms" if lib_ms is not None else "")
               + (f", library with its gather {lib2_ms:.4f} ms"
-                 if lib2_ms is not None else ""),
+                 if lib2_ms is not None else "")
+              + (f", whole-job library {lib3_ms:.4f} ms ({lib3_text})"
+                 if lib3_ms is not None else ""),
               flush=True)
         if not ok:
             raise RuntimeError(f"{name}: kernel disagrees with its plain "
                                f"version (max abs err {err:.3e})")
         s = summary.setdefault(name, dict(err=0.0, ms=0.0, plain_ms=0.0,
                                           bound_ms=0.0, lib_ms=None,
-                                          lib2_ms=None, dev_ms=None,
-                                          by={}))
+                                          lib2_ms=None, lib3_ms=None,
+                                          dev_ms=None, by={}))
         s["err"] = max(s["err"], err)
         if path != primary(name):
             return
@@ -4800,6 +4977,8 @@ def main() -> int:
             s["lib_ms"] = (s["lib_ms"] or 0.0) + lib_ms
         if lib2_ms is not None:
             s["lib2_ms"] = (s["lib2_ms"] or 0.0) + lib2_ms
+        if lib3_ms is not None:
+            s["lib3_ms"] = (s["lib3_ms"] or 0.0) + lib3_ms
         if dev_ms is not None:
             s["dev_ms"] = (s["dev_ms"] or 0.0) + dev_ms
 
@@ -6060,6 +6239,7 @@ def main() -> int:
          "bound_ms": s["bound_ms"], "bound_by": max(s["by"], key=s["by"].get),
          "library_ms": s["lib_ms"], "device_ms": s.get("dev_ms"),
          "library_gathered_ms": s.get("lib2_ms"),
+         "library_whole_ms": s.get("lib3_ms"),
          "launches_by_path": {p: c.get(name, 0) for p, c in by_path.items()}}
         for name, s in summary.items()]}
     print(json.dumps(line))

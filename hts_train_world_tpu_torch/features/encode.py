@@ -11,10 +11,11 @@ over leading axes:
 - lf0: log f0 where voiced, else 0.
 
 The two spectral encodes run as kernel K6 (csrc/codec_encode.cu): one
-launch reads sp and ap once, floors and scales them, takes the log, lerps
-onto the mel axis and applies the DCT, writing mgc and bap with their c0
-fixes, in float32 (the feature lane) or float64 (the `analysis` command's
-parity output, as the JAX CLI encodes under x64).  `encode_spectra_plain`
+launch reads sp and ap once, floors and scales them, takes the log of each
+bin the mel axis reads, lerps onto the mel axis and applies the DCT as a
+tiled product, writing mgc and bap with their c0 fixes, in float32 (the
+feature lane) or float64 (the `analysis` command's parity output, as the
+JAX CLI encodes under x64).  `encode_spectra_plain`
 is its plain twin (`ops/codec.py`), which runs for CPU tensors.
 """
 from __future__ import annotations
@@ -54,20 +55,37 @@ def encode_spectra_limit(mgc, bap):
     return lim(mgc, mgc[..., 0] - 12.0), lim(bap, bap[..., 0] + LN_1E4)
 
 
+# K6's mel entries a chunk (KC in csrc/codec_encode.cu; the launcher
+# refuses another)
+ENCODE_CHUNK = 32
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_tables(fs: int, fft_size: int, mgc_dim: int, bap_dim: int,
                    dtype, device):
-    """K6's tables on the card: k (int32), s and the DCT matrices
-    transposed to (n_dims, M), rows contiguous along the mel axis, in
-    `dtype` (copies: nothing here shares the cached numpy tables)."""
+    """K6's tables on the card: the distinct source bins the mel axis
+    reads (int32), each mel entry's two bins as positions among them
+    (int32 (2, M)), s, the DCT matrices (M, n_dims) zero-padded to a
+    multiple of 8 columns, in `dtype` (copies: nothing here shares the
+    cached numpy tables), and the most of those bins that a chunk of
+    ENCODE_CHUNK mel entries reads."""
     k, s, dm = codec._coding_tables(fs, fft_size, mgc_dim)
     kb, sb, db = codec._coding_tables(fs, fft_size, bap_dim)
     assert np.array_equal(k, kb) and np.array_equal(s, sb)
+    M = fft_size // 2
+    lo, hi = k - 1, np.minimum(k, M)
+    bins = np.unique(np.concatenate([lo, hi]))
+    iu = np.stack([np.searchsorted(bins, lo), np.searchsorted(bins, hi)])
+    first = np.arange(0, M, ENCODE_CHUNK)
+    last = np.minimum(first + ENCODE_CHUNK, M) - 1
+    nb_max = int((iu[1, last] - iu[0, first] + 1).max())
     fl = dict(dtype=dtype, device=device)
-    return (torch.tensor(k, dtype=torch.int32, device=device),
-            torch.tensor(s, **fl),
-            torch.tensor(np.ascontiguousarray(dm.T), **fl),
-            torch.tensor(np.ascontiguousarray(db.T), **fl))
+
+    def padded(d):
+        return torch.tensor(np.pad(d, ((0, 0), (0, -d.shape[1] % 8))), **fl)
+    return (torch.tensor(bins, dtype=torch.int32, device=device),
+            torch.tensor(iu, dtype=torch.int32, device=device),
+            torch.tensor(s, **fl), padded(dm), padded(db), nb_max)
 
 
 def encode_spectra(sp, ap, fs: int, fft_size: int, mgc_dim: int = 50,
@@ -85,15 +103,16 @@ def encode_spectra(sp, ap, fs: int, fft_size: int, mgc_dim: int = 50,
     lead = sp.shape[:-1]
     sp2 = sp.reshape(-1, n).contiguous()
     ap2 = ap.reshape(-1, n).contiguous()
-    k, s, dm, db = _kernel_tables(fs, fft_size, mgc_dim, bap_dim, dt,
-                                  sp.device)
-    kernels.check_cuda("encode_spectra", sp2, ap2, k, s, dm, db)
+    bins, iu, s, dm, db, nb_max = _kernel_tables(fs, fft_size, mgc_dim,
+                                                 bap_dim, dt, sp.device)
+    kernels.check_cuda("encode_spectra", sp2, ap2, bins, iu, s, dm, db)
     R = sp2.shape[0]
     mgc = torch.empty((R, mgc_dim), dtype=dt, device=sp.device)
     bap = torch.empty((R, bap_dim), dtype=dt, device=sp.device)
     kernels.launch("codec_encode", [
-        sp2.data_ptr(), ap2.data_ptr(), R, n, k.data_ptr(), s.data_ptr(),
-        fft_size // 2, dm.data_ptr(), mgc_dim, db.data_ptr(), bap_dim,
+        sp2.data_ptr(), ap2.data_ptr(), R, n, bins.data_ptr(), iu.data_ptr(),
+        s.data_ptr(), fft_size // 2, ENCODE_CHUNK, nb_max, dm.data_ptr(),
+        mgc_dim, dm.shape[1], db.data_ptr(), bap_dim, db.shape[1],
         int(f64), mgc.data_ptr(), bap.data_ptr()],
         dict(sp=sp, ap=ap, fs=fs, fft_size=fft_size, mgc_dim=mgc_dim,
              bap_dim=bap_dim), variant="f64" if f64 else None)

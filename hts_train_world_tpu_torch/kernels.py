@@ -57,8 +57,8 @@ KERNELS = {
                        [_P, _I, _I, _I, _I, _P, _P, _D, _D, _D, _I, _D, _I,
                         _I, _P, _P, _P, _P, _P]),
     "codec_encode": ("codec_encode.cu", "codec_encode_launch",
-                     [_P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _I, _P,
-                      _P]),
+                     [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _I, _I,
+                      _P, _I, _I, _I, _P, _P]),
     "delta_window": ("delta_window.cu", "delta_window_launch",
                      [_P, _I, _I, _I, _P, _P, _I, _I, _I, _P]),
     "mlpg_solve": ("mlpg_solve.cu", "mlpg_solve_launch",

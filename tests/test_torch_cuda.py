@@ -2127,12 +2127,71 @@ def test_k6_float64_matches_plain(cuda, fs):
         assert torch.allclose(g.cpu(), w, rtol=0, atol=1e-10)
 
 
+@pytest.mark.parametrize("H", [5, 17, 1025, 2049, 3000])
+def test_k31_bit_equal_to_cpu_twin(cuda, H):
+    """K31 (a register sort of the first 2^k keys, the last merged by its
+    rank, the blocked sum) bit for bit against its twin run on the CPU:
+    H = 2^k + 1 and 3000 (padded to a power of two), R = 1 and 37 rows,
+    NaN rows of either sign, a row of ties, signed zeros, a last key
+    that ties, and i_num at 0, 15, 16 and H - 1."""
+    rng = np.random.default_rng(H)
+    for R in (1, 37):
+        p = 10.0 ** rng.uniform(-6, 3, (R, H))
+        if R > 1:
+            p[1, H // 2] = np.nan
+            p[2, 0] = -np.nan
+            p[2, -1] = np.nan
+            p[3] = 0.75
+            p[4, ::2] = -0.0
+            p[4, 1::4] = 0.0
+            p[5, -1] = p[5, 0]
+            p[6, :] = np.nan
+        pt = torch.as_tensor(p)
+        for i_num in sorted({0, 15 % H, 16 % H, H - 1}):
+            got = d4c_mod.band_sort_sums(pt.to(cuda), i_num)
+            want = d4c_mod.band_sort_sums_plain(pt, i_num)
+            for g, w in zip(got, want):
+                g = g.cpu()
+                assert torch.equal(torch.isnan(g), torch.isnan(w))
+                fin = ~torch.isnan(w)
+                assert torch.equal(g[fin].view(torch.int64),
+                                   w[fin].view(torch.int64)), (R, i_num)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("fs", [16000, 22050, 44100, 48000])
+def test_k6_tiled_matches_plain(cuda, fs, dtype):
+    """K6's tiled product at R = 1, 7, 121 (the `analysis` command's
+    frames) and 6416 (the parity lane's), sp with zero bins, at mgc 50 /
+    bap 25 and, at R = 121, 70 / 5 (two coefficient blocks for mgc):
+    float32 within encode_spectra_limit, float64 within 1e-10 of the
+    twin."""
+    N = cfg.cheaptrick_fft_size(fs)
+    rng = np.random.default_rng(fs + 6)
+    for R, dims in ((1, ()), (7, ()), (121, ()), (121, (70, 5)),
+                    (6416, ())):
+        sp = np.exp(rng.normal(size=(R, N // 2 + 1)) * 3)
+        sp[rng.random(sp.shape) < 0.05] = 0.0
+        sp[0, :9] = 0.0
+        ap = rng.uniform(1e-3, 1.0, sp.shape)
+        sp, ap = (torch.as_tensor(a, dtype=dtype, device=cuda)
+                  for a in (sp, ap))
+        got = encode.encode_spectra(sp, ap, fs, N, *dims)
+        want = encode.encode_spectra_plain(sp, ap, fs, N, *dims)
+        lims = (encode.encode_spectra_limit(*want) if dtype == torch.float32
+                else (1e-10, 1e-10))
+        for g, w, lim in zip(got, want, lims):
+            assert g.dtype == dtype and g.shape == w.shape
+            assert ((g - w).abs() <= lim).all(), (R, float((g - w).abs()
+                                                          .max()))
+
+
 def test_k24_to_k27_and_k31_float64_match_plain(cuda):
     """The parity body's float64 stages against their twins: K24 at
     stride 1, K25's noisy log with the absolute floor and its lifter and
     exp, K26's four stages, K27 in numerator mode and K31 (bit-equal to
-    its twin run on the CPU: the same values sorted, the same sequential
-    sum; a row with a NaN too)."""
+    its twin run on the CPU: the same values sorted, the same blocked sum
+    in jnp.cumsum's order; a row with a NaN too)."""
     rng = np.random.default_rng(24)
     f64 = dict(dtype=torch.float64, device=cuda)
     R, H = 50, 1025

@@ -16,6 +16,7 @@ at 1e-12 of each row's largest value, CheapTrick on its stream at rel
 `copy_synthesis` at their default (parity) against the JAX package's,
 the `analysis` command's float32 files, and the pipeline at parity=True.
 """
+import functools
 import os
 
 import jax
@@ -226,7 +227,8 @@ def test_d4c_parity_matches_jax(jax_runs, fs):
 @pytest.mark.parametrize("fs", [16000, 48000])
 def test_band_sort_sums_match_jax_coarse_aperiodicity(fs):
     """K31's twin: each band's power sorted ascending (IEEE totalOrder)
-    and summed in sequence; the coarse dB from its two sums against
+    and summed in jnp.cumsum's blocked order; the coarse dB from its two
+    sums against
     `_coarse_aperiodicity` on the same group-delay rows at 1e-12."""
     rng = np.random.default_rng(2)
     fft_d = cfg.d4c_fft_size(fs)
@@ -248,7 +250,9 @@ def test_band_sort_sums_match_jax_coarse_aperiodicity(fs):
 
 def test_band_sort_sums_nan_and_order_as_jax():
     """A NaN of either sign sorts last (den is NaN, num is not); signed
-    zeros and ties sum alike: the same as jnp.sort + jnp.cumsum."""
+    zeros and ties sum alike: the same as jnp.sort + jnp.cumsum.  Rows of
+    5 values lie inside one of XLA's scan blocks of 16, where the blocked
+    order is the sequential one (the tests below take longer rows)."""
     rows = np.array([[3.0, np.nan, 1.0, 2.0, 0.5],
                      [3.0, -np.nan, 1.0, 2.0, 0.5],
                      [0.0, -0.0, 2.0, 2.0, 1.0]])
@@ -257,6 +261,96 @@ def test_band_sort_sums_nan_and_order_as_jax():
     np.testing.assert_array_equal(num.numpy(), c[:, 2])
     np.testing.assert_array_equal(den.numpy(), c[:, -1])
     assert np.isnan(den[:2]).all() and not np.isnan(num[:2]).any()
+
+
+# K31's entries: the first and last of a scan block, the next block's
+# first, a block's middle, half - boundary - 1 of 16 and 48 kHz, H - 1
+BAND_SORT_ENTRIES = {"0": 0, "15": 15, "16": 16, "mid": 16 * 7 + 8,
+                     "16k": 1002, "48k": 1983, "last": -1}
+
+
+@functools.lru_cache(maxsize=None)
+def _band_rows(H: int):
+    """Seeded power rows of width H over nine decades (sums whose order
+    shows in the last bits), then a row with a NaN, one with a -NaN, one
+    of signed zeros and ties, one all ties; and JAX's jitted
+    jnp.cumsum(jnp.sort(p)) of them."""
+    rng = np.random.default_rng(H)
+    rows = 10.0 ** rng.uniform(-6, 3, (40, H))
+    rows[0, 7] = np.nan
+    rows[1, H // 3] = -np.nan
+    rows[2, ::3] = -0.0
+    rows[2, 1::3] = 0.0
+    rows[2, 2::6] = 2.5
+    rows[3] = 0.125
+    c = np.asarray(jax.jit(lambda p: jnp.cumsum(jnp.sort(p, axis=1),
+                                                axis=1))(jnp.asarray(rows)))
+    return rows, c
+
+
+def _kernel_reading_sums(p, i_num: int):
+    """K31's reading of a row of H = 2^k + 1 values, written out on the
+    CPU: the first 2^k keys sorted, the last key placed at its rank (the
+    count of sorted keys at or below it), the merged sequence read by
+    index arithmetic (sorted[j] below the rank, sorted[j - 1] above it),
+    and c[i] as the kernel takes it: the sequential prefix of i's block
+    of 16, plus the blocked scan of the block totals before it (+0.0 in
+    block 0)."""
+    R, H = p.shape
+    keys = d4c._sort_keys(p)
+    head, _ = torch.sort(keys[:, :H - 1], dim=1)
+    last = keys[:, H - 1:]
+    rank = (head <= last).sum(1, keepdim=True)
+    j = torch.arange(H)[None, :]
+    src = torch.where(j < rank, j, j - 1).clamp(0, H - 2)
+    merged = torch.where(j == rank, last, torch.gather(head, 1, src))
+    vals = torch.where(merged < 0, merged ^ 0x7FFFFFFFFFFFFFFF,
+                       merged).view(torch.float64)
+    nb = -(-H // 16)
+    local = torch.cumsum(torch.nn.functional.pad(vals, (0, 16 * nb - H))
+                         .reshape(R, nb, 16), dim=-1)
+    totals = prims.xla_cumsum(local[..., -1])
+
+    def at(i):
+        b = i // 16
+        return local[:, b, i % 16] + (totals[:, b - 1] if b else 0.0)
+    return at(i_num), at(H - 1)
+
+
+@pytest.mark.parametrize("entry", list(BAND_SORT_ENTRIES))
+@pytest.mark.parametrize("H", [1025, 2049])
+def test_band_sort_sums_bit_equal_to_jax_blocked_order(H, entry):
+    """K31's twin against JAX's jitted jnp.cumsum(jnp.sort(p)) bit for bit
+    at i_num and at H - 1, on rows longer than XLA's scan block (where a
+    sequential sum parts from it in the last bits), NaN rows of either
+    sign, signed zeros and ties included (NaN where JAX's is)."""
+    rows, c = _band_rows(H)
+    i_num = BAND_SORT_ENTRIES[entry] % H
+    num, den = d4c.band_sort_sums_plain(_t(rows), i_num)
+    np.testing.assert_array_equal(num.numpy(), c[:, i_num])
+    np.testing.assert_array_equal(den.numpy(), c[:, -1])
+    assert np.isnan(den[:2].numpy()).all()
+    assert not np.isnan(den[2:].numpy()).any()
+
+
+@pytest.mark.parametrize("H", [17, 1025, 2049])
+def test_band_sort_kernel_reading_matches_twin(H):
+    """The kernel's merged-sequence reading and blocked sum, written out
+    (`_kernel_reading_sums`), equal the twin bit for bit at every entry
+    of BAND_SORT_ENTRIES, NaN rows, signed zeros and ties included."""
+    rows = _t(_band_rows(1025)[0][:, :H] if H <= 1025
+              else _band_rows(H)[0])
+    rows[4, -1] = rows[4, 0]          # the last key ties a sorted one
+    rows[5, -1] = float("nan")        # the last key is a NaN
+    rows[6, -1] = -0.0
+    for i_num in sorted({v % H for v in BAND_SORT_ENTRIES.values()}):
+        for got, want in zip(_kernel_reading_sums(rows, i_num),
+                             d4c.band_sort_sums_plain(rows, i_num)):
+            np.testing.assert_array_equal(got.numpy(), want.numpy())
+            assert torch.equal(torch.isnan(got), torch.isnan(want))
+            fin = ~torch.isnan(want)
+            assert torch.equal(got[fin].view(torch.int64),
+                               want[fin].view(torch.int64))
 
 
 def _raw_scale(coded, c0_offset):
