@@ -68,7 +68,7 @@ Drives the port's paths at full size on a corpus made from a seed:
   iterations) besides every stage of the recipe lane, and SEMIT with
   mgc's full 150 x 150 transform.
 
-Thirty-eight kernels, K1-K38, are built, driven and held to their twins;
+Forty kernels, K1-K40, are built, driven and held to their twins;
 K9-K12 and K30 also in float64 for the parity synthesis, K1, K2, K4-K6
 and K24-K27 in float64 for the parity analysis, K13-K16 and K32 in
 float64 for its Harvest, and K9 in its chunk mode (the streaming
@@ -81,11 +81,15 @@ Phases (any failure raises):
 2. run each path once with the launch counts set to 0 just before it and
    read just after (copy-synthesis, the feature lane, the synth lane and
    the Harvest lane also record each kernel's inputs); fail if a kernel of
-   the path was not launched, or if the outputs are not finite, in range
+   the path was not launched, if a table DFT (`fftmat`'s matmul twins of
+   K39/K40) ran on the card, or if the outputs are not finite, in range
    and plausible;
 3. replay every recorded launch through the kernel and its plain PyTorch
    version on the same inputs and hold them within the stated tolerance
-   (K5, K8 and K14 also against float64 references; K9 and K11 bit for
+   (K5, K8 and K14 also against float64 references; K39 and K40 against a
+   float64 torch.fft of the same rows, within 1e-6 of each element's
+   scale (its row's norm plus its magnitude) and no farther from it than
+   the table twin; K9 and K11 bit for
    bit against the plain version run on the CPU, K11 also across two
    launches; K32 bit for bit against its plain version on the CPU); time
    kernel, plain version, bound and, where one exists,
@@ -358,18 +362,26 @@ REPLACES = {
     "band_fir": ("K36", "hts_train_world_tpu/ops/excitation.py:91"),
     "mglsa_filter": ("K37", "hts_train_world_tpu/ops/excitation.py:110"),
     "mcep_newton": ("K38", "hts_train_world_tpu/ops/sptk.py:116"),
+    # the per-frame and per-pulse DFTs (the table matmuls of fftmat.py)
+    "fft_r2c": ("K39", "hts_train_world_tpu/ops/fftmat.py:71"),
+    "fft_c2r": ("K40", "hts_train_world_tpu/ops/fftmat.py:106"),
 }
 BODY = ("cheaptrick_lifter", "d4c_group_delay", "d4c_aperiodicity")
+# the float32 paths' DFTs (StoneMask, CheapTrick, D4C, synthesis)
+FFT = ("fft_r2c", "fft_c2r")
 PARITY_ANALYSIS = tuple(f"{k}[f64]" for k in (
     "frame_window", "spectral_smooth", "fix_f0", "dio_candidates",
     "stonemask_if") + BODY) + ("d4c_band_sort",)
 ANALYSIS = ("frame_window", "spectral_smooth", "topk_sum", "fix_f0",
-            "dio_candidates", "stonemask_if") + BODY
-SYNTHESIS = ("synth_time_base", "synth_pulse_spectra", "synth_midpass",
-             "synth_ola")
+            "dio_candidates", "stonemask_if") + BODY + FFT
+# synthesis' kernels in both types; the float32 path adds the DFTs
+SYNTH_BODY = ("synth_time_base", "synth_pulse_spectra", "synth_midpass",
+              "synth_ola")
+SYNTHESIS = SYNTH_BODY + FFT
 HARVEST_F0 = ("harvest_decimate", "harvest_candidates", "harvest_detect",
               "harvest_refine", "harvest_contour")
-HARVEST = HARVEST_F0 + ("frame_window", "spectral_smooth", "topk_sum") + BODY
+HARVEST = HARVEST_F0 + ("frame_window", "spectral_smooth",
+                        "topk_sum") + BODY + FFT
 # the parity analysis with Harvest: K13-K16 and K32 in float64, then
 # CheapTrick and D4C as in the parity analysis
 PARITY_HARVEST = tuple(f"{k}[f64]" for k in HARVEST_F0 + (
@@ -416,9 +428,9 @@ PATHS = {
     # the parity lane: decode and the exact path in float64, the synth
     # CLI at its default, the streaming synthesizer (K9's chunk mode)
     "parity_lane": ("codec_decode[f64]",) + tuple(f"{k}[f64]"
-                                                  for k in SYNTHESIS),
+                                                  for k in SYNTH_BODY),
     "parity_cli": ("codec_decode[f64]",) + tuple(f"{k}[f64]"
-                                                 for k in SYNTHESIS),
+                                                 for k in SYNTH_BODY),
     "streaming": ("synth_time_base[chunk]", "synth_pulse_spectra[f64]",
                   "synth_midpass[f64]", "synth_ola[f64]"),
     # the parity analysis lane: DIO, StoneMask's bucket path, CheapTrick
@@ -441,9 +453,9 @@ PATHS = {
 }
 SPTK_KERNELS = ("excite", "band_fir", "mglsa_filter", "mcep_newton")
 # kernels also timed on the device alone, behind a sleep
-DEVICE_TIMED = SPTK_KERNELS + ("synth_time_base", "hsmm_loglik",
-                               "hsmm_mix_loglik", "semitied", "codec_encode",
-                               "d4c_band_sort")
+DEVICE_TIMED = SPTK_KERNELS + FFT + ("synth_time_base", "hsmm_loglik",
+                                     "hsmm_mix_loglik", "semitied",
+                                     "codec_encode", "d4c_band_sort")
 # the HSMM lane: RecipeConfig's defaults (models/recipe.py:45-47)
 HSMM_MODELS, HSMM_STATES, HSMM_MAX_DUR, HSMM_UTTS = 40, 5, 60, 128
 # the recipe lane: train_voice at RecipeConfig's defaults
@@ -1278,7 +1290,12 @@ PIPELINE_TINY_HALGN = dict(n_states=5, n_iters=2, tied_iters=1,
 # streams (lf0 and vib where both are voiced): about four times the largest
 # read on an H100 (4.77e-07, 1.31e-06, 6.68e-06 and 3.81e-06)
 PIPELINE_TINY_MAX = dict(lf0=2e-6, vib=5e-6, mgc=3e-5, bap=2e-5)
-
+# vib is `vibrato.extract` of lf0 on the host, where the two runs' lf0
+# differ by one float32 ulp in some frames: a vib frame may then differ by
+# up to this many times what those moves explain there (`vib_witness`:
+# the sum of |d vib| that each lone move makes, the first-order shift),
+# where that is more than PIPELINE_TINY_MAX's vib
+VIB_EXPLAINED_SLACK = 1.25
 
 def pipeline_tiny_corpus(wd, wavio, fs=16000):
     """tests/test_torch_pipeline.py's make_corpus."""
@@ -1513,6 +1530,94 @@ def pipeline_lane(counted, profiled, device="cuda", n_utts=VOICE_UTTS):
     return counts_pa, counts_pc, counts_ph, pipe, utts_p, unseen_p
 
 
+def pipeline_f64_streams(pipe):
+    """The pipeline's ANALYZE of its corpus run in float64 on the CPU:
+    its wavs bucketed as `bucketing.bucketed_extract` buckets them, the
+    fast path's stages (`batch.analyze_stages`) and the encode on float64
+    tensors, then `vibrato.extract` as ANALYZE takes it -> {base: {stream:
+    float64 array}}: the reference both float32 runs round away from."""
+    import torch
+    from hts_train_world_tpu_torch import config as cfg
+    from hts_train_world_tpu_torch.features import encode
+    from hts_train_world_tpu_torch.features import labels as labels_mod
+    from hts_train_world_tpu_torch.features import vibrato
+    from hts_train_world_tpu_torch.io import wavio
+    from hts_train_world_tpu_torch.parallel import batch as batch_mod
+    from hts_train_world_tpu_torch.parallel import bucketing
+    fs, fp, lay = pipe.cfg.fs, pipe.cfg.frame_period, pipe.cfg.layout
+    bases = pipe.utterances()
+    sigs = [wavio.wavread(pipe._p("raw", b, "wav"))[0] for b in bases]
+    lengths = [len(x) for x in sigs]
+    N = cfg.cheaptrick_fft_size(fs)
+    out = {}
+    for blen, grp in bucketing.bucket_groups(lengths):
+        xs = np.zeros((len(grp), blen))
+        for r, i in enumerate(grp):
+            xs[r, :lengths[i]] = sigs[i]
+        *_, (_, (_, f0, sp, ap)) = batch_mod.analyze_stages(
+            torch.as_tensor(xs), fs, fp)
+        feats = [v.numpy() for v in encode.encode_features(
+            f0, sp, ap, fs, N, lay.mgc_dim, lay.bap_dim)]
+        for i, (lf0, mgc, bap) in zip(grp, bucketing.trim_group(
+                feats, lengths, grp, fs, fp)):
+            labs = labels_mod.load_labels(pipe._p("labels/mono", bases[i],
+                                                  "lab"),
+                                          pipe._p("labels/full", bases[i],
+                                                  "lab"))
+            lf0_2d, vib = vibrato.extract(lf0, labs, fp)
+            out[bases[i]] = dict(lf0=lf0_2d, mgc=mgc, bap=bap, vib=vib)
+    return out
+
+
+def vib_witness(pipes, devices):
+    """Where the vib gap between two runs comes from: ANALYZE's lf0 of
+    the pipeline's wavs on each device (`bucketing.bucketed_extract`, as
+    ANALYZE takes it), then on the host `vibrato.extract` of the second
+    run's lf0 with one frame at a time moved to the first run's value, at
+    each frame where they differ -> (frames that differ, their largest
+    difference in float32 ulps, {base: the sum over those lone moves of
+    the |d vib| each makes in every vib element, where vib is live before
+    and after}, whether each run's vib file is `vibrato.extract` of its
+    own lf0)."""
+    from hts_train_world_tpu_torch.features import labels as labels_mod
+    from hts_train_world_tpu_torch.features import vibrato
+    from hts_train_world_tpu_torch.io import rawio, wavio
+    from hts_train_world_tpu_torch.parallel import bucketing
+    pipe = pipes[devices[1]]
+    fs, fp, lay = pipe.cfg.fs, pipe.cfg.frame_period, pipe.cfg.layout
+    bases = pipe.utterances()
+    sigs = [wavio.wavread(pipe._p("raw", b, "wav"))[0] for b in bases]
+    lf0 = {d: [f[0] for f in bucketing.bucketed_extract(
+        sigs, fs, fp, mgc_dim=lay.mgc_dim, bap_dim=lay.bap_dim, device=d)]
+        for d in devices}
+    n_diff, ulps, explained, own = 0, 0, {}, True
+    off = np.float32(1e-8)
+    for i, b in enumerate(bases):
+        labs = labels_mod.load_labels(pipe._p("labels/mono", b, "lab"),
+                                      pipe._p("labels/full", b, "lab"))
+        x, y = (np.asarray(lf0[d][i], np.float32) for d in devices)
+        for d, z in zip(devices, (x, y)):
+            own &= np.array_equal(vibrato.extract(z, labs, fp)[1],
+                                  rawio.read_f32(pipes[d]._p("vib", b, "vib"),
+                                                 2))
+        base = vibrato.extract(y, labs, fp)[1]
+        e = explained[b] = np.zeros(base.shape)
+        at = np.nonzero(x != y)[0]
+        n_diff += len(at)
+        both = at[(x[at] != 0) & (y[at] != 0)]     # V/UV held apart
+        if len(both):
+            ulps = max(ulps, int(np.abs(
+                x[both].view(np.int32).astype(np.int64)
+                - y[both].view(np.int32)).max()))
+        for j in at:
+            z = y.copy()
+            z[j] = x[j]
+            v = vibrato.extract(z, labs, fp)[1]
+            live = (v != off) & (base != off)
+            e[live] += np.abs(v.astype(np.float64) - base)[live]
+    return n_diff, ulps, explained, own
+
+
 def pipeline_card_vs_cpu(devices=("cuda", "cpu")):
     """Phase 4 for the pipeline lane: tests/test_torch_pipeline.py's
     corpus through the front half on the card and on the CPU; the streams
@@ -1522,7 +1627,13 @@ def pipeline_card_vs_cpu(devices=("cuda", "cpu")):
     lane's own recipe (soft counts) from the same streams: the alignments
     equal and every tree alike, or else the first tree that differs does
     so at a `min_occupancy` tie (`occupancy_ties`, within 1e-8 of the
-    threshold, the bound phase 4 holds the recipe's parameters to)."""
+    threshold, the bound phase 4 holds the recipe's parameters to).  The
+    two runs' ANALYZE lf0 differ by at most one float32 ulp in every frame
+    voiced in both, and each vib frame within `VIB_EXPLAINED_SLACK` times
+    what those moves explain there where that is more than the fixed bound
+    (`vib_witness`); each
+    run's distance from the float64 run of the same ANALYZE
+    (`pipeline_f64_streams`) is printed beside."""
     from hts_train_world_tpu_torch.io import rawio, wavio
     from hts_train_world_tpu_torch.models import clustering, recipe
     from hts_train_world_tpu_torch.runtime import pipeline as pl
@@ -1535,8 +1646,12 @@ def pipeline_card_vs_cpu(devices=("cuda", "cpu")):
             hmm=recipe.RecipeConfig(**PIPELINE_TINY_HALGN), device=d))
         pipes[d].run(upto="ANALYZE")
     lay_t = pipes[devices[1]].cfg.layout
+    ref64 = pipeline_f64_streams(pipes[devices[1]])
+    n_diff, ulps, explained, own = vib_witness(pipes, devices)
     worst = {}
-    ok_s = True
+    vib_over = 0.0           # largest vib |d| over its bound (<= 1 passes)
+    to64 = {}                 # stream -> card's, CPU's max |d| from f64
+    ok_s = ulps <= 1 and own
     for u in range(3):
         b = f"utt{u}"
         g = {n: rawio.read_f32(pipes[devices[0]]._p(n, b, n), w) for n, w in (
@@ -1544,6 +1659,18 @@ def pipeline_card_vs_cpu(devices=("cuda", "cpu")):
             ("vib", 2))}
         c = {n: rawio.read_f32(pipes[devices[1]]._p(n, b, n), v.shape[1])
              for n, v in g.items()}
+        for n, r in ref64[b].items():
+            r = r.reshape(g[n].shape)
+            off = (0.0 if n == "lf0" else np.float32(1e-8) if n == "vib"
+                   else None)
+            live = (np.ones(r.shape, bool) if off is None else
+                    (g[n] != off) & (c[n] != off) & (r != off))
+            if not live.any():
+                continue
+            d = to64.setdefault(n, [0.0, 0.0])
+            for j, v in enumerate((g[n], c[n])):
+                d[j] = max(d[j], float(np.abs(v.astype(np.float64)
+                                              - r)[live].max()))
         for n in ("lf0", "vib"):
             for k in range(2):
                 off = 0.0 if n == "lf0" else np.float32(1e-8)
@@ -1555,8 +1682,14 @@ def pipeline_card_vs_cpu(devices=("cuda", "cpu")):
                            if both.any() else (0.0, 0.0))
                 a0, m0, x0 = worst.get(f"{n}{k}", (1.0, 0.0, 0.0))
                 worst[f"{n}{k}"] = (min(a0, agree), max(m0, med), max(x0, mx))
+                lim = PIPELINE_TINY_MAX[n]
+                if n == "vib":
+                    lim = np.maximum(lim, VIB_EXPLAINED_SLACK
+                                     * explained[b][both, k])
+                    if both.any():
+                        vib_over = max(vib_over, float((d / lim).max()))
                 ok_s &= (agree > 0.9 and med < 1e-3
-                         and mx <= PIPELINE_TINY_MAX[n])
+                         and bool(np.all(d <= lim)))
         for n in ("mgc", "bap"):
             d = np.abs(g[n] - c[n])
             _, m0, x0 = worst.get(n, (None, 0.0, 0.0))
@@ -1594,7 +1727,15 @@ def pipeline_card_vs_cpu(devices=("cuda", "cpu")):
               for k, v in worst.items())
           + f" (V/UV > 0.9, med lf0/vib < 1e-3, mgc/bap < 1e-2; max "
           + ", ".join(f"{k} <= {v:.0e}" for k, v in PIPELINE_TINY_MAX.items())
-          + f"); from the CPU's streams equal at hard counts: {same}; at "
+          + f", vib where more up to {VIB_EXPLAINED_SLACK} x what lf0's "
+          f"ulps explain); ANALYZE's lf0: {n_diff} frames differ, by at most "
+          f"{ulps} float32 ulp (<= 1), their lone moves explain vib |d| up "
+          f"to {max(float(e.max()) for e in explained.values()):.2e}, the "
+          f"largest vib |d| is {vib_over:.3f} of its bound; vib files are "
+          f"vibrato.extract of their lf0: {own}; "
+          "max |d| from the float64 ANALYZE, card / CPU: "
+          + ", ".join(f"{n} {k:.2e} / {p:.2e}" for n, (k, p) in to64.items())
+          + f"; from the CPU's streams equal at hard counts: {same}; at "
           f"soft counts (the lane's recipe) equal: {soft}, "
           + ("every tree alike" if at is None else
              f"tree {at} of {len(built[devices[0]])} (build order) differs "
@@ -3476,11 +3617,13 @@ def main() -> int:
 
     def counted(path, fn, record=False):
         """Run fn with the launch counts set to 0 just before and read
-        just after; fail if a kernel of the path was not launched.
-        `record`: True keeps every launch's inputs, a list object keeps
-        what its `append` keeps."""
+        just after; fail if a kernel of the path was not launched, or if a
+        table DFT (a plain twin of K39/K40) ran on the card.  `record`:
+        True keeps every launch's inputs, a list object keeps what its
+        `append` keeps."""
         sync()
         kernels.reset_counts()
+        fftmat.table_calls.clear()
         kernels.record = (record if isinstance(record, list)
                           else [] if record else None)
         out = fn()
@@ -3491,6 +3634,9 @@ def main() -> int:
         missing = [k for k in PATHS[path] if counts.get(k, 0) == 0]
         if missing:
             raise RuntimeError(f"kernels not launched on {path}: {missing}")
+        if fftmat.table_calls:
+            raise RuntimeError(f"table DFTs ran on the card on {path}: "
+                               f"{dict(fftmat.table_calls)}")
         return out, counts, recorded
 
     # ---- 1. build ----
@@ -3648,6 +3794,8 @@ def main() -> int:
         "mglsa_filter": (ex_mod.mglsa_synthesis,
                          ex_mod.mglsa_synthesis_plain),
         "mcep_newton": (sptk_mod.mcep, sptk_mod.mcep_plain),
+        "fft_r2c": (fftmat.r2c, fftmat.r2c_plain),
+        "fft_c2r": (fftmat.c2r, fftmat.c2r_plain),
     }
 
     def nbytes(*ts):
@@ -3912,6 +4060,12 @@ def main() -> int:
                 22.0 * F + 2.0 * m1 * m1 + 2.0 * m1 ** 3 / 3
                 + 2.0 * m1 * m1)
             t_o = Tn * (mm / mm_rate(lp) + rest / rate(lp))
+        elif name in FFT:
+            # a real FFT of N at 2.5 N log2 N operations a row, at the
+            # card's rate for the rows' type (the kernel's float64 inside
+            # is its own choice; the split and the fold a few more a bin)
+            rows, Nf = outs[0].shape[0], inp["N"]
+            t_o = rows * 2.5 * Nf * math.log2(Nf) / rate(outs[0])
         t_b = moved / HBM_BYTES_PER_S
         return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
@@ -3956,13 +4110,35 @@ def main() -> int:
         return None
 
     def library(key, inp):
-        """One PyTorch call for the same job, where there is one.  K2's is
+        """One PyTorch call for the same job, where there is one.  K39's
+        is torch.fft.rfft (and the power, or the fold before it), K40's
+        torch.fft.irfft * N (cut to N/2+1).  K2's is
         `torch.cumsum` of the mirrored rows alone (no DC fold, no reads,
         no division): the whole cumsum-based smoothing in library calls
         is the plain version.  K6's is log + gather-lerp + matmul of the
         scaled spectra (no zero floor, no c0 fixes); K7's the shifted adds
         (no -1e10 propagation)."""
         name = kernels.base_name(key)
+        if name == "fft_r2c":
+            x, Nf, mode = inp["x"], inp["N"], inp["mode"]
+            if mode == fftmat.FOLD:
+                w = fftmat.fold_weights(Nf, x.dtype, dev)[:x.shape[-1]]
+
+                def folded():
+                    s = torch.fft.rfft(x * w, n=Nf)
+                    return s.real, s.imag
+                return folded
+            if mode == fftmat.POWER:
+                def power():
+                    s = torch.fft.rfft(x, n=Nf)
+                    return s.real * s.real + s.imag * s.imag
+                return power
+            return lambda: torch.fft.rfft(x, n=Nf)
+        if name == "fft_c2r":
+            re, im, Nf, n_out = inp["re"], inp["im"], inp["N"], inp["n_out"]
+            spec = torch.complex(re, torch.zeros_like(re) if im is None
+                                 else im)
+            return lambda: torch.fft.irfft(spec, n=Nf)[..., :n_out] * Nf
         if name == "topk_sum":
             return lambda: torch.topk(inp["p"], inp["k"], dim=1).values.sum(1)
         if name == "d4c_band_sort":
@@ -4625,6 +4801,80 @@ def main() -> int:
                 f"sp rel {r_sp:.1e}, ap rel {r_ap:.1e} (<= 1e-12); ap zero "
                 f"past bin {apl}: {tail}")
 
+    def fft_errors(name, inp, outs):
+        """One K39/K40 launch's outputs against a float64 torch.fft of the
+        same rows (K39's fold on the folded rows; K40 with Im X_0 and
+        Im X_N/2 at 0, as the tables and the kernel take them), rows with
+        a non-finite input left out: (the worst row's max |X - X64| over
+        its scale, the input row's 2-norm for K39 and the output row's RMS
+        sqrt(sum_k w_k |X_k|^2) for K40; the worst element's |X - X64|
+        over that scale plus |X64| (a power bin: times 2 |X64| + the
+        scale), which leaves room for the element's own rounding; the
+        largest |X - X64|)."""
+        if name == "fft_r2c":
+            x = inp["x"].double()
+            if inp["mode"] == fftmat.FOLD:
+                x = x * fftmat.fold_weights(inp["N"], torch.float64,
+                                            dev)[:x.shape[-1]]
+            ref = torch.fft.rfft(x, n=inp["N"])
+            sc = x.pow(2).sum(-1, keepdim=True).sqrt()
+            live = torch.isfinite(sc[:, 0])
+            if inp["mode"] == fftmat.POWER:
+                mag = ref.abs()
+                pairs = [(outs[0], mag * mag, sc * sc,
+                          (sc + mag) * (2.0 * mag + sc))]
+            else:
+                pairs = [(o, r, sc, sc + r.abs())
+                         for o, r in zip(outs, (ref.real, ref.imag))]
+        else:
+            re = inp["re"].double()
+            im = (torch.zeros_like(re) if inp["im"] is None
+                  else inp["im"].double().clone())
+            im[:, 0] = 0.0
+            im[:, -1] = 0.0
+            Nf = inp["N"]
+            y = torch.fft.irfft(torch.complex(re, im),
+                                n=Nf)[:, :inp["n_out"]] * Nf
+            w = torch.full((re.shape[1],), 2.0, dtype=torch.float64,
+                           device=dev)
+            w[0] = w[-1] = 1.0
+            sc = (w * (re * re + im * im)).sum(-1, keepdim=True).sqrt()
+            live = torch.isfinite(sc[:, 0])
+            pairs = [(outs[0], y, sc, sc + y.abs())]
+        lit = elem = ab = 0.0
+        for o, r, s_row, s_el in pairs:
+            e = (o.double() - r).abs()[live]
+            if not e.numel():
+                continue
+            lit = max(lit, float((e.amax(-1) / s_row[live, 0].clamp(
+                min=1e-300)).max()))
+            elem = max(elem, float((e / s_el[live].clamp(min=1e-300))
+                                   .max()))
+            ab = max(ab, float(e.max()))
+        return lit, elem, ab
+
+    def check_fft(name, inp, out_k, out_p):
+        """K39/K40 against a float64 DFT of the same rows, beside the
+        table twin on the card: no farther from it than the twin, on both
+        of `fft_errors`' scales, and within 1e-6 on the element scale (the
+        row-scale figure is printed: a float32 output bin rounds at its own
+        magnitude, which can exceed its row's scale many times, e.g. a
+        harmonic's peak bin or the cepstrum's c0)."""
+        lk, ek, ak = fft_errors(name, inp, out_k)
+        lp, ep, _ = fft_errors(name, inp, out_p)
+        fin = torch.isfinite(torch.stack([o.sum(-1) for o in out_k]))
+        fin_p = torch.isfinite(torch.stack([o.sum(-1) for o in out_p]))
+        same = torch.equal(fin, fin_p)
+        mode = (["reim", "power", "fold"][inp["mode"]] if name == "fft_r2c"
+                else f"n_out {inp['n_out']}, Im "
+                + ("given" if inp["im"] is not None else "none"))
+        ok = same and ek <= 1e-6 and ek <= ep and lk <= lp
+        return ok, ak, (f"N {inp['N']}, {mode}: vs a float64 torch.fft, "
+                        f"element scale kernel {ek:.2e}, twin {ep:.2e} "
+                        f"(kernel <= twin, <= 1e-6); row scale kernel "
+                        f"{lk:.2e}, twin {lp:.2e} (kernel <= twin); "
+                        f"non-finite rows where the twin's: {same}")
+
     def check_k33(inp, out_k, out_p):
         """Chain mode: within 1e-13 max(1, |ll|), NaN where the twin's
         (a NaN in a weight-0 bap column); posterior mode: within 1e-13.
@@ -4685,6 +4935,8 @@ def main() -> int:
         what was read)."""
         if name in SPTK_KERNELS:
             return check_sptk(name, inp, out_k, out_p)
+        if name in FFT:
+            return check_fft(name, inp, out_k, out_p)
         if kernels.base_name(name) == "hsmm_mix_loglik":
             return check_k33(inp, out_k, out_p)
         if name == "semitied":
@@ -5118,21 +5370,44 @@ def main() -> int:
     del rec_cs, rec_fl, rec_sl, rec_hl, replays
     torch.cuda.empty_cache()
 
-    # the per-frame DFT route: matmul against the tables vs torch.fft
+    # the per-frame DFT route at D4C's MEAN shape: K39's power against the
+    # table matmul (its twin) and torch.fft; and the min-phase log's whole
+    # job at synthesis' shape, K40 + K39 against irfft, fold, rfft
     fft_d = cfg.d4c_fft_size(FS)
     rows = torch.randn(BATCH * T, 2816, device=dev)
+    k39_ms = cuda_ms(lambda: fftmat.r2c(rows, fft_d, fftmat.POWER), reps=10)
     mm_ms = cuda_ms(lambda: fftmat.rfft_power_matmul(rows, fft_d), reps=5)
 
     def fft_power():
         s = torch.fft.rfft(rows, n=fft_d, dim=1)
         return s.real * s.real + s.imag * s.imag
 
-    fft_ms = cuda_ms(fft_power, reps=5)
+    fft_ms = cuda_ms(fft_power, reps=10)
     flops = 4.0 * rows.shape[0] * rows.shape[1] * (fft_d // 2 + 1)
-    print(f"DFT route at {BATCH * T}x2816 -> {fft_d}: matmul power "
-          f"{mm_ms:.3f} ms (bound {1e3 * flops / F32_OPS_PER_S:.3f} ms for "
-          f"its {flops / 1e9:.1f} GFLOP), torch.fft power {fft_ms:.3f} ms")
+    b_ms = 1e3 * nbytes(rows) * (1 + (fft_d // 2 + 1) / 2816) \
+        / HBM_BYTES_PER_S
+    print(f"DFT route at {BATCH * T}x2816 -> {fft_d}, power: K39 "
+          f"{k39_ms:.4f} ms (bound {b_ms:.4f} ms, bytes), table matmul "
+          f"{mm_ms:.4f} ms (its {flops / 1e9:.1f} GFLOP bound "
+          f"{1e3 * flops / F32_OPS_PER_S:.4f} ms), torch.fft power "
+          f"{fft_ms:.4f} ms", flush=True)
     del rows
+    lh = torch.randn(BATCH * 512, half + 1, device=dev)
+    w_f = fftmat.fold_weights(N, torch.float32, dev)
+    mp_ms = cuda_ms(lambda: fftmat.minphase_log(lh, N), reps=10)
+    tab_ms = cuda_ms(lambda: fftmat.minphase_log_matmul(lh, N), reps=5)
+
+    def lib_minphase():
+        c = torch.fft.irfft(torch.complex(lh, torch.zeros_like(lh)),
+                            n=N)[:, :half + 1] * N
+        s = torch.fft.rfft(c * w_f, n=N)
+        return s.real, s.imag
+
+    lib_ms = cuda_ms(lib_minphase, reps=10)
+    print(f"min-phase log at ({BATCH * 512}, {half + 1}), N {N}: K40 half + "
+          f"K39 fold {mp_ms:.4f} ms, table matmuls {tab_ms:.4f} ms, "
+          f"torch.fft irfft + fold + rfft {lib_ms:.4f} ms", flush=True)
+    del lh
 
     # bounds of the plain-torch stages that have no kernel yet, at the
     # shapes this run gave them: each array that enters or leaves the
@@ -5320,13 +5595,14 @@ def main() -> int:
         if busy <= 0:
             print(f"profiler ({label}): no device time recorded")
             return
-        groups = {g: [0.0, 0] for g in ("gemm (DFT matmuls)", "fft",
-                                        "K1-K16", "other")}
+        groups = {g: [0.0, 0] for g in ("K39/K40 (DFTs)", "K1-K38", "gemm",
+                                        "torch.fft", "other")}
         for e in evs:
             k = e.key.lower()
-            g = ("gemm (DFT matmuls)" if "gemm" in k
-                 else "fft" if "fft" in k
-                 else "K1-K16" if any(n in k for n in kernels.KERNELS)
+            g = ("K39/K40 (DFTs)" if any(n in k for n in FFT)
+                 else "K1-K38" if any(n in k for n in kernels.KERNELS)
+                 else "gemm" if "gemm" in k
+                 else "torch.fft" if "fft" in k
                  else "other")
             groups[g][0] += dev_us(e) / 1e3
             groups[g][1] += e.count

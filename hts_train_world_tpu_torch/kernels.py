@@ -1,6 +1,6 @@
 """Build, load and launch the hand-written CUDA kernels.
 
-Thirty-eight kernels, K1-K38 (`KERNELS`).  Each source under `csrc/` is
+Forty kernels, K1-K40 (`KERNELS`).  Each source under `csrc/` is
 compiled by `nvcc` for `sm_90a` into its own shared library with a plain
 C interface, loaded with `ctypes`.  Nothing
 happens at import time: the first launch builds every kernel (one `nvcc`
@@ -148,6 +148,10 @@ KERNELS = {
         "mglsa_ola_launch": [_P, _I, _I, _I, _L, _I, _P]}),
     "mcep_newton": ("mcep_newton.cu", "mcep_newton_launch",
                     [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P]),
+    "fft_r2c": ("fft_r2c.cu", "fft_r2c_launch",
+                [_P, _I, _I, _I, _I, _P, _I, _P, _P]),
+    "fft_c2r": ("fft_c2r.cu", "fft_c2r_launch",
+                [_P, _P, _I, _I, _I, _P, _I, _P]),
 }
 
 launches: collections.Counter = collections.Counter()

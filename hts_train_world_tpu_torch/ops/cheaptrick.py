@@ -107,7 +107,7 @@ def cheaptrick(xs, fs: int, temporal_positions, f0, fft_size: int = 0,
             "the port's float32 CheapTrick runs on the regular frame grid "
             "only (grid_step > 0); float32 analysis at a non-integral "
             "frame grid is ROADMAP.md's Queue A 11")
-    dtype, dev = xs.dtype, xs.device
+    dev = xs.device
     B, T = f0.shape
     N = fft_size or cfg.cheaptrick_fft_size(fs)
     half = N // 2
@@ -127,15 +127,13 @@ def cheaptrick(xs, fs: int, temporal_positions, f0, fft_size: int = 0,
                     max=h_cap)
     wave, _ = frames.frame_windows(xs, base + s_reg, h, cf0, fs, 3.0, width,
                                    frames.CHEAPTRICK)
-    ps = fftmat.rfft_power_matmul(wave, N)
+    ps = fftmat.rfft_power(wave, N)
     ps = prims.smooth_spectrum(ps, fs, N, f0=cf0, ul_max=ul_max,
                                width=prims.exact_div(cf0 * 2.0, 3.0),
                                b_max=b_max)
-    creal = fftmat.matmul(lifter(ps, LOG),
-                          fftmat.sym_rfft_real_mat(N, dtype, dev))
+    creal = fftmat.sym_rfft_real(lifter(ps, LOG), N)
     spec2 = lifter(creal, LIFTER, cf0, fs, N, q1)
-    A, _ = fftmat.irfft_half_mats(N, dtype, dev)
-    return lifter(fftmat.matmul(spec2, A), EXP).reshape(B, T, half + 1)
+    return lifter(fftmat.irfft_half(spec2, N), EXP).reshape(B, T, half + 1)
 
 
 LOG, LIFTER, EXP = 0, 1, 2      # K25's three stages

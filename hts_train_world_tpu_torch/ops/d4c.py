@@ -387,7 +387,7 @@ def d4c(xs, fs: int, temporal_positions, f0, fft_size: int,
     wave, _ = frames.frame_windows(xs, base + s_reg, h0, lf0, fs, 3.0,
                                    min(n, _round_up(2 * h_lt + 1)),
                                    frames.MEAN_BLACKMAN)
-    ap0, process, cf0 = love_train_sums(fftmat.rfft_power_matmul(wave, n),
+    ap0, process, cf0 = love_train_sums(fftmat.rfft_power(wave, n),
                                         f0r, b0, b1, b2, threshold)
 
     h = torch.clamp(prims.matlab_round_i(
@@ -399,15 +399,14 @@ def d4c(xs, fs: int, temporal_positions, f0, fft_size: int,
         origin = base + torch.clamp(s, -margin, margin)
         r1_in, r2_in = frames.frame_windows(xs, origin, h, cf0, fs, 4.0,
                                             width, frames.CENTROID)
-        return fftmat.rfft_matmul(r1_in, fft_d) + fftmat.rfft_matmul(
-            r2_in, fft_d)
+        return fftmat.rfft(r1_in, fft_d) + fftmat.rfft(r2_in, fft_d)
 
     sc = prims.dc_correction(
         centroid_sum(*centroid(-quarter), *centroid(quarter)), cf0, fs,
         fft_d, ul_max)
     wave, _ = frames.frame_windows(xs, base + s_reg, h, cf0, fs, 4.0, width,
                                    frames.MEAN)
-    sps = prims.smooth_spectrum(fftmat.rfft_power_matmul(wave, fft_d), fs,
+    sps = prims.smooth_spectrum(fftmat.rfft_power(wave, fft_d), fs,
                                 fft_d, f0=cf0, ul_max=ul_max, width=cf0,
                                 b_max=b_max)
     # GetStaticGroupDelay (d4c.cpp:170-186)
@@ -422,7 +421,7 @@ def d4c(xs, fs: int, temporal_positions, f0, fft_size: int,
         sgd, prims.linear_smoothing(sgd, cf0, fs, fft_d, b_max),
         tuple(starts), window)
     R = sgd.shape[0]
-    p = fftmat.rfft_power_matmul(segs, fft_d).reshape(R * n_ap,
+    p = fftmat.rfft_power(segs, fft_d).reshape(R * n_ap,
                                                       fft_d // 2 + 1)
     den = p.sum(dim=1).reshape(R, n_ap)
     topk = prims.sum_top_k(p, boundary + 1).reshape(R, n_ap)

@@ -84,8 +84,8 @@ def stonemask(xs, fs: int, temporal_positions, f0,
     s0 = torch.clamp(prims.matlab_round_i(pos * fs) - base, -4, 4)
     segm, segd = frames.frame_windows(xs, base + s0 - 1, h, f0s, fs, 0.0,
                                       width, frames.STONEMASK, pos=pos)
-    smr, smi = fftmat.rfft_matmul(segm, B_max)
-    sdr, sdi = fftmat.rfft_matmul(segd, B_max)
+    smr, smi = fftmat.rfft(segm, B_max)
+    sdr, sdi = fftmat.rfft(segd, B_max)
     return if_readout(smr, smi, sdr, sdi, f0s, h, gate.reshape(-1), fs,
                       B_max).reshape(B, T)
 

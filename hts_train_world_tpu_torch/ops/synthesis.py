@@ -28,9 +28,9 @@ each with its plain PyTorch twin here, which runs for CPU tensors:
   adds them on the CPU): no atomics, the same result on every run.
 - K30 `midpass` (csrc/synth_midpass.cu): between K10 and K11, the
   min-phase spectra (exp/cos/sin), the fractional-delay factor and the
-  noise product, one fused pass.  In the fast path it sits between the DFT
-  matmuls of `fftmat` (which stay `torch.matmul`, as the JAX package
-  leaves them to XLA); in the exact path between `torch.fft` transforms
+  noise product, one fused pass.  In the fast path it sits between the
+  DFTs of `fftmat` (K39 and K40 on the card, where the JAX package takes
+  table matmuls); in the exact path between `torch.fft` transforms
   (`prims.minimum_phase_log`, `torch.fft.rfft` of the noise,
   `torch.fft.irfft`), as the JAX exact path takes `jnp.fft`.
 
@@ -664,16 +664,16 @@ def midpass(lpr, lpi, lar, lai, nre, nim, coef):
 
 def responses(log_p, log_a, noise, time_shift, fs: int, fft_size: int):
     """The mid-pass: min-phase spectra x fractional-delay phase and x
-    noise spectrum (K30), between the DFT matmuls -> (per_raw, aper_raw)
+    noise spectrum (K30), between the DFTs (K39, K40) -> (per_raw, aper_raw)
     (B, P, N), irfft * N before fftshift (synthesis.cpp:38-138)."""
     N = fft_size
     coef = prims.exact_div(2.0 * np.pi * time_shift * fs, N)
-    lpr, lpi = fftmat.minphase_log_matmul(log_p, N)
-    nre, nim = fftmat.rfft_matmul(noise, N)
-    lar, lai = fftmat.minphase_log_matmul(log_a, N)
+    lpr, lpi = fftmat.minphase_log(log_p, N)
+    nre, nim = fftmat.rfft(noise, N)
+    lar, lai = fftmat.minphase_log(log_a, N)
     sre, sim, pre, pim = midpass(lpr, lpi, lar, lai, nre, nim, coef)
-    return (fftmat.irfft_scaled_matmul(sre, sim, N),
-            fftmat.irfft_scaled_matmul(pre, pim, N))
+    return (fftmat.irfft_scaled(sre, sim, N),
+            fftmat.irfft_scaled(pre, pim, N))
 
 
 def responses_exact(log_p, log_a, noise, time_shift, fs: int,

@@ -17,7 +17,7 @@ from hts_train_world_tpu_torch.models import hsmm, hsmm_batch
 from hts_train_world_tpu_torch.models import hsmm_variants as hvar
 from hts_train_world_tpu_torch.ops import cheaptrick as ct
 from hts_train_world_tpu_torch.ops import d4c as d4c_mod
-from hts_train_world_tpu_torch.ops import dio, frames, mlpg, prims
+from hts_train_world_tpu_torch.ops import dio, fftmat, frames, mlpg, prims
 from hts_train_world_tpu_torch.ops import stonemask as sm
 from hts_train_world_tpu_torch.ops import harvest as hv
 from hts_train_world_tpu_torch.ops import harvest_fix as hf
@@ -26,8 +26,11 @@ from hts_train_world_tpu_torch.parallel import batch, bucketing, features
 
 pytestmark = pytest.mark.cuda
 
-SYNTH_KERNELS = ("synth_time_base", "synth_pulse_spectra", "synth_ola")
-BODY_KERNELS = ("cheaptrick_lifter", "d4c_group_delay", "d4c_aperiodicity")
+FFT_KERNELS = ("fft_r2c", "fft_c2r")
+SYNTH_KERNELS = ("synth_time_base", "synth_pulse_spectra",
+                 "synth_ola") + FFT_KERNELS
+BODY_KERNELS = ("cheaptrick_lifter", "d4c_group_delay",
+                "d4c_aperiodicity") + FFT_KERNELS
 DIO_KERNELS = ("frame_window", "spectral_smooth", "topk_sum", "fix_f0",
                "dio_candidates", "stonemask_if") + BODY_KERNELS
 COPY_SYNTH_KERNELS = DIO_KERNELS + SYNTH_KERNELS
@@ -273,9 +276,11 @@ def test_main_path_runs_the_kernels_and_matches_the_cpu_path(cuda):
                    + 0.01 * rng.standard_normal(L) for f in (170.0, 220.0)])
     noise = rng.standard_normal((2, L + 17))
     kernels.reset_counts()
+    fftmat.table_calls.clear()
     g = batch.batch_copy_synth(xs, fs, noise=noise)
     torch.cuda.synchronize()
     assert all(kernels.launches[k] > 0 for k in COPY_SYNTH_KERNELS)
+    assert not fftmat.table_calls         # no table DFT on the card
     c = batch.batch_copy_synth(xs, fs, noise=noise, device="cpu")
     f0g, f0c = g[1].cpu(), c[1]
     assert ((f0g > 0) == (f0c > 0)).float().mean() >= 0.98
@@ -2651,3 +2656,143 @@ def test_sptk_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):                 # order above 127
         sptk.mcep(torch.zeros(4, 513, dtype=torch.float64, device=cuda), 128,
                   0.42, 1024)
+
+
+# ---------------------------------------------------------------------------
+# K39 / K40: the DFTs
+# ---------------------------------------------------------------------------
+
+FFT_SIZES = (64, 256, 1024, 2048, 4096, 8192)
+
+
+def _fft_rows(R, L, seed, dtype, device):
+    """Random rows, with row 1 zeros and row 2 a single impulse."""
+    x = np.random.default_rng(seed).standard_normal((R, L))
+    x[1] = 0.0
+    x[2] = 0.0
+    x[2, (3 * L) // 4] = 1.0
+    return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+def _fft_worst(got, want, scale):
+    """The worst |got - want| / scale, element by element."""
+    return max(float(((g.double() - w).abs() / scale.clamp(min=1e-300))
+                     .max()) for g, w in zip(got, want))
+
+
+# Error scales, element by element: a DFT is off by a few roundings of
+# its row's RMS (for K39 the input's 2-norm, for K40 sqrt(sum_k w_k
+# |X_k|^2)) plus the rounding of the element itself, so the scale is that
+# RMS plus the element's magnitude; a power bin's error is 2 |X| times its
+# bin's.  K39/K40 transform in float64 and round once to the rows' type:
+# within FFT_TOL (float32: a few roundings at 2^-24; float64: at 2^-52),
+# and no farther from the float64 DFT than the table twin on the card, or
+# than ONE_ROUNDING where both are that close.
+FFT_TOL = {torch.float32: 1e-6, torch.float64: 1e-14}
+ONE_ROUNDING = {torch.float32: 2.0 ** -23, torch.float64: 2.0 ** -52}
+
+
+def _r2c_scales(x, ref):
+    nrm = x.pow(2).sum(-1, keepdim=True).sqrt()
+    mag = ref.abs()
+    return nrm + mag, (nrm + mag) * (2.0 * mag + nrm)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("N", FFT_SIZES)
+def test_k39_kernel_matches_the_twin_and_a_float64_dft(cuda, N, dtype):
+    """Each mode on rows of 1, N/3 and N samples (5 rows: fewer than a
+    block's worth of anything), zeros and an impulse among them: within
+    FFT_TOL of a float64 torch.fft on its error scale, and no farther from
+    it than the table twin on the card."""
+    for L in (1, N // 3, N):
+        x = _fft_rows(5, L, N + L, dtype, cuda)
+        ref = torch.fft.rfft(x.double(), n=N)
+        sc, sc_p = _r2c_scales(x.double(), ref)
+        re, im = fftmat.r2c(x, N, fftmat.REIM)
+        tre, tim = fftmat.r2c_plain(x, N, fftmat.REIM)
+        e_k = _fft_worst((re, im), (ref.real, ref.imag), sc)
+        e_t = _fft_worst((tre, tim), (ref.real, ref.imag), sc)
+        assert re.dtype == dtype and re.shape == (5, N // 2 + 1)
+        assert e_k <= FFT_TOL[dtype] and e_k <= max(e_t, ONE_ROUNDING[dtype])
+        p = fftmat.r2c(x, N, fftmat.POWER)
+        assert _fft_worst((p,), (ref.abs() ** 2,), sc_p) <= FFT_TOL[dtype]
+        assert torch.equal(re[1], torch.zeros_like(re[1]))
+    c = _fft_rows(3, N // 2 + 1, N, dtype, cuda)
+    folded = c.double() * fftmat.fold_weights(N, torch.float64, cuda)
+    ref = torch.fft.rfft(folded, n=N)
+    re, im = fftmat.r2c(c, N, fftmat.FOLD)
+    assert _fft_worst((re, im), (ref.real, ref.imag),
+                      _r2c_scales(folded, ref)[0]) <= FFT_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("N", FFT_SIZES)
+def test_k40_kernel_matches_the_twin_and_a_float64_dft(cuda, N, dtype):
+    """Both output lengths, with and without Im, on 5 rows (zeros and an
+    impulse among them): within FFT_TOL of a float64 irfft * N on its
+    error scale, and no farther from it than the table twin."""
+    H = N // 2 + 1
+    re = _fft_rows(5, H, N + 1, dtype, cuda)
+    im = _fft_rows(5, H, N + 2, dtype, cuda)
+    w = torch.full((H,), 2.0, dtype=torch.float64, device=cuda)
+    w[0] = w[-1] = 1.0
+    for imag in (im, None):
+        i64 = (torch.zeros_like(re.double()) if imag is None
+               else imag.double().clone())
+        i64[:, 0] = i64[:, -1] = 0.0
+        ref = torch.fft.irfft(torch.complex(re.double(), i64), n=N) * N
+        rms = (w * (re.double() ** 2 + i64 ** 2)).sum(-1, keepdim=True).sqrt()
+        for n_out in (N, H):
+            got = fftmat.c2r(re, imag, N, n_out)
+            twin = fftmat.c2r_plain(re, imag, N, n_out)
+            assert got.dtype == dtype and got.shape == (5, n_out)
+            want = ref[:, :n_out]
+            e_k = _fft_worst((got,), (want,), rms + want.abs())
+            e_t = _fft_worst((twin,), (want,), rms + want.abs())
+            assert e_k <= FFT_TOL[dtype]
+            assert e_k <= max(e_t, ONE_ROUNDING[dtype])
+
+
+def test_fft_public_functions_launch_the_kernels(cuda):
+    """On CUDA tensors the six functions launch K39/K40 (minphase_log
+    once each) and run no table product."""
+    N = 2048
+    x = _fft_rows(4, 1500, 1, torch.float32, cuda)
+    h = _fft_rows(4, N // 2 + 1, 2, torch.float32, cuda)
+    kernels.reset_counts()
+    fftmat.table_calls.clear()
+    fftmat.rfft(x, N)
+    fftmat.rfft_power(x, N)
+    fftmat.irfft_scaled(h, h, N)
+    fftmat.minphase_log(h, N)
+    fftmat.sym_rfft_real(h, N)
+    fftmat.irfft_half(h, N)
+    torch.cuda.synchronize()
+    assert dict(kernels.launches) == {"fft_r2c": 3, "fft_c2r": 4}
+    assert not fftmat.table_calls
+    got = fftmat.minphase_log(h, N)
+    want = fftmat.minphase_log_matmul(h, N)
+    assert all(float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+               for g, w in zip(got, want))
+
+
+def test_fft_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros((3, 100), device=cuda)
+    h = torch.zeros((3, 513), device=cuda)
+    with pytest.raises(ValueError):
+        fftmat.rfft(x, 1000)                    # not a power of two
+    with pytest.raises(ValueError):
+        fftmat.rfft(x, 32)                      # below 64, and L > N
+    with pytest.raises(ValueError):
+        fftmat.rfft(torch.zeros((3, 300), device=cuda), 256)   # L > N
+    with pytest.raises(ValueError):
+        fftmat.rfft(x.int(), 1024)              # an integer dtype
+    with pytest.raises(ValueError):
+        fftmat.rfft_power(x, 16384)             # past 8192
+    with pytest.raises(ValueError):
+        fftmat.irfft_scaled(h, h.double(), 1024)
+    with pytest.raises(ValueError):
+        fftmat.irfft_half(h, 2048)              # not N/2+1 bins
+    with pytest.raises(ValueError):
+        fftmat.minphase_log(h.int(), 1024)
