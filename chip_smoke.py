@@ -93,9 +93,11 @@ Phases (any failure raises):
    bit against the plain version run on the CPU, K11 also across two
    launches; K32 bit for bit against its plain version on the CPU); time
    kernel, plain version, bound and, where one exists,
-   the library call; print the bounds of the plain-torch stages that have
-   no kernel yet, from this run's shapes (K28 and K29 are replayed in
-   phase 14, where their inputs are recorded);
+   the library call; list each of a copy-synthesis batch's K39 launches
+   beside its torch.fft line and bound, and their sums; print the bounds
+   of the plain-torch stages that have no kernel yet, from this run's
+   shapes (K28 and K29 are replayed in phase 14, where their inputs are
+   recorded);
 4. compare the card's copy-synthesis, feature lane, synth lane and
    Harvest lane with the CPU (plain) path on a small input (the synth
    lane must fire the same pulses);
@@ -113,7 +115,9 @@ Phases (any failure raises):
    Harvest, one timed run after one warm run;
 10. the HSMM lane: one EM iteration counted and recorded (K17-K19), its
    launches replayed against the twins (K18 also padded against unpadded,
-   K19 bit for bit against the CPU and across launches), the card against
+   K19, one launch a batch for every table, bit for bit against the CPU
+   and across launches, with its count and time over the E-step beside
+   the whole-job index_add_ line), the card against
    the CPU path on a small corpus (accumulators, parameters after two
    iterations, Viterbi alignments), then frames per second, E-step stage
    times and one E-step under the profiler, for the lane and for bench.py's
@@ -455,7 +459,8 @@ SPTK_KERNELS = ("excite", "band_fir", "mglsa_filter", "mcep_newton")
 # kernels also timed on the device alone, behind a sleep
 DEVICE_TIMED = SPTK_KERNELS + FFT + ("synth_time_base", "hsmm_loglik",
                                      "hsmm_mix_loglik", "semitied",
-                                     "codec_encode", "d4c_band_sort")
+                                     "codec_encode", "d4c_band_sort",
+                                     "hsmm_accumulate")
 # the HSMM lane: RecipeConfig's defaults (models/recipe.py:45-47)
 HSMM_MODELS, HSMM_STATES, HSMM_MAX_DUR, HSMM_UTTS = 40, 5, 60, 128
 # the recipe lane: train_voice at RecipeConfig's defaults
@@ -2916,12 +2921,15 @@ def variants_worst(a, b):
 class KeepVariants(list):
     """The variant lane's launches worth replaying: K34's (one a stream),
     every K33 chain launch (ERST5's padded batches) and the first ERST5
-    iteration's K33 posterior launches (one a stream)."""
+    iteration's K33 posterior and one-table K19 launches (one a
+    stream)."""
     def append(self, item):
-        name, _ = item
+        name, inp = item
         n = sum(k == name for k, _ in self)
         if (name in ("semitied", "hsmm_mix_loglik")
-                or (name == "hsmm_mix_loglik[post]" and n < 4)):
+                or (name == "hsmm_mix_loglik[post]" and n < 4)
+                or (name == "hsmm_accumulate" and len(inp["vals"]) == 1
+                    and n < 4)):
             super().append(item)
 
 
@@ -3354,7 +3362,7 @@ def sptk_copy_lane(counted, sigs, fs, device="cuda", cpu="cpu"):
 
 
 def library_whole(key, inp):
-    """The whole job of K23, K2 in float64, K32 in float64 and K35 in
+    """The whole job of K23, K2 in float64, K32 in float64, K35 and K19 in
     PyTorch library calls, where `library` in `main` times only a part
     of it: (the call, a check of its outputs against the kernel's that
     returns (passed, text naming its bound)), or None for another
@@ -3363,6 +3371,21 @@ def library_whole(key, inp):
     import torch.nn.functional as tnf
     name = key.split("[", 1)[0]
     f64 = key.endswith("[f64]")
+    if name == "hsmm_accumulate":
+        # an index_add_ a table into zeros, then the add into the running
+        # table (the merge the E-step made on the host before)
+        def summed():
+            return [a + torch.zeros(a.shape, dtype=a.dtype, device=a.device)
+                    .index_add_(0, i, v) for v, i, a in zip(
+                        inp["vals"], inp["ids"], inp["acc"])]
+
+        def check(out, out_k):
+            worst = max(float((o - k).abs().max()
+                              / k.abs().max().clamp(min=1e-300))
+                        for o, k in zip(out, out_k))
+            return worst <= 1e-12, (f"worst |err| / table max {worst:.1e} "
+                                    f"<= 1e-12 (the atomics' order)")
+        return summed, check
     if name == "gv_scale":
         # torch.var_mean and the rescale; lf0's rows under its mask
         x, gv, w, mask = (inp["statics"], inp["gv_mean"], inp["weight"],
@@ -3764,8 +3787,8 @@ def main() -> int:
         "hsmm_loglik": (hsmm.batch_frame_loglik,
                         hsmm.batch_frame_loglik_plain),
         "hsmm_fb": (hsmm.segment_fb, hsmm.segment_fb_plain),
-        "hsmm_accumulate": (hsmm_batch.segment_sum,
-                            hsmm_batch.segment_sum_plain),
+        "hsmm_accumulate": (hsmm_batch.segment_sums,
+                            hsmm_batch.segment_sums_plain),
         "hsmm_viterbi": (hsmm.viterbi_segment_batch,
                          hsmm.viterbi_segment_batch_plain),
         "mspf": (pf_mod.mspf, pf_mod.mspf_plain),
@@ -4017,7 +4040,12 @@ def main() -> int:
                                         inp["k_len"].tolist()))
             t_o = 20.0 * terms / F64_OPS_PER_S
         elif name == "hsmm_accumulate":
-            t_o = float(inp["vals"].numel()) / F64_OPS_PER_S
+            # every table's statistics, row ids and running table read
+            # once, the tables written once; an add a statistic and a
+            # table entry (the member lists are the kernel's own)
+            moved = nbytes(*inp["vals"], *inp["ids"], *inp["acc"], *outs)
+            t_o = float(sum(v.numel() for v in inp["vals"])
+                        + sum(a.numel() for a in inp["acc"])) / F64_OPS_PER_S
         elif name == "hsmm_viterbi":
             # ~4 float64 operations per (state, t, d) term of this run's
             # t_len / k_len
@@ -4242,10 +4270,11 @@ def main() -> int:
                                device=dev)
             return lambda: torch.max(cand, dim=1)
         if name == "hsmm_accumulate":
-            v, ids = inp["vals"], inp["ids"]
-            return lambda: torch.zeros((inp["n_rows"], v.shape[1]),
-                                       dtype=v.dtype, device=dev) \
-                .index_add_(0, ids, v)
+            # an index_add_ a table into zeros (not the add into the
+            # running table: `library_whole` has it)
+            return lambda: [torch.zeros(a.shape, dtype=a.dtype, device=dev)
+                            .index_add_(0, i, v) for v, i, a in zip(
+                                inp["vals"], inp["ids"], inp["acc"])]
         if name == "mspf":
             # rfft at 64 of the prebuilt windowed frames, the log
             # magnitude, the map and the irfft (no framing, no OLA)
@@ -5041,13 +5070,19 @@ def main() -> int:
         if name == "hsmm_fb":
             return check_k18(inp, out_k, out_p)
         if name == "hsmm_accumulate":
-            out_c = hsmm_batch.segment_sum_plain(**on_cpu(inp))
-            again = hsmm_batch.segment_sum(**inp)
-            same, det = bit_same(out_k[0], out_c), torch.equal(again,
-                                                               out_k[0])
-            return (same and det, max_err([(out_k[0], out_c)]),
-                    f"bit-equal to the plain version's index_add_ on the "
-                    f"CPU: {same}; two launches identical: {det}")
+            def to_cpu(v):
+                if isinstance(v, torch.Tensor):
+                    return v.cpu()
+                return tuple(map(to_cpu, v)) if isinstance(v, tuple) else v
+            cpu = {k: to_cpu(v) for k, v in inp.items()}
+            out_c = hsmm_batch.segment_sums_plain(**cpu)
+            again = hsmm_batch.segment_sums(**inp)
+            same = all(bit_same(k, c) for k, c in zip(out_k, out_c))
+            det = all(torch.equal(a, k) for a, k in zip(again, out_k))
+            return (same and det, max_err(zip(out_k, out_c)),
+                    f"{len(out_k)} tables at {list(inp['n_rows'])} rows: "
+                    f"bit-equal to the plain version's index_add_ and add "
+                    f"on the CPU: {same}; two launches identical: {det}")
         if name == "harvest_decimate":
             k, p = out_k[0], out_p[0]
             err = (k - p).abs()
@@ -5145,6 +5180,7 @@ def main() -> int:
         return next(p for p in PATHS if name in PATHS[p])
 
     summary = {}
+    k39_launches = []       # a copy-synthesis batch's K39 launches, timed
     heavy = ("fix_f0", "mlpg_solve", "dio_candidates", "harvest_candidates",
              "harvest_refine", "harvest_contour", "hsmm_loglik",
              "hsmm_fb", "hsmm_viterbi", "trajectory_nll",
@@ -5214,6 +5250,10 @@ def main() -> int:
         if not ok:
             raise RuntimeError(f"{name}: kernel disagrees with its plain "
                                f"version (max abs err {err:.3e})")
+        if name == "fft_r2c" and path == "copy_synth":
+            k39_launches.append((inp["N"], inp["x"].shape[-1],
+                                 inp["x"].shape[0], inp["mode"], ms, dev_ms,
+                                 lib_ms, bms))
         s = summary.setdefault(name, dict(err=0.0, ms=0.0, plain_ms=0.0,
                                           bound_ms=0.0, lib_ms=None,
                                           lib2_ms=None, lib3_ms=None,
@@ -5236,6 +5276,32 @@ def main() -> int:
 
     def fmt_ms(v):
         return "not measured" if v is None else f"{v:.4f} ms"
+
+    def k39_table(rows):
+        """Each K39 launch of a copy-synthesis batch beside its torch.fft
+        line and bound, and their sums."""
+        callers = {(4096, 2048, fftmat.REIM): "StoneMask",
+                   (2048, 2048, fftmat.POWER): "CheapTrick",
+                   (4096, 3712, fftmat.POWER): "D4C LoveTrain",
+                   (4096, 2816, fftmat.REIM): "D4C centroid",
+                   (4096, 2816, fftmat.POWER): "D4C MEAN",
+                   (4096, 513, fftmat.POWER): "D4C bands",
+                   (2048, 2048, fftmat.REIM): "synthesis noise",
+                   (2048, 1025, fftmat.FOLD): "synthesis fold"}
+        for Nf, L_, R_, mode, ms, d_ms, l_ms, b_ms in rows:
+            sparse, plan = fftmat.r2c_plan(Nf, L_)
+            print(f"K39 launch {callers.get((Nf, L_, mode), '?')}: N {Nf}, "
+                  f"L {L_}, {R_} rows, mode {mode}, plan "
+                  f"{'sparse ' if sparse else ''}"
+                  f"{'x'.join(str(r) for r, _ in plan)}: {1e3 * ms:.1f} µs "
+                  f"(device {fmt_ms(d_ms)}), torch.fft {1e3 * l_ms:.1f} µs, "
+                  f"bound {1e3 * b_ms:.1f} µs", flush=True)
+        tot = [sum(r[i] for r in rows) for i in (4, 6, 7)]
+        print(f"K39 over a copy-synthesis batch's {len(rows)} launches: "
+              f"{1e3 * tot[0]:.1f} µs, torch.fft {1e3 * tot[1]:.1f} µs, "
+              f"bound {1e3 * tot[2]:.1f} µs; launches at or under their "
+              f"torch.fft line: {sum(r[4] <= r[6] for r in rows)} of "
+              f"{len(rows)}", flush=True)
 
     def k9_routes(f0):
         """K9's two routes in one launch: the headline batch's contours,
@@ -5366,6 +5432,7 @@ def main() -> int:
 
     for path, name, inp in replays:
         replay(path, name, inp)
+    k39_table(k39_launches)
     k9_routes(next(i for n, i in rec_cs if n == "synth_time_base")["f0"])
     del rec_cs, rec_fl, rec_sl, rec_hl, replays
     torch.cuda.empty_cache()
@@ -5443,7 +5510,17 @@ def main() -> int:
           # twice that for the gradient, and the variance term
           + f"; gv_refine (530, 3, 50) x 10 iterations "
           + stage_bound(8 * (2 * 530 * 3 * 50 + 530 * 50),
-                        ops64=10 * 530 * 50 * 3 * (3 * (6 + 4) + 8)),
+                        ops64=10 * 530 * 50 * 3 * (3 * (6 + 4) + 8))
+          # the LSP postfilter with its energy match (ops/postfilter.py
+          # lsp_postfilter) on a generated utterance, T 530, order 24 (25
+          # columns with the gain), float64, in and out once; a frame's
+          # sharpening (~12 a coefficient), check (~6), and twice lsp2lpc
+          # (two products of m/2 quadratics, ~4 m (m + 2)), a 512-point
+          # real FFT (2.5 n log2 n) and 257 bins of |A|^2, exp, divide
+          # and sum (~12)
+          + "; LSP postfilter (530, 25) "
+          + stage_bound(8 * 2 * 530 * 25, ops64=530 * (
+              18 * 24 + 2 * (4 * 24 * 26 + 2.5 * 512 * 9 + 12 * 257))),
           flush=True)
 
     # ---- 4. the card against the CPU (plain) path, small input ----
@@ -5825,6 +5902,13 @@ def main() -> int:
           f"{k17['ms']:.4f} ms under events, device {fmt_ms(k17['dev_ms'])} "
           f"behind a sleep, library {k17['lib_ms']:.4f} ms, bound "
           f"{k17['bound_ms']:.4f} ms", flush=True)
+    k19 = summary["hsmm_accumulate"]
+    print(f"K19 over the E-step's {counts_hm['hsmm_accumulate']} launches "
+          f"(one a batch, every table): {k19['ms']:.4f} ms under events, "
+          f"device {fmt_ms(k19['dev_ms'])} behind a sleep, index_add_ a "
+          f"table {fmt_ms(k19['lib_ms'])}, whole job (index_add_ and the "
+          f"merge adds) {fmt_ms(k19['lib3_ms'])}, bound "
+          f"{k19['bound_ms']:.4f} ms", flush=True)
     del rec_hm
     torch.cuda.empty_cache()
 
@@ -5894,7 +5978,7 @@ def main() -> int:
         def append(self, item):
             name, inp = item
             if name == "hsmm_viterbi" or (name == "hsmm_accumulate"
-                                          and inp["n_rows"] >= 1000
+                                          and max(inp["n_rows"]) >= 1000
                                           and len(self) < 400):
                 super().append(item)
 

@@ -96,7 +96,7 @@ KERNELS = {
                 [_P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _P, _P, _P, _P, _P,
                  _P, _P]),
     "hsmm_accumulate": ("hsmm_accumulate.cu", "hsmm_accumulate_launch",
-                        [_P, _P, _I, _I, _I, _P]),
+                        [_I, _P, _P]),
     "hsmm_viterbi": ("hsmm_viterbi.cu", "hsmm_viterbi_launch",
                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
                       _P]),
@@ -149,7 +149,7 @@ KERNELS = {
     "mcep_newton": ("mcep_newton.cu", "mcep_newton_launch",
                     [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P]),
     "fft_r2c": ("fft_r2c.cu", "fft_r2c_launch",
-                [_P, _I, _I, _I, _I, _P, _I, _P, _P]),
+                [_P, _I, _I, _I, _I, _P, _I, _I, _P, _P]),
     "fft_c2r": ("fft_c2r.cu", "fft_c2r_launch",
                 [_P, _P, _I, _I, _I, _P, _I, _P]),
 }

@@ -10,7 +10,9 @@ into those tables, per stream for the tied model.  Per padded batch:
   K17 (gathered MSD log-likelihoods) -> duration gather ->
   K18 (segmental forward-backward, true t_len/k_len) -> `ok` mask ->
   per stream gamma^T @ frames and gamma^T @ frames^2 (`torch.bmm`) ->
-  K19 (segment sums into the row tables, in a fixed order)
+  K19 (one launch: every table's segment sums, in a fixed order, added
+  into the E-step's running row tables; its member lists are built on the
+  host as the batch is padded)
 
 Utterances are grouped on the JAX package's bucket grid (T aligned to 16,
 K to 4, growth 1.26), so groups, batches and every summation order over
@@ -19,6 +21,7 @@ ends; the host reads them once.  All float64.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 from typing import Dict, List, Sequence, Tuple
@@ -235,19 +238,118 @@ def align_corpus(utterances, n_states: int, chain, score, dur_mean,
 
 
 def segment_sum_plain(vals, ids, n_rows: int):
-    """The plain twin of K19: `index_add_`, which on the CPU adds the rows
-    of `vals` (N, C) in ascending order of N.  (On the card its float64
-    atomics add in another order on every run; it is K19's yardstick.)"""
+    """The plain twin of K19 for one table: `index_add_`, which on the
+    CPU adds the rows of `vals` (N, C) in ascending order of N.  (On the
+    card its float64 atomics add in another order on every run; it is
+    K19's yardstick.)"""
     out = torch.zeros((n_rows, vals.shape[1]), dtype=vals.dtype,
                       device=vals.device)
     return out.index_add_(0, ids, vals)
 
 
-def segment_sum(vals, ids, n_rows: int):
-    """K19: out[r] = the sum of vals[i] (N, C) over i with ids[i] == r,
-    added in ascending i from 0.0 — the CPU's `index_add_` order, so the
-    card's sums equal the CPU's bit for bit and do not vary between runs.
-    ids (N,) int64 in [0, n_rows); float64."""
+def member_lists(ids, n_rows: int):
+    """K19's member lists of one table's row ids (N,): the positions in a
+    stable order by row id and each row's offsets into it, CSR form, both
+    int32 numpy: row r's members are order[offsets[r]:offsets[r + 1]], in
+    ascending position."""
+    ids = np.asarray(ids).reshape(-1)
+    if ids.size and (ids.min() < 0 or ids.max() >= n_rows):
+        raise ValueError(f"member_lists: row ids must lie in [0, {n_rows})")
+    offsets = np.zeros(n_rows + 1, np.int32)
+    np.cumsum(np.bincount(ids, minlength=n_rows), out=offsets[1:])
+    return np.argsort(ids, kind="stable").astype(np.int32), offsets
+
+
+def upload_members(lists, device):
+    """Per table (order, offsets) numpy pairs (`member_lists`) uploaded in
+    one copy: int32 views on `device`."""
+    flat = torch.as_tensor(np.concatenate(
+        [np.asarray(a, np.int32) for pair in lists for a in pair]),
+        device=device)
+    out, at = [], 0
+    for order, offsets in lists:
+        n1, n2 = len(order), len(offsets)
+        out.append((flat[at:at + n1], flat[at + n1:at + n1 + n2]))
+        at += n1 + n2
+    return out
+
+
+def segment_sums_plain(vals, ids, n_rows, acc, members=None):
+    """The plain twin of K19's launch: for each table, the running table
+    `acc` plus `segment_sum_plain` of its statistics (`members` is not
+    needed)."""
+    return tuple(a + segment_sum_plain(v, i, n)
+                 for v, i, n, a in zip(vals, ids, n_rows, acc))
+
+
+MAX_TABLES = 8      # tables one K19 launch takes
+
+
+def segment_sums(vals, ids, n_rows, acc, members=None, out=None):
+    """K19: for each table t of a batch (up to MAX_TABLES, one launch),
+    out[t] = acc[t] + S, where S[r] is the sum of vals[t][i] (N, C) over
+    the i with ids[t][i] == r, added in ascending i from 0.0 (the CPU's
+    `index_add_` order, so the card's sums equal the CPU's bit for bit and
+    do not vary between runs) and the add into acc is the same float64 add
+    as a merge on the host.  ids (N,) int64 in [0, n_rows[t]); acc (n_rows,
+    C); float64.  `members`: per table (order, offsets) from
+    `member_lists`, numpy or int32 on the device (built from the ids when
+    None); `out`: the tables written (acc itself adds in place), fresh
+    when None.  Returns the tables written."""
+    if not vals[0].is_cuda:
+        res = segment_sums_plain(vals, ids, n_rows, acc)
+        if out is None:
+            return res
+        for o, r in zip(out, res):
+            o.copy_(r)
+        return tuple(out)
+    n = len(vals)
+    if not 1 <= n <= MAX_TABLES or not n == len(ids) == len(n_rows) \
+            == len(acc) or (members is not None and len(members) != n):
+        raise ValueError(f"segment_sums: 1 to {MAX_TABLES} tables, each "
+                         f"with its vals, ids, n_rows and acc")
+    dev = vals[0].device
+    if members is None:
+        members = [member_lists(i.cpu().numpy(), nr)
+                   for i, nr in zip(ids, n_rows)]
+    if isinstance(members[0][0], np.ndarray):
+        members = upload_members(members, dev)
+    vals = tuple(v.contiguous() for v in vals)
+    out = tuple(torch.empty_like(a) for a in acc) if out is None \
+        else tuple(out)
+    f64, i32 = torch.float64, torch.int32
+    flat, dims = [], []
+    for v, i, nr, a, o, (order, offsets) in zip(vals, ids, n_rows, acc, out,
+                                                members):
+        if (v.dim() != 2 or i.dim() != 1 or nr < 1 or v.shape[1] < 1
+                or v.dtype != f64
+                or a.dtype != f64 or o.dtype != f64 or i.dtype != torch.long
+                or order.dtype != i32 or offsets.dtype != i32
+                or i.shape[0] != v.shape[0] or order.shape[0] != v.shape[0]
+                or offsets.shape[0] != nr + 1
+                or a.shape != (nr, v.shape[1]) or o.shape != a.shape):
+            raise ValueError("segment_sums: float64 vals (N, C), int64 ids "
+                             "(N,), n_rows >= 1, float64 acc and out (n_rows,"
+                             " C), int32 members (N,), (n_rows + 1,)")
+        flat += (v, order, offsets, a, o)
+        dims += (v.shape[1], nr)
+    kernels.check_cuda("segment_sums", *flat)
+    inputs = dict(vals=vals, ids=tuple(ids), n_rows=tuple(n_rows),
+                  acc=tuple(a.clone() if kernels.record is not None else a
+                            for a in acc),
+                  members=tuple(members))
+    kernels.launch("hsmm_accumulate", [
+        n, (ctypes.c_ulonglong * len(flat))(*(t.data_ptr() for t in flat)),
+        (ctypes.c_int * len(dims))(*dims)], inputs)
+    return out
+
+
+def segment_sum(vals, ids, n_rows: int, members=None):
+    """K19 on one table: out[r] = the sum of vals[i] (N, C) over i with
+    ids[i] == r, added in ascending i from 0.0, as `segment_sums` into a
+    table at +0.0.  ids (N,) int64 in [0, n_rows); float64; `members` as
+    `segment_sums` takes them (the caller that holds the ids on the host
+    builds them there)."""
     if not vals.is_cuda:
         return segment_sum_plain(vals, ids, n_rows)
     if (vals.dtype != torch.float64 or vals.dim() != 2
@@ -255,14 +357,11 @@ def segment_sum(vals, ids, n_rows: int):
             or n_rows < 1):
         raise ValueError("segment_sum: float64 vals (N, C), int64 ids (N,), "
                          "n_rows >= 1")
-    vals, ids = vals.contiguous(), ids.contiguous()
-    kernels.check_cuda("segment_sum", vals, ids)
-    N, C = vals.shape
-    out = torch.empty((n_rows, C), dtype=vals.dtype, device=vals.device)
-    kernels.launch("hsmm_accumulate", [
-        vals.data_ptr(), ids.data_ptr(), N, C, n_rows, out.data_ptr()],
-        dict(vals=vals, ids=ids, n_rows=n_rows))
-    return out
+    acc = torch.zeros((n_rows, vals.shape[1]), dtype=vals.dtype,
+                      device=vals.device)
+    return segment_sums((vals,), (ids,), (n_rows,), (acc,),
+                        None if members is None else (members,),
+                        out=(acc,))[0]
 
 
 # ---------------------------------------------------------------------------
@@ -273,7 +372,8 @@ def segment_sum(vals, ids, n_rows: int):
 def _bucket_estep_stages(frames, rows, dur_rows, t_len, k_len, w,
                          means, vars_, msd_w, dur_mean, dur_var,
                          sls, flags, wts, max_dur: int, n_rows,
-                         n_dur_rows: int, temper: float = 1.0):
+                         n_dur_rows: int, temper: float = 1.0,
+                         members=None, into=None):
     """One padded batch -> accumulators, yielding after each stage:
     ("loglik", None), ("fb", None), ("moments", None) and
     ("accumulate", (total_ll, n_ok, per-stream dicts, dur (R_d, 3))), all
@@ -281,7 +381,11 @@ def _bucket_estep_stages(frames, rows, dur_rows, t_len, k_len, w,
 
     frames (B,T,D); rows: tuple per stream (B,K); dur_rows (B,K);
     t_len/k_len (B,) int64; w (B,).  means/vars_/msd_w: tuples of
-    (R_s, D_s)/(R_s,)."""
+    (R_s, D_s)/(R_s,).  K19 adds the batch's sums of every stream and the
+    durations, in one launch, into the running tables `into` (per stream
+    (R_s, C_s), then (R_d, 3); fresh at +0.0 when None); `members` are
+    the tables' `member_lists` (built from the row ids when None).  The
+    dicts are views of those tables."""
     obs_ll = hsmm.batch_frame_loglik(frames, rows, means, vars_, msd_w,
                                      sls, flags, wts)
     yield "loglik", None
@@ -315,20 +419,32 @@ def _bucket_estep_stages(frames, rows, dur_rows, t_len, k_len, w,
         stats.append(torch.cat(cols, -1))
     yield "moments", None
 
+    vals = [st.reshape(-1, st.shape[-1]) for st in stats] \
+        + [dstats.reshape(-1, 3)]
+    nr = tuple(n_rows) + (n_dur_rows,)
+    if into is None:
+        into = [torch.zeros((n, v.shape[1]), dtype=v.dtype, device=v.device)
+                for n, v in zip(nr, vals)]
+    tabs = segment_sums(vals, [r.reshape(-1) for r in rows]
+                        + [dur_rows.reshape(-1)], nr, into, members,
+                        out=into)
+    yield "accumulate", (total_ll, n_ok, stream_parts(tabs[:-1], sls, flags),
+                         tabs[-1])
+
+
+def stream_parts(tabs, sls, flags):
+    """Per stream, the named column views of its K19 table (R, C): occ, x,
+    x2 (+ p_occ, p_tot for an MSD stream)."""
     out = []
-    for i, ((a, b), st) in enumerate(zip(sls, stats)):
-        acc = segment_sum(st.reshape(-1, st.shape[-1]), rows[i].reshape(-1),
-                          n_rows[i])
+    for acc, (a, b), msd in zip(tabs, sls, flags):
         d = b - a
         parts = {"occ": acc[:, 0], "x": acc[:, 1:1 + d],
                  "x2": acc[:, 1 + d:1 + 2 * d]}
-        if flags[i]:
+        if msd:
             parts["p_occ"] = acc[:, 1 + 2 * d]
             parts["p_tot"] = acc[:, 2 + 2 * d]
         out.append(parts)
-    dur_acc = segment_sum(dstats.reshape(-1, 3), dur_rows.reshape(-1),
-                          n_dur_rows)
-    yield "accumulate", (total_ll, n_ok, out, dur_acc)
+    return out
 
 
 def _bucket_estep(*args, **kw):
@@ -374,7 +490,12 @@ def corpus_estep_stages(tables: RowTables,
                 for n, f in zip(names, flags))
     dm_t, dv_t = t(tables.dur_mean), t(tables.dur_var)
 
-    acc = None
+    # the E-step's running tables, per stream then the durations: K19
+    # adds each batch's sums into them
+    tabs = [torch.zeros((n, 1 + 2 * (b - a) + 2 * f), dtype=f64, device=dev)
+            for n, (a, b), f in zip(nr, sls, flags)] \
+        + [torch.zeros((n_dur_rows, 3), dtype=f64, device=dev)]
+    total = None
     for (Tb, Kb), group in sorted(_groups(utts, growth).items()):
         for at in range(0, len(group), max_batch):
             frames, rows, dur_rows, t_len, k_len, w = _pad_group(
@@ -382,31 +503,33 @@ def corpus_estep_stages(tables: RowTables,
             args = (t(frames), tuple(t(rows[n], torch.long) for n in names),
                     t(dur_rows, torch.long), t(t_len, torch.long),
                     t(k_len, torch.long), t(w))
+            members = (upload_members(
+                [member_lists(rows[n], r) for n, r in zip(names, nr)]
+                + [member_lists(dur_rows, n_dur_rows)], dev)
+                if dev.type == "cuda" else None)
             yield "pad", None
             for stage, res in _bucket_estep_stages(
                     *args, m_t, v_t, w_t, dm_t, dv_t, sls, flags, wts,
-                    max_dur, nr, n_dur_rows, temper):
+                    max_dur, nr, n_dur_rows, temper, members, tabs):
                 yield stage, None
-            if acc is None:
-                acc = res
-            else:
-                ll, ok, accs, dur = res
-                acc = (acc[0] + ll, acc[1] + ok,
-                       [{k: a[k] + s[k] for k in a}
-                        for a, s in zip(acc[2], accs)], acc[3] + dur)
-    total_ll, n_ok, accs, dur = acc
+            ll, ok = res[:2]
+            total = (ll, ok) if total is None else (total[0] + ll,
+                                                    total[1] + ok)
+    total_ll, n_ok = total
+    host = [np.asarray(a.cpu().numpy()) for a in tabs]
     yield "done", EStepAccumulators(
         float(total_ll), float(n_ok),
-        [{k: v.cpu().numpy() for k, v in a.items()} for a in accs],
-        dur.cpu().numpy())
+        [{k: np.ascontiguousarray(v) for k, v in a.items()}
+         for a in stream_parts(host[:-1], sls, flags)], host[-1])
 
 
 def corpus_estep(tables: RowTables, utts: Sequence[ChainedUtterance],
                  n_rows: Dict[str, int], n_dur_rows: int, max_dur: int = 40,
                  temper: float = 1.0, growth: float = 1.26,
                  max_batch: int = 32, device="cuda") -> EStepAccumulators:
-    """Full-corpus soft E-step: bucket -> pad -> _bucket_estep -> merge,
-    the accumulators summed on the device and read once at the end."""
+    """Full-corpus soft E-step: bucket -> pad -> _bucket_estep, whose K19
+    adds each batch into the running tables on the device; the host reads
+    them once at the end."""
     for _, res in corpus_estep_stages(tables, utts, n_rows, n_dur_rows,
                                       max_dur, temper, growth, max_batch,
                                       device):

@@ -552,7 +552,8 @@ def embedded_reestimate_mix(mms: MixtureModelSet, utterances,
             cols = torch.cat([r, (r[:, :, None] * x[:, None]).reshape(
                 len(r_f), -1), (r[:, :, None] * (x * x)[:, None]).reshape(
                 len(r_f), -1)], 1)
-            acc = hb.segment_sum(cols, ids, R).cpu().numpy()
+            acc = hb.segment_sum(cols, ids, R, hb.member_lists(r_f, R)
+                                 if x.is_cuda else None).cpu().numpy()
             Ds = block.shape[1]
             occ_all = acc[:, :C] + 1e-10
             mx_all = acc[:, C:C + C * Ds].reshape(R, C, Ds)

@@ -214,9 +214,60 @@ def _twiddles_np(N: int):
 
 
 def _twiddles(N: int, device):
-    """The kernels' twiddle table (they transform in float64 whatever
-    the rows' type)."""
+    """K40's twiddle table (it transforms in float64 whatever the rows'
+    type)."""
     return _on(_twiddles_np, N, torch.float64, device)
+
+
+# K39's pass plans (csrc/fft_r2c_core.cuh: `n_passes`, `radix`,
+# `sparse_ok`): the N/2 = M-point FFT of z_m = x_2m + i x_2m+1 in passes
+# of radix 16 and one of 2^(log2 M mod 4); where z is zero past M/4 the
+# sparse plan first folds a radix-8 pass into the next pass's loads, at
+# the M where that saves a pass.
+R2C_SPARSE_M = (64, 128, 512, 1024, 2048)
+
+
+def r2c_plan(N: int, L: int):
+    """K39's plan for rows of L samples at N points: (sparse, [(radix,
+    Ns), ...]), Ns the product of the earlier radices (8 after the
+    sparse plan's folded pass)."""
+    M = N // 2
+    sparse = (L + 1) // 2 <= M // 4 and M in R2C_SPARSE_M
+    m = M.bit_length() - 1 - (3 if sparse else 0)
+    plan, ns = [], 8 if sparse else 1
+    for R in [16] * (m // 4) + ([1 << (m % 4)] if m % 4 else []):
+        plan.append((R, ns))
+        ns *= R
+    return sparse, plan
+
+
+def _w(num, den):
+    """W_den^num = (cos, -sin)(2 pi num / den), num reduced mod den."""
+    ang = 2.0 * np.pi * (np.asarray(num) % den) / den
+    return np.cos(ang) - 1j * np.sin(ang)
+
+
+@functools.lru_cache(maxsize=None)
+def r2c_table_np(N: int, sparse: bool):
+    """K39's twiddle table for a launch size, in the threads' order: W_N^k
+    for the split (k <= N/4), then for each pass with Ns > 1 the values
+    W_{R Ns}^(r k) at [(r-1) Ns + k], r in [1, R), k < Ns; (n, 2)
+    interleaved float64."""
+    M = N // 2
+    _, plan = r2c_plan(N, 1 if sparse else N)
+    parts = [_w(np.arange(M // 2 + 1), N)]
+    for R, ns in plan:
+        if ns > 1:
+            parts.append(_w(np.arange(1, R)[:, None] * np.arange(ns)[None],
+                            R * ns).reshape(-1))
+    w = np.concatenate(parts)
+    return np.ascontiguousarray(np.stack([w.real, w.imag], 1))
+
+
+@functools.lru_cache(maxsize=None)
+def _r2c_table(N: int, sparse: bool, device):
+    return torch.as_tensor(r2c_table_np(N, sparse), dtype=torch.float64,
+                           device=device)
 
 
 def fold_weights(N: int, dtype, device):
@@ -259,14 +310,15 @@ def r2c(x, N: int, mode: int = REIM):
                          f"fold); got mode {mode}, L {L}, N {N}")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, L).contiguous()
-    tw = _twiddles(N, x.device)
+    sparse, _ = r2c_plan(N, L)
+    tw = _r2c_table(N, sparse, x.device)
     kernels.check_cuda("r2c", x2, tw)
     R, H = x2.shape[0], N // 2 + 1
     out0 = torch.empty((R, H), dtype=x.dtype, device=x.device)
     out1 = None if mode == POWER else torch.empty_like(out0)
     f64 = x.dtype == torch.float64
     kernels.launch("fft_r2c", [
-        x2.data_ptr(), R, L, N, mode, tw.data_ptr(), int(f64),
+        x2.data_ptr(), R, L, N, mode, tw.data_ptr(), int(sparse), int(f64),
         out0.data_ptr(), out1.data_ptr() if out1 is not None else None],
         dict(x=x2, N=N, mode=mode), variant="f64" if f64 else None)
     if mode == POWER:

@@ -1476,6 +1476,63 @@ def test_k19_bit_equal_at_the_untied_row_count(cuda):
     assert not a[R - 50:].any()
 
 
+@pytest.mark.parametrize("R", [200, 1485])
+def test_k19_one_launch_for_a_batch_bit_equal_to_cpu(cuda, R):
+    """A batch's five tables (an E-step's four streams at D = 237 and the
+    durations) in one launch into non-zero running tables: bit-equal to
+    the CPU twin, the same on a second launch and in place, empty rows
+    left as they were."""
+    rng = np.random.default_rng(R)
+    widths = (301, 9, 151, 9, 3)
+    N = 26 * 132
+    ids = [rng.integers(0, R - 40, N) for _ in widths]
+    ids[0][:50] = R - 1
+    vals = [torch.as_tensor(rng.standard_normal((N, C)) * 10.0 ** (
+        rng.uniform(-3, 3, (N, 1))), device=cuda) for C in widths]
+    acc = [torch.as_tensor(rng.standard_normal((R, C)), device=cuda)
+           for C in widths]
+    ids_t = [torch.as_tensor(i, device=cuda) for i in ids]
+    rows = (R,) * len(widths)
+    members = [hsmm_batch.member_lists(i, R) for i in ids]
+    kernels.reset_counts()
+    a = hsmm_batch.segment_sums(vals, ids_t, rows, acc, members)
+    b = hsmm_batch.segment_sums(vals, ids_t, rows, acc)
+    assert kernels.launches["hsmm_accumulate"] == 2
+    c = hsmm_batch.segment_sums_plain([v.cpu() for v in vals],
+                                      [i.cpu() for i in ids_t], rows,
+                                      [x.cpu() for x in acc])
+    for x, y, z, w in zip(a, b, c, acc):
+        assert torch.equal(x, y) and torch.equal(x.cpu(), z)
+        assert torch.equal(x[R - 40:R - 1], w[R - 40:R - 1])
+    inplace = [x.clone() for x in acc]
+    hsmm_batch.segment_sums(vals, ids_t, rows, inplace, members,
+                            out=inplace)
+    assert all(torch.equal(x, y) for x, y in zip(inplace, a))
+
+
+def test_estep_launches_k19_once_a_batch(cuda):
+    """The E-step launches K19 once a padded batch (every table), and its
+    accumulators agree with the CPU path's within 1e-9 of each array's
+    largest value (K17, K18 and the moments round differently there)."""
+    ms, utts = chip_smoke.hsmm_tiny_corpus(hsmm, seed=6)
+    chained, _ = hsmm_batch.chain_modelset(ms, utts)
+    M, S = ms.dur_mean.shape
+    n_rows = {st.name: M * S for st in ms.streams}
+    tab = hsmm_batch.tables_from_modelset(ms)
+    kernels.reset_counts()
+    got = hsmm_batch.corpus_estep(tab, chained, n_rows, M * S, 40,
+                                  max_batch=3)
+    n_batches = sum(-(-len(g) // 3)
+                    for g in hsmm_batch._groups(chained).values())
+    assert kernels.launches["hsmm_accumulate"] == n_batches
+    want = hsmm_batch.corpus_estep(tab, chained, n_rows, M * S, 40,
+                                   max_batch=3, device="cpu")
+    for g, w in zip(got.streams, want.streams):
+        assert all(np.abs(g[k] - w[k]).max() <= 1e-9 * np.abs(w[k]).max()
+                   for k in w)
+    assert np.abs(got.dur - want.dur).max() <= 1e-9 * np.abs(want.dur).max()
+
+
 def test_recipe_matches_the_cpu_path(cuda):
     from hts_train_world_tpu_torch.features import qconf
     from hts_train_world_tpu_torch.models import clustering, recipe
@@ -2724,6 +2781,46 @@ def test_k39_kernel_matches_the_twin_and_a_float64_dft(cuda, N, dtype):
     re, im = fftmat.r2c(c, N, fftmat.FOLD)
     assert _fft_worst((re, im), (ref.real, ref.imag),
                       _r2c_scales(folded, ref)[0]) <= FFT_TOL[dtype]
+
+
+# (N, L, mode): a copy-synthesis batch's K39 launches (StoneMask,
+# CheapTrick, D4C's LoveTrain, centroid, MEAN and bands, synthesis' noise
+# and fold), then the edges of L at their two sizes
+K39_LAUNCHES = tuple(dict.fromkeys((
+    (4096, 2048, 0), (2048, 2048, 1), (4096, 3712, 1), (4096, 2816, 0),
+    (4096, 2816, 1), (4096, 513, 1), (2048, 2048, 0), (2048, 1025, 2))
+    + tuple((N, L, m) for N in (2048, 4096)
+            for L in (1, N // 4, N // 4 + 1, N // 2, N // 2 + 1, N)
+            for m in (0, 1, 2) if m != 2 or L <= N // 2 + 1)))
+
+
+@pytest.mark.parametrize("N,L,mode", K39_LAUNCHES)
+def test_k39_at_the_batch_launches_by_check_fft_rule(cuda, N, L, mode):
+    """K39 at the shapes a copy-synthesis batch gives it, and at the edges
+    of L, on 70 rows (harmonic rows, whose peak bins are ~20x their norm,
+    among random ones, zeros and an impulse): within 1e-6 of a float64
+    torch.fft on the element scale and no farther from it than the table
+    twin, as chip_smoke.py's `check_fft` holds each replayed launch."""
+    x = _fft_rows(70, L, N + L + mode, torch.float32, cuda)
+    n = torch.arange(L, device=cuda, dtype=torch.float64)
+    for r in range(3, 20):
+        f0 = 80.0 + 20.0 * r
+        x[r] = sum(torch.cos(2 * np.pi * h * f0 * n / 48000.0 + h)
+                   for h in range(1, 12)).float()
+    x64 = x.double()
+    if mode == fftmat.FOLD:
+        x64 = x64 * fftmat.fold_weights(N, torch.float64, cuda)[:L]
+    ref = torch.fft.rfft(x64, n=N)
+    sc, sc_p = _r2c_scales(x64, ref)
+    got = fftmat.r2c(x, N, mode)
+    twin = fftmat.r2c_plain(x, N, mode)
+    if mode == fftmat.POWER:
+        want, scale = (ref.abs() ** 2,), sc_p
+        got, twin = (got,), (twin,)
+    else:
+        want, scale = (ref.real, ref.imag), sc
+    e_k = _fft_worst(got, want, scale)
+    assert e_k <= 1e-6 and e_k <= _fft_worst(twin, want, scale)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
