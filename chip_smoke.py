@@ -247,8 +247,12 @@ Phases (any failure raises):
    alpha 0.55 (K38), `synthesize_sptk`;
    mc card vs CPU within 1e-9 of max |mc|, the waveform from the same mc
    within 1e-10; (c) K35-K38 replayed against their twins (K35 bit for bit
-   against the CPU's) (`sptk_lane`, `sptk_card_vs_cpu`, `sptk_copy_lane`,
-   which rehearse on the CPU with stub `counted`/`profiled`).
+   against the CPU's, K37 beside its whole-job library line), and K37 at
+   fs/N 16000/512 (K39's dense plan), 16000/1000 (the direct DFT),
+   16000/1024, 48000/2048 and 96000/4096 (the sparse plan) within 1e-11
+   of max |y| (`sptk_lane`, `sptk_card_vs_cpu`, `sptk_copy_lane`,
+   `k37_sizes`, which rehearse on the CPU with stub `counted`/`profiled`
+   and `device="cpu"`).
 
 Prints each measurement, the card's name and power limit, a `kernels`
 JSON line, and as the last line {"ok": true, "device": {...}}.  Exits
@@ -456,6 +460,20 @@ PATHS = {
     "sptk_copy": ("mcep_newton", "excite", "band_fir", "mglsa_filter"),
 }
 SPTK_KERNELS = ("excite", "band_fir", "mglsa_filter", "mcep_newton")
+# the CUDA kernels' names of a kernel whose launchers enqueue kernels not
+# named after it (K18's three stages, K37's), for the profiler's lines
+SYMBOLS = {"hsmm_fb": ("hsmm_csum", "hsmm_chain", "hsmm_post"),
+           "mglsa_filter": ("mglsa_h_", "mglsa_fft", "mglsa_dft",
+                            "mglsa_ola")}
+
+
+def profile_kind(key: str, names) -> str:
+    """The kernel of `names` a profiler event's name belongs to, else
+    "gemm" or "other"."""
+    k = key.lower()
+    return next((n for n in names
+                 if n in k or any(y in k for y in SYMBOLS.get(n, ()))),
+                "gemm" if "gemm" in k else "other")
 # kernels also timed on the device alone, behind a sleep
 DEVICE_TIMED = SPTK_KERNELS + FFT + ("synth_time_base", "hsmm_loglik",
                                      "hsmm_mix_loglik", "semitied",
@@ -3273,6 +3291,58 @@ def sptk_lane(counted, profiled, gens, fs, alpha, device="cuda"):
     return counts, rec, ys
 
 
+def sptk_gens(n: int = 16, T: int = 530, seed: int = 20, device="cuda"):
+    """`n` (statics, vuv) pairs for the SPTK engine, float64 on `device`:
+    lf0 of a sung note per phrase (220 Hz up a semitone a phrase, a 6 Hz
+    vibrato, two unvoiced runs), mgc (T, 50) a smooth random envelope
+    (phase 12's phrase length; `lane_timing.py`'s engine lane)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    t = np.arange(T) * FRAME_PERIOD / 1000
+    gens = []
+    for i in range(n):
+        f0 = 220.0 * 2.0 ** ((i + 0.5 * np.sin(2 * np.pi * 6.0 * t)) / 12.0)
+        f0[10:18] = 0.0
+        f0[T // 2:T // 2 + 5] = 0.0
+        lf0 = np.where(f0 > 0, np.log(f0.clip(min=1.0)), -1e10)[:, None]
+        mgc = rng.standard_normal((T, 50)) * 0.05 / (1.0 + np.arange(50))
+        mgc[:, 0] -= 2.0
+        gens.append(({"lf0": torch.as_tensor(lf0, device=device),
+                      "mgc": torch.as_tensor(mgc, device=device)},
+                     torch.as_tensor(f0 > 0, device=device)))
+    return gens
+
+
+K37_SIZES = ((16000, 512), (16000, 1000), (16000, 1024), (48000, 2048),
+             (96000, 4096))
+
+
+def k37_sizes(device="cuda", T: int = 80, M: int = 50, seed: int = 37):
+    """Phase 19 (c): K37 at each (fs, N) of K37_SIZES (K39's dense and
+    sparse plans, the direct DFT at N 1000) against its twin on the same
+    device, within 1e-11 of max |y|; returns the worst ratio."""
+    import torch
+    from hts_train_world_tpu_torch.ops import excitation as ex
+    rng = np.random.default_rng(seed)
+    worst = 0.0
+    for fs, N in K37_SIZES:
+        shift = fs // 200
+        mgc = rng.standard_normal((T, M)) * 0.1 / (1.0 + np.arange(M))
+        mgc[:, 0] += 0.5
+        exc = torch.as_tensor(rng.standard_normal((T - 1) * shift),
+                              device=device)
+        mgc = torch.as_tensor(mgc, device=device)
+        got = ex.mglsa_synthesis(exc, mgc, 0.42, shift, N)
+        want = ex.mglsa_synthesis_plain(exc, mgc, 0.42, shift, N)
+        rel = float((got - want).abs().max() / want.abs().max())
+        print(f"K37 at fs {fs}, N {N} (T {T}): |err| / max |twin| "
+              f"{rel:.2e} <= 1e-11", flush=True)
+        if not rel <= 1e-11:
+            raise RuntimeError(f"K37 disagrees with its twin at N {N}")
+        worst = max(worst, rel)
+    return worst
+
+
 def sptk_card_vs_cpu(gen, fs, alpha, devices=("cuda", "cpu")):
     """Phase 19 (a'): one phrase's statics through the engine on the card
     and on the CPU with the same injected noise: within 1e-10 of max
@@ -3362,8 +3432,8 @@ def sptk_copy_lane(counted, sigs, fs, device="cuda", cpu="cpu"):
 
 
 def library_whole(key, inp):
-    """The whole job of K23, K2 in float64, K32 in float64, K35 and K19 in
-    PyTorch library calls, where `library` in `main` times only a part
+    """The whole job of K23, K2 in float64, K32 in float64, K35, K19 and
+    K37 in PyTorch library calls, where `library` in `main` times only a part
     of it: (the call, a check of its outputs against the kernel's that
     returns (passed, text naming its bound)), or None for another
     kernel.  Timed beside the kernel; used nowhere in the port."""
@@ -3483,6 +3553,41 @@ def library_whole(key, inp):
                 f"counts and non-zero places equal: {same}; candidates rel "
                 f"{rel:.1e} <= 1e-12")
         return detected, check
+    if name == "mglsa_filter":
+        # H = exp(mgc G) by a matmul, the Hann segments by one gather,
+        # torch.fft.rfft, the product, torch.fft.irfft, the taps and the
+        # overlap-add by index_add_ (the table, the window and the indices,
+        # constants of the call, built here)
+        from hts_train_world_tpu_torch.ops import excitation as ex
+        exc, mgc, shift, Nf = (inp["excitation"], inp["mgc"], inp["shift"],
+                               inp["fft_size"])
+        Tn, M = mgc.shape
+        n, L = exc.shape[0], 2 * shift
+        dev = exc.device
+        G = torch.as_tensor(ex.mglsa_table(M - 1, inp["alpha"], Nf),
+                            dtype=exc.dtype, device=dev)
+        win = torch.as_tensor(np.hanning(L + 1)[:L], dtype=exc.dtype,
+                              device=dev)
+        st = torch.arange(Tn, device=dev) * shift
+        gidx = st[:, None] + torch.arange(L, device=dev)
+        oidx = (st[:, None] + torch.arange(3 * L, device=dev)).reshape(-1)
+
+        def filtered():
+            H = torch.exp(mgc @ G)
+            pad = torch.cat([exc.new_zeros(shift), exc, exc.new_zeros(L)])
+            f = torch.fft.irfft(torch.fft.rfft(pad[gidx] * win, n=Nf) * H,
+                                n=Nf)
+            taps = torch.cat([f[:, Nf - L:], f[:, :2 * L]], 1)
+            out = exc.new_zeros(Tn * shift + 3 * L).index_add_(
+                0, oidx, taps.reshape(-1))
+            return out[L + shift:L + shift + n]
+
+        def check(out, out_k):
+            rel = float((out - out_k[0]).abs().max()
+                        / out_k[0].abs().max())
+            return rel <= 1e-11, (f"|err| / max |y| {rel:.1e} <= 1e-11 "
+                                  f"(K37's bound)")
+        return filtered, check
     if name == "excite":
         # lf0 -> period by torch.exp, the per-sample lerp, torch.cumsum
         # (not XLA's order), torch.cummax of the onset bases, the pulses
@@ -5677,7 +5782,8 @@ def main() -> int:
         for e in evs:
             k = e.key.lower()
             g = ("K39/K40 (DFTs)" if any(n in k for n in FFT)
-                 else "K1-K38" if any(n in k for n in kernels.KERNELS)
+                 else "K1-K38" if profile_kind(k, kernels.KERNELS) not in (
+                     "gemm", "other")
                  else "gemm" if "gemm" in k
                  else "torch.fft" if "fft" in k
                  else "other")
@@ -5866,9 +5972,7 @@ def main() -> int:
               + f"; host M-step {mstep_ms:.2f} ms", flush=True)
         by_kind = {}
         for ev in evs:
-            k = ev.key.lower()
-            g = next((n for n in PATHS["hsmm_em"] if n in k),
-                     "gemm" if "gemm" in k else "other")
+            g = profile_kind(ev.key, PATHS["hsmm_em"])
             by_kind.setdefault(g, [0.0, 0])
             by_kind[g][0] += dev_us(ev) / 1e3
             by_kind[g][1] += ev.count
@@ -6066,9 +6170,7 @@ def main() -> int:
         tied, utts_r, n_iters=1, max_dur=HSMM_MAX_DUR, log=lambda m: None))
     by_kind = {}
     for ev in evs:
-        k = ev.key.lower()
-        g = next((n for n in PATHS["recipe"] if n in k),
-                 "gemm" if "gemm" in k else "other")
+        g = profile_kind(ev.key, PATHS["recipe"])
         by_kind.setdefault(g, [0.0, 0])
         by_kind[g][0] += dev_us(ev) / 1e3
         by_kind[g][1] += ev.count
@@ -6556,7 +6658,8 @@ def main() -> int:
 
     # ---- 19. the SPTK engine: phase 12's unseen phrases through
     # generate_waveform(engine="sptk"), the SPTK copy-synthesis of 4 of its
-    # phrases (mcep at order 49, alpha 0.55), K35-K38 replayed ----
+    # phrases (mcep at order 49, alpha 0.55), K35-K38 replayed, K37 at
+    # each of K37_SIZES ----
     t19 = time.perf_counter()
     alpha_v = voice_v[2].alpha or 0.42
     counts_sp, rec_sp, _ = sptk_lane(counted, profiled, statics_g, VFS,
@@ -6568,6 +6671,7 @@ def main() -> int:
         for name, inp in rec:
             replay(path, name, inp)
     del rec_sp, rec_sc
+    k37_sizes()
     print(f"phase 19: {time.perf_counter() - t19:.1f} s", flush=True)
 
     print(smi)

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time the batched HSMM E-step and its K19 segment sums on one GPU.
+"""Time the batched HSMM E-step, its K18 forward-backward and its K19
+segment sums on one GPU.
 
 Loads `hts_train_world_tpu_torch` from `--root` (default: this checkout),
 so that two trees of the port can be timed in one call on the same card,
@@ -16,17 +17,26 @@ For each: one warm E-step, then `--reps` E-steps each timed on the host
 clock to a synchronize; one E-step with CUDA events between its stages
 (pad + upload, gather + K17, duration gather + K18, bmm moments, K19);
 and one under `torch.profiler` for the device time of each kernel (K19's
-launches alone, without the host's share of their spans).  Prints one
-JSON line.
+launches alone, without the host's share of their spans).  K18's
+launches of an E-step are replayed from their recorded inputs: their
+sum under CUDA events (each launch timed alone, after a warm one) and
+under the profiler.  The HSMM lane's E-step runs again at DAEM's temper
+0.3, and K18 once more on chip_smoke.py's 9000-frame utterance (K 200)
+with its time.  Each E-step (and the long utterance) gets a sha256 of
+every K18 output (ll, gamma, dstats of each batch in order), so that two
+trees' K18 compare bit for bit.  Prints one JSON line with the card's
+name and power limit.
 
     python3 estep_timing.py [--root DIR] [--reps N]
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -61,7 +71,83 @@ def untied_set(hsmm, cs):
     return ms, utts
 
 
-def time_estep(torch, hb, kernels, ms, utts, reps: int, max_dur: int):
+# K18's kernels by name (the stages of this tree and the one kernel of
+# earlier trees), K17's and K19's
+KINDS = (("hsmm_loglik", "hsmm_loglik"), ("hsmm_fb", "hsmm_fb"),
+         ("hsmm_csum", "hsmm_fb"), ("hsmm_chain", "hsmm_fb"),
+         ("hsmm_post", "hsmm_fb"), ("hsmm_accumulate", "hsmm_accumulate"))
+
+
+def device_by_kernel(torch, prof):
+    """{kind: [device ms, launches]} of a profile, and K18's by kernel."""
+    device, k18 = {}, {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if e.device_type != torch.autograd.DeviceType.CUDA or us <= 0:
+            continue
+        kind = next((k for s, k in KINDS if s in e.key), "other")
+        ms_n = device.setdefault(kind, [0.0, 0])
+        ms_n[0] += us / 1e3
+        ms_n[1] += e.count
+        if kind == "hsmm_fb":
+            name = next(s for s, _ in KINDS if s in e.key)
+            k18[name] = k18.get(name, 0.0) + us / 1e3
+    return device, k18
+
+
+class Digest:
+    """Wraps `hsmm.segment_fb` while on: the sha256 of every output's
+    bytes, in launch order."""
+
+    def __init__(self, hsmm):
+        self.hsmm, self.fn, self.h = hsmm, hsmm.segment_fb, None
+
+    def __enter__(self):
+        self.h = hashlib.sha256()
+
+        def hooked(*a, **kw):
+            out = self.fn(*a, **kw)
+            for t in out:
+                self.h.update(t.detach().cpu().contiguous().numpy()
+                              .tobytes())
+            return out
+        self.hsmm.segment_fb = hooked
+        return self
+
+    def __exit__(self, *exc):
+        self.hsmm.segment_fb = self.fn
+
+    def hex(self):
+        return self.h.hexdigest()[:16]
+
+
+def k18_replays(torch, kernels, hsmm, launches):
+    """K18's recorded launches again: the sum of each one's time under
+    CUDA events (after a warm call), and the device sum under the
+    profiler."""
+    total = 0.0
+    for inp in launches:
+        hsmm.segment_fb(**inp)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        hsmm.segment_fb(**inp)
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for inp in launches:
+            hsmm.segment_fb(**inp)
+        torch.cuda.synchronize()
+    device, k18 = device_by_kernel(torch, prof)
+    return {"launches": len(launches), "events_ms": total,
+            "profiler_ms": device.get("hsmm_fb", [0.0, 0])[0],
+            "profiler_ms_by_kernel": k18}
+
+
+def time_estep(torch, hb, hsmm, kernels, ms, utts, reps: int, max_dur: int,
+               temper: float = 1.0, timed: bool = True):
     chained, _ = hb.chain_modelset(ms, utts)
     tables = hb.tables_from_modelset(ms)
     M, S = ms.dur_mean.shape
@@ -69,9 +155,21 @@ def time_estep(torch, hb, kernels, ms, utts, reps: int, max_dur: int):
 
     def estep():
         return hb.corpus_estep(tables, chained, n_rows, M * S, max_dur,
-                               max_batch=32)
-    estep()                                                    # warm
+                               temper=temper, max_batch=32)
+    with Digest(hsmm) as dg:
+        res = estep()                                          # warm
+        torch.cuda.synchronize()
+    out = {"rows": M * S, "utterances": len(utts), "temper": temper,
+           "frames": int(sum(len(f) for f, _ in utts)),
+           "k18_digest": dg.hex(), "total_ll": res.total_ll}
+    kernels.record = []
+    estep()
     torch.cuda.synchronize()
+    rec, kernels.record = kernels.record, None
+    out["k18"] = k18_replays(torch, kernels, hsmm,
+                             [i for n, i in rec if n == "hsmm_fb"])
+    if not timed:
+        return out
     walls = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -83,7 +181,8 @@ def time_estep(torch, hb, kernels, ms, utts, reps: int, max_dur: int):
     prev.record()
     marks = []
     for stage, _ in hb.corpus_estep_stages(tables, chained, n_rows, M * S,
-                                           max_dur, max_batch=32):
+                                           max_dur, temper=temper,
+                                           max_batch=32):
         e = torch.cuda.Event(enable_timing=True)
         e.record()
         marks.append((stage, e))
@@ -95,26 +194,39 @@ def time_estep(torch, hb, kernels, ms, utts, reps: int, max_dur: int):
     k19_launches = kernels.launches["hsmm_accumulate"]
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         estep()
         torch.cuda.synchronize()
-    device = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        if e.device_type != torch.autograd.DeviceType.CUDA or us <= 0:
-            continue
-        kind = next((k for k in ("hsmm_loglik", "hsmm_fb",
-                                 "hsmm_accumulate") if k in e.key), "other")
-        ms_n = device.setdefault(kind, [0.0, 0])
-        ms_n[0] += us / 1e3
-        ms_n[1] += e.count
-    return {"rows": M * S, "utterances": len(utts),
-            "frames": int(sum(len(f) for f, _ in utts)),
-            "batches": sum(s == "pad" for s, _ in marks),
-            "estep_ms": walls, "estep_ms_min": min(walls),
-            "spans_ms": spans, "device_ms_launches": device,
-            "k19_launches": k19_launches,
-            "total_ll": res.total_ll}
+        wall = 1e3 * (time.perf_counter() - t0)
+    device, k18 = device_by_kernel(torch, prof)
+    busy = sum(v[0] for v in device.values())
+    out.update({
+        "batches": sum(s == "pad" for s, _ in marks),
+        "estep_ms": walls, "estep_ms_min": min(walls),
+        "frames_per_s": out["frames"] / (1e-3 * min(walls)),
+        "spans_ms": spans, "device_ms_launches": device,
+        "k18_device_ms_by_kernel": k18,
+        "profiled_wall_ms": wall, "busy_ms": busy,
+        "idle_share": 1.0 - busy / wall, "k19_launches": k19_launches})
+    return out
+
+
+def long_utterance(torch, hsmm, cs, reps: int = 3):
+    """K18 on chip_smoke.py's 9000-frame, 200-state utterance: the digest
+    of its outputs and its time under CUDA events (fastest of `reps`)."""
+    inp = cs.k18_long_inputs("cuda")
+    with Digest(hsmm) as dg:
+        hsmm.segment_fb(**inp, temper=1.0)
+        torch.cuda.synchronize()
+    ms = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        hsmm.segment_fb(**inp, temper=1.0)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+    return {"k18_digest": dg.hex(), "events_ms": ms, "min_ms": min(ms)}
 
 
 def main() -> int:
@@ -137,11 +249,19 @@ def main() -> int:
     kernels.build()
     out = {"root": os.path.relpath(root, HERE)}
     ms, utts = cs.hsmm_corpus(hsmm)
-    out["hsmm_200"] = time_estep(torch, hb, kernels, ms, utts, args.reps,
-                                 cs.HSMM_MAX_DUR)
+    out["hsmm_200"] = time_estep(torch, hb, hsmm, kernels, ms, utts,
+                                 args.reps, cs.HSMM_MAX_DUR)
+    out["hsmm_200_t03"] = time_estep(torch, hb, hsmm, kernels, ms, utts,
+                                     args.reps, cs.HSMM_MAX_DUR, temper=0.3,
+                                     timed=False)
     ms, utts = untied_set(hsmm, cs)
-    out["untied_1485"] = time_estep(torch, hb, kernels, ms, utts,
+    out["untied_1485"] = time_estep(torch, hb, hsmm, kernels, ms, utts,
                                     args.reps, cs.HSMM_MAX_DUR)
+    out["long_9000"] = long_utterance(torch, hsmm, cs)
+    out["card"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
     print(json.dumps(out))
     return 0
 

@@ -97,15 +97,9 @@ fft_r2c_kernel(const T* __restrict__ x, int R, int L, int mode,
         const int i = t + b * G::T + r * (M / R0), j1 = i >> 3;
         C2 d = z(j1, raw[2 * e], raw[2 * e + 1]);
         if (j1 + M / 8 < Lz) {                  // rare: z past M/8
-          C2 u = z(j1 + M / 8, at(2 * (j1 + M / 8)),
-                   at(2 * (j1 + M / 8) + 1));
-          const int p = i & 7;
-          if (p & 1) u = {r2c::C16_2 * (u.x + u.y), r2c::C16_2 * (u.y - u.x)};
-          const int h = p >> 1;                 // times (-i)^h
-          if (h == 1) u = {u.y, -u.x};
-          else if (h == 2) u = {-u.x, -u.y};
-          else if (h == 3) u = {-u.y, u.x};
-          d = r2c::add(d, u);
+          const C2 u = z(j1 + M / 8, at(2 * (j1 + M / 8)),
+                         at(2 * (j1 + M / 8) + 1));
+          d = r2c::add(d, r2c::mul_w8(u, i & 7));
         }
         v[e] = d;
       }

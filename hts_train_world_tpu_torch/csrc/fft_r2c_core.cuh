@@ -1,6 +1,7 @@
 // K39's FFT core: the M = N/2-point complex FFT of z_m = x_2m + i x_2m+1
 // in float64, held in registers, then the split into the N/2+1 bins of
-// rfft(x, N).
+// rfft(x, N).  K37's frames (mglsa_filter.cu) run it forward and, on the
+// conjugate of the inverse split, backward.
 //
 // Threads.  A row has T = M/16 threads and each thread holds P = 16
 // complex points in registers (v[], float64 pairs).  A pass of radix R
@@ -131,6 +132,16 @@ __device__ __forceinline__ C2 mul_w16(C2 a) {
     // W = (c, -s)
     return {a.x * c + a.y * s, a.y * c - a.x * s};
   }
+}
+
+// u * W_8^p, p in [0, 8)
+__device__ __forceinline__ C2 mul_w8(C2 u, int p) {
+  if (p & 1) u = {C16_2 * (u.x + u.y), C16_2 * (u.y - u.x)};
+  const int h = p >> 1;                       // times (-i)^h
+  if (h == 1) u = {u.y, -u.x};
+  else if (h == 2) u = {-u.x, -u.y};
+  else if (h == 3) u = {-u.y, u.x};
+  return u;
 }
 
 // ---- codelets: the R-point forward DFT of v[0..R), in natural order ----
@@ -265,14 +276,17 @@ __device__ __forceinline__ void gather(C2* v, const double* sre,
   }
 }
 
-template <int M, bool SP, int p>
+// KEEP: the last pass keeps its outputs in registers in `last_j`'s
+// pairing where the plan allows it (K39's split on registers); without
+// it every plan ends with Z in natural order in the planes (K37)
+template <int M, bool SP, int p, bool KEEP = true>
 __device__ __forceinline__ void passes(C2* v, double* sre, double* sim,
                                        const double2* __restrict__ tw,
                                        int t) {
   constexpr int R = radix(M, SP, p), NS = pass_ns(M, SP, p);
   constexpr int T = Geometry<M>::T;
   constexpr bool LAST = p + 1 == n_passes(M, SP);
-  constexpr bool PAIR = LAST && paired(M, SP);
+  constexpr bool PAIR = LAST && KEEP && paired(M, SP);
 #pragma unroll
   for (int b = 0; b < P / R; b++) {
     const int j = PAIR ? last_j<M, SP>(t, b) : t + b * T, k = j & (NS - 1);
@@ -297,10 +311,11 @@ __device__ __forceinline__ void passes(C2* v, double* sre, double* sim,
   }
   if constexpr (!PAIR) __syncthreads();
   if constexpr (!LAST) {
-    constexpr bool NEXT_PAIR = p + 2 == n_passes(M, SP) && paired(M, SP);
+    constexpr bool NEXT_PAIR =
+        p + 2 == n_passes(M, SP) && KEEP && paired(M, SP);
     gather<M, radix(M, SP, p + 1), NEXT_PAIR, SP>(v, sre, sim, t);
     __syncthreads();
-    passes<M, SP, p + 1>(v, sre, sim, tw, t);
+    passes<M, SP, p + 1, KEEP>(v, sre, sim, tw, t);
   }
 }
 

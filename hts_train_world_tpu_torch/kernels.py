@@ -94,7 +94,7 @@ KERNELS = {
                     [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P]),
     "hsmm_fb": ("hsmm_fb.cu", "hsmm_fb_launch",
                 [_P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _P, _P, _P, _P, _P,
-                 _P, _P]),
+                 _P, _I, _I]),
     "hsmm_accumulate": ("hsmm_accumulate.cu", "hsmm_accumulate_launch",
                         [_I, _P, _P]),
     "hsmm_viterbi": ("hsmm_viterbi.cu", "hsmm_viterbi_launch",
@@ -144,8 +144,9 @@ KERNELS = {
     "band_fir": ("band_fir.cu", "band_fir_launch",
                  [_P, _P, _L, _P, _I, _I, _P]),
     "mglsa_filter": ("mglsa_filter.cu", {
-        "mglsa_frames_launch": [_P, _L, _P, _I, _I, _P, _P, _I, _I, _I, _P],
-        "mglsa_ola_launch": [_P, _I, _I, _I, _L, _I, _P]}),
+        "mglsa_frames_launch": [_P, _L, _P, _I, _I, _I, _P, _P, _I, _I, _P,
+                                _P, _I, _P, _P],
+        "mglsa_ola_launch": [_P, _I, _I, _I, _L, _P]}),
     "mcep_newton": ("mcep_newton.cu", "mcep_newton_launch",
                     [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P]),
     "fft_r2c": ("fft_r2c.cu", "fft_r2c_launch",

@@ -41,8 +41,9 @@ from hts_train_world_tpu_torch import kernels
 
 LOG_2PI = float(np.log(2.0 * np.pi))
 LOG_ZERO = -1.0e10
-# K18's and K20's per-utterance rows (3 (T+1) + max_dur doubles) stay in
-# shared memory up to this many bytes, in device memory past it
+# K20's per-utterance rows (3 (T+1) + max_dur doubles) and K18's rows a
+# block stay in shared memory up to this many bytes, in device memory past
+# it
 ROWS_SHARED_BYTES = 200 * 1024
 
 
@@ -658,25 +659,35 @@ def segment_fb(obs_ll, dur_mean, dur_var, max_dur: int, temper, t_len,
         raise ValueError("segment_fb: float64 obs_ll (B, T, S) and dur "
                          "mean/var (B, S), int64 t_len/k_len (B,), "
                          "max_dur >= 1")
+    return _segment_fb_cuda(obs_ll, dur_mean, dur_var, int(max_dur),
+                            float(temper), t_len, k_len)
+
+
+def _segment_fb_cuda(obs_ll, dur_mean, dur_var, max_dur: int, temper: float,
+                     t_len, k_len, cluster: int = 0):
+    """K18's launch on checked inputs.  `cluster`: the CTAs of each
+    utterance's chain clusters (0: the launcher's choice); the results do
+    not depend on it, which the card tests hold bit for bit."""
+    B, T, S = obs_ll.shape
+    f64 = torch.float64
     obs_ll, dur_mean, dur_var, t_len, k_len = (
         x.contiguous() for x in (obs_ll, dur_mean, dur_var, t_len, k_len))
     dev = obs_ll.device
     kernels.check_cuda("segment_fb", obs_ll, dur_mean, dur_var, t_len, k_len)
-    csum = torch.empty((B, T + 1, S), dtype=f64, device=dev)
-    Fw = torch.empty((B, S, T + 1), dtype=f64, device=dev)
-    Bw = torch.empty((B, S, T + 1), dtype=f64, device=dev)
+    csum = torch.empty((B, S, T + 1), dtype=f64, device=dev)
+    Fw = torch.empty((B, S + 1, T + 1), dtype=f64, device=dev)
+    Bw = torch.empty((B, S + 1, T + 1), dtype=f64, device=dev)
     ll = torch.empty(B, dtype=f64, device=dev)
     gamma = torch.empty((B, T, S), dtype=f64, device=dev)
     dstats = torch.empty((B, S, 3), dtype=f64, device=dev)
-    rows_p, _rows = _rows_scratch(B, T, int(max_dur), dev)
     kernels.launch("hsmm_fb", [
         obs_ll.data_ptr(), dur_mean.data_ptr(), dur_var.data_ptr(),
-        t_len.data_ptr(), k_len.data_ptr(), B, T, S, int(max_dur),
-        float(temper), csum.data_ptr(), Fw.data_ptr(), Bw.data_ptr(),
-        ll.data_ptr(), gamma.data_ptr(), dstats.data_ptr(), rows_p],
+        t_len.data_ptr(), k_len.data_ptr(), B, T, S, max_dur, temper,
+        csum.data_ptr(), Fw.data_ptr(), Bw.data_ptr(), ll.data_ptr(),
+        gamma.data_ptr(), dstats.data_ptr(), ROWS_SHARED_BYTES,
+        int(cluster)],
         dict(obs_ll=obs_ll, dur_mean=dur_mean, dur_var=dur_var,
-             max_dur=int(max_dur), temper=float(temper), t_len=t_len,
-             k_len=k_len))
+             max_dur=max_dur, temper=temper, t_len=t_len, k_len=k_len))
     return ll, gamma, dstats
 
 

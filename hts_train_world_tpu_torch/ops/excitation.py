@@ -24,15 +24,16 @@ per utterance:
   second EXCITE run has pitch 0 everywhere, so its output is its noise:
   the port passes the noise through without a launch.
 - `mglsa_synthesis` (kernel K37, csrc/mglsa_filter.cu): per frame the
-  exact transfer function exp(mgc2sp), a Hann segment of 2 shift filtered
-  through it by an FFT at N, the taps [-K, L+K) with K = 2 shift; then the
+  exact transfer function exp(mgc2sp) (one product for all frames on the
+  FP64 tensor cores), a Hann segment of 2 shift filtered through it by
+  K39's FFT core at N, the taps [-K, L+K) with K = 2 shift; then the
   overlap-add, a gather in frame order.
 
 Noise is injected, never reproduced: `noise=` takes the JAX signatures'
 arrays; without it the draws come from a `torch.Generator` on the device,
 seeded by the caller.  The wrappers run the kernels for CUDA tensors
-(float32 or float64; the engine's path is float64) and the twins
-(`*_plain`, the JAX formulation in torch) for CPU tensors.
+(float32 or float64 for K35 and K36; K37 float64, the engine's type) and
+the twins (`*_plain`, the JAX formulation in torch) for CPU tensors.
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ import torch
 
 from hts_train_world_tpu_torch import kernels
 from hts_train_world_tpu_torch.ops import codec
+from hts_train_world_tpu_torch.ops import fftmat
 from hts_train_world_tpu_torch.ops import prims
 
 MAGIC = -1.0e10
@@ -260,44 +262,62 @@ def mglsa_table(order: int, alpha: float, fft_size: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=8)
-def _mglsa_tensors(order: int, alpha: float, fft_size: int, L: int, dtype,
-                   device):
-    return (torch.tensor(mglsa_table(order, alpha, fft_size), dtype=dtype,
-                         device=device), _hann(L, dtype, device))
+def _mglsa_tables(order: int, alpha: float, fft_size: int, L: int, device):
+    """K37's constants on the card: the folded table G, the Hann window,
+    and where N is a power of two in K39's range its two twiddle tables
+    (the forward's plan, sparse where `fftmat.r2c_plan` takes it, and the
+    dense inverse's); else None, None (the direct DFT)."""
+    f64 = torch.float64
+    G = torch.tensor(mglsa_table(order, alpha, fft_size), dtype=f64,
+                     device=device)
+    N = fft_size
+    if not (fftmat.MIN_N <= N <= fftmat.MAX_N and N & (N - 1) == 0):
+        return G, _hann(L, f64, device), None, None, False
+    sparse = fftmat.r2c_plan(N, L)[0]
+    return (G, _hann(L, f64, device), fftmat._r2c_table(N, sparse, device),
+            fftmat._r2c_table(N, False, device), sparse)
 
 
 def mglsa_synthesis(excitation, mgc, alpha: float, shift: int,
                     fft_size: int = 1024):
-    """K37: excitation (n,) and mgc (T, M) -> the waveform (n,).  Two
-    launches: the frames' taps (T, L+2K) into scratch, then the
-    overlap-add gather."""
+    """K37: excitation (n,) and mgc (T, M) -> the waveform (n,), float64.
+    Two launches: the frames' taps (T, L+2K) into scratch (H = exp(mgc G)
+    for all frames, then the frames' FFTs), then the overlap-add gather.
+    mgc may have a row stride (its columns contiguous)."""
     if not excitation.is_cuda:
         return mglsa_synthesis_plain(excitation, mgc, alpha, shift,
                                      fft_size)
     L, K = _mglsa_dims(shift, fft_size)
-    if (not _dtype_ok(excitation, mgc) or excitation.dim() != 1
-            or mgc.dim() != 2 or not 1 <= mgc.shape[1] <= 256
-            or fft_size > 8192):
-        raise ValueError("mglsa_synthesis: float32 or float64 excitation "
-                         "(n,) and mgc (T, M) of one type, M <= 256, "
-                         "fft_size <= 8192")
-    exc, c = excitation.contiguous(), mgc.contiguous()
+    f64 = torch.float64
+    if (excitation.dtype != f64 or mgc.dtype != f64
+            or excitation.dim() != 1 or mgc.dim() != 2
+            or not 1 <= mgc.shape[1] <= 256 or fft_size > 8192):
+        raise ValueError("mglsa_synthesis: float64 excitation (n,) and mgc "
+                         "(T, M) on the card, M <= 256, fft_size <= 8192")
+    exc = excitation.contiguous()
+    c = (mgc if mgc.stride(1) == 1 and mgc.stride(0) >= mgc.shape[1]
+         else mgc.contiguous())
     T, M = c.shape
     n = exc.shape[0]
-    G, win = _mglsa_tensors(M - 1, float(alpha), int(fft_size), L,
-                            exc.dtype, exc.device)
-    kernels.check_cuda("mglsa_filter", exc, c, G, win)
-    f64 = int(exc.dtype == torch.float64)
-    taps = torch.empty(T, L + 2 * K, dtype=exc.dtype, device=exc.device)
-    out = torch.empty(n, dtype=exc.dtype, device=exc.device)
+    N = int(fft_size)
+    dev = exc.device
+    G, win, tw_f, tw_i, sparse = _mglsa_tables(M - 1, float(alpha), N, L,
+                                               dev)
+    kernels.check_cuda("mglsa_filter", exc, c[:1], G, win)
+    F, W = N // 2 + 1, L + 2 * K
+    scratch = torch.empty(T * (F + W), dtype=f64, device=dev)   # H, taps
+    taps = scratch[T * F:]
+    out = torch.empty(n, dtype=f64, device=dev)
     kernels.launch("mglsa_filter", [
-        exc.data_ptr(), n, c.data_ptr(), T, M, G.data_ptr(), win.data_ptr(),
-        shift, int(fft_size), f64, taps.data_ptr()],
+        exc.data_ptr(), n, c.data_ptr(), T, M, c.stride(0), G.data_ptr(),
+        win.data_ptr(), shift, N, 0 if tw_f is None else tw_f.data_ptr(),
+        0 if tw_i is None else tw_i.data_ptr(), int(sparse),
+        scratch.data_ptr(), taps.data_ptr()],
         dict(excitation=excitation, mgc=mgc, alpha=float(alpha),
-             shift=int(shift), fft_size=int(fft_size)),
+             shift=int(shift), fft_size=N),
         fn="mglsa_frames_launch")
     kernels.launch("mglsa_filter", [
-        taps.data_ptr(), T, shift, L + 2 * K, n, f64, out.data_ptr()], None,
+        taps.data_ptr(), T, shift, W, n, out.data_ptr()], None,
         fn="mglsa_ola_launch")
     return out
 

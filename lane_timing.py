@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time the f32 lanes' audio-seconds per second on one GPU.
+"""Time the f32 lanes' and the SPTK engine's audio-seconds per second on
+one GPU.
 
 Loads `hts_train_world_tpu_torch` from `--root` (default: this checkout),
 so that two trees of the port can be timed in one call on the same card,
@@ -11,7 +12,11 @@ in turns, and runs chip_smoke.py's f32 lanes on its corpora:
   batch, 16 x 2.0 s at 48 kHz: one warm batch, then `--reps` batches each
   timed on the host clock to a synchronize;
 - corpus500 (`parallel.bucketing.bucketed_extract`, 500 utterances, 524.1
-  s of audio): one warm run, then one timed run.
+  s of audio): one warm run, then one timed run;
+- the SPTK engine (`models.pgen.generate_waveform(engine="sptk")`,
+  float64: K35-K37) on chip_smoke.py's `sptk_gens`, 16 phrases of 530
+  frames at 48 kHz, alpha 0.55, each on its own seed: one warm run, then
+  `--reps` runs of all 16 each timed on the host clock to a synchronize.
 
 Prints one JSON line: audio-s/s (mean and median over the batches), a
 digest of each lane's outputs on its warm-up batch (sha256 of every
@@ -77,7 +82,7 @@ def main() -> int:
                 stack[:0] = list(v)
         return h.hexdigest()[:16]
 
-    def lane(name, fn):
+    def lane(name, fn, audio=cs.BATCH * cs.DUR):
         out["digest"][name] = digest(fn(0))
         fn(0)
         torch.cuda.synchronize()
@@ -87,7 +92,6 @@ def main() -> int:
             fn(s)
             torch.cuda.synchronize()
             dts.append(time.perf_counter() - t0)
-        audio = cs.BATCH * cs.DUR
         out[name] = {"mean": audio / float(np.mean(dts)),
                      "median": audio / float(np.median(dts))}
 
@@ -104,6 +108,14 @@ def main() -> int:
     torch.cuda.synchronize()
     out["corpus500"] = sum(len(s) for s in sigs) / cs.FS / (
         time.perf_counter() - t0)
+    from hts_train_world_tpu_torch.models import pgen
+    gens = cs.sptk_gens()
+    shift = int(cs.FS * cs.FRAME_PERIOD / 1000)
+    lane("sptk_engine", lambda s: [
+        pgen.generate_waveform(st, v, cs.FS, engine="sptk", alpha=0.55,
+                               seed=i, device="cuda")
+        for i, (st, v) in enumerate(gens)],
+        audio=sum((len(st["lf0"]) - 1) * shift for st, _ in gens) / cs.FS)
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -1287,6 +1287,23 @@ def test_k18_kernel_matches_plain(cuda, temper):
     assert ((d - d0).abs() <= 1e-9 * d0.abs()).all()
 
 
+@pytest.mark.parametrize("temper", [0.3, 1.0])
+def test_k18_bit_equal_across_cluster_sizes(cuda, temper):
+    """The chains' cluster size (forced through the launcher's argument)
+    changes the schedule only: C = 1, 2, 8 and 16 give the launcher's own
+    choice bit for bit on an E-step batch."""
+    ms, utts = chip_smoke.hsmm_tiny_corpus(hsmm, seed=18)
+    e = _estep_batch(cuda, utts, ms)
+    obs = hsmm.batch_frame_loglik(e["frames"], e["rows"], e["means"],
+                                  e["variances"], e["msd_w"], *e["args"])
+    ins = (obs, e["dm"], e["dv"], 20, temper, e["t_len"], e["k_len"])
+    ref = hsmm.segment_fb(*ins)
+    for C in (1, 2, 8, 16):
+        got = hsmm._segment_fb_cuda(*ins, cluster=C)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b), C
+
+
 def test_k18_padded_equals_unpadded(cuda):
     rng = np.random.default_rng(0)
     T, S = 37, 6
@@ -1444,6 +1461,19 @@ def test_k18_and_k20_take_a_9000_frame_utterance(cuda, name):
         assert torch.equal(ends.cpu(), e0) and int(e0[0, -1]) == 9000
         assert abs(float(ll[0]) - float(ll0[0])) <= 1e-9 * abs(float(ll0[0]))
     assert kernels.launches[name] == 1
+
+
+@pytest.mark.parametrize("C", [1, 3])
+def test_k18_9000_frames_bit_equal_across_cluster_sizes(cuda, C):
+    """At T 9000 one CTA a chain keeps its rows in device memory (past the
+    shared-memory budget), three keep them in shared memory: both give
+    the launcher's choice bit for bit."""
+    inp = chip_smoke.k18_long_inputs(cuda)
+    ref = hsmm.segment_fb(**inp, temper=1.0)
+    got = hsmm._segment_fb_cuda(inp["obs_ll"], inp["dur_mean"],
+                                inp["dur_var"], inp["max_dur"], 1.0,
+                                inp["t_len"], inp["k_len"], cluster=C)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
 
 
 def test_k17_scores_a_nan_bap_frame_as_nan(cuda):
@@ -2621,13 +2651,14 @@ def test_k36_kernel_matches_plain(cuda):
         want.abs().max())
 
 
-@pytest.mark.parametrize("fs,N", [(16000, 1024), (16000, 1000),
-                                  (48000, 2048), (96000, 4096)])
+@pytest.mark.parametrize("fs,N", [(16000, 512), (16000, 1024),
+                                  (16000, 1000), (48000, 2048),
+                                  (96000, 4096)])
 def test_k37_kernel_matches_plain(cuda, fs, N):
     """K37's two launchers against the twin (torch.fft, index_add_) on the
-    card, within 1e-11 of max |y|: the radix-2 FFT in shared memory (64 KB
-    of it at N 4096), and the direct DFT at an N that is not a power of
-    two."""
+    card, within 1e-11 of max |y|: the frames on K39's FFT core (the dense
+    plan at N 512, where L = 160 > N/4; the sparse plan at 1024, 2048 and
+    4096), and the direct DFT at an N that is not a power of two."""
     from hts_train_world_tpu_torch.ops import excitation as ex
     rng = np.random.default_rng(37)
     shift, T, M = fs // 200, 80, 50
@@ -2642,6 +2673,22 @@ def test_k37_kernel_matches_plain(cuda, fs, N):
     want = ex.mglsa_synthesis_plain(exc, mgc, 0.42, shift, N)
     assert float((got - want).abs().max()) <= 1e-11 * float(
         want.abs().max())
+
+
+def test_k37_takes_mgc_with_a_row_stride(cuda):
+    """mgc as a column slice of a wider array (as the engine's statics
+    may be): the kernel reads it in place, no copy, the same waveform as
+    from its contiguous copy, bit for bit."""
+    from hts_train_world_tpu_torch.ops import excitation as ex
+    rng = np.random.default_rng(37)
+    wide = rng.standard_normal((60, 75)) * 0.05 / (1.0 + np.arange(75))
+    wide[:, 0] -= 2.0
+    wide = torch.as_tensor(wide, device=cuda)
+    exc = torch.as_tensor(rng.standard_normal(59 * 240), device=cuda)
+    got = ex.mglsa_synthesis(exc, wide[:, :50], 0.55, 240, 2048)
+    want = ex.mglsa_synthesis(exc, wide[:, :50].contiguous(), 0.55, 240,
+                              2048)
+    assert torch.equal(got, want)
 
 
 def _smooth_logp(T, N, seed=38):
@@ -2707,6 +2754,9 @@ def test_sptk_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):                 # mgc of another type
         ex.mglsa_synthesis(x, torch.zeros(10, 5, device=cuda), 0.42, 80,
                            1024)
+    with pytest.raises(ValueError):                 # float32 (K37: float64)
+        ex.mglsa_synthesis(x.float(), torch.zeros(10, 5, device=cuda), 0.42,
+                           80, 1024)
     with pytest.raises(ValueError):                 # bins for another N
         sptk.mcep(torch.zeros(4, 100, dtype=torch.float64, device=cuda), 24,
                   0.42, 1024)
