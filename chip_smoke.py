@@ -62,6 +62,10 @@ Drives the port's paths at full size on a corpus made from a seed:
   float64 through Harvest (decimation, band filter, raw candidates,
   detection, refinement, contour), CheapTrick and D4C, `analyze` at 16
   kHz and 44.1 kHz, and `analysis --harvest` at its default;
+- the float32 main path at frame grids of no whole number of samples:
+  copy-synthesis of the headline batch's shape (16 x 2.0 s, 5 ms) at 44.1
+  kHz and at 22.05 kHz (StoneMask's float32 bucket path and the generic
+  windows), card against CPU there, and `analysis --f32` at 44.1 kHz;
 - the variant recipe lane (`models.recipe.train_voice` with
   `RecipeConfig(semitied=True, upmix=True)`): the recipe lane's corpus
   through SEMIT (20 iterations, 3 blocks a stream) and UPMIX + ERST5 (2
@@ -94,7 +98,9 @@ Phases (any failure raises):
    launches; K32 bit for bit against its plain version on the CPU); time
    kernel, plain version, bound and, where one exists,
    the library call; list each of a copy-synthesis batch's K39 launches
-   beside its torch.fft line and bound, and their sums; print the bounds
+   beside its torch.fft line and bound, and their sums; hold K3 to its
+   twin on adversarial rows (`topk_rows`: ties, zeros, denormals, +inf and
+   NaN patterns; the threshold bit for bit); print the bounds
    of the plain-torch stages that have no kernel yet, from this run's
    shapes (K28 and K29 are replayed in phase 14, where their inputs are
    recorded);
@@ -252,7 +258,22 @@ Phases (any failure raises):
    16000/1024, 48000/2048 and 96000/4096 (the sparse plan) within 1e-11
    of max |y| (`sptk_lane`, `sptk_card_vs_cpu`, `sptk_copy_lane`,
    `k37_sizes`, which rehearse on the CPU with stub `counted`/`profiled`
-   and `device="cpu"`).
+   and `device="cpu"`);
+20. the float32 main path at 44.1 and 22.05 kHz (220.5 and 110.25
+   samples a frame): (a) `batch_copy_synth` of the headline batch's shape
+   at each rate, counted (every kernel of the 48 kHz path must launch) and
+   recorded, its outputs held as phase 2's, audio-s/s over five batches
+   after one, the idle share of one batch under the profiler, and its K1,
+   K24, K3, K39 and K40 launches (the shapes the rates change) replayed
+   against their twins and timed as in phase 3; (b) card against CPU at
+   each rate on 2 x 0.5 s (phase 4's gates) and `estimate_f0` of a float32
+   wave at its defaults (StoneMask's float32 bucket path); (c) `analysis
+   --f32` at 44.1 kHz, raw and encoded, the card's files against --device
+   cpu's (`fast_grid_lane`, `fast_grid_card_vs_cpu`, `fast_grid_cli`,
+   which rehearse on the CPU as `fast_grid_lane(counted, profiled, 44100,
+   device="cpu", batch=2, dur=0.3, timed=1)` with stub `counted`/
+   `profiled`, `fast_grid_card_vs_cpu(("cpu", "cpu"), dur=0.3)` and
+   `fast_grid_cli(counted, ("cpu", "cpu"), dur=0.3)`).
 
 Prints each measurement, the card's name and power limit, a `kernels`
 JSON line, and as the last line {"ok": true, "device": {...}}.  Exits
@@ -458,6 +479,10 @@ PATHS = {
     # SPTK copy-synthesis with mcep (K38)
     "sptk_engine": ("excite", "band_fir", "mglsa_filter"),
     "sptk_copy": ("mcep_newton", "excite", "band_fir", "mglsa_filter"),
+    # the float32 main path at 44.1 and 22.05 kHz, and `analysis --f32`
+    "copy_synth_44k": ANALYSIS + SYNTHESIS,
+    "copy_synth_22k": ANALYSIS + SYNTHESIS,
+    "fast_grid_cli": ANALYSIS + ("codec_encode",),
 }
 SPTK_KERNELS = ("excite", "band_fir", "mglsa_filter", "mcep_newton")
 # the CUDA kernels' names of a kernel whose launchers enqueue kernels not
@@ -478,7 +503,8 @@ def profile_kind(key: str, names) -> str:
 DEVICE_TIMED = SPTK_KERNELS + FFT + ("synth_time_base", "hsmm_loglik",
                                      "hsmm_mix_loglik", "semitied",
                                      "codec_encode", "d4c_band_sort",
-                                     "hsmm_accumulate")
+                                     "hsmm_accumulate", "topk_sum",
+                                     "frame_window", "stonemask_if")
 # the HSMM lane: RecipeConfig's defaults (models/recipe.py:45-47)
 HSMM_MODELS, HSMM_STATES, HSMM_MAX_DUR, HSMM_UTTS = 40, 5, 60, 128
 # the recipe lane: train_voice at RecipeConfig's defaults
@@ -504,11 +530,39 @@ DNN_TRDNN_STEPS, DNN_TRJGV_STEPS, DNN_UNSEEN = 4000, 200, 4
 DNN_MSPF_WEIGHT = 0.5
 
 
-def corpus(batch: int, n: int, seed: int = 0) -> np.ndarray:
+def topk_rows(n: int, seed: int = 3) -> np.ndarray:
+    """K3's adversarial float32 rows of n: chi-square power with ties at
+    every level (the k-th value repeated), all zeros, fewer positives than
+    k, denormals only, +inf and NaN patterns (quiet, signalling, negative)
+    among values, -0.0 and negative values, one value repeated throughout,
+    and values over twenty decades."""
+    rng = np.random.default_rng(seed + n)
+    rows = [np.round(rng.standard_normal(n) ** 2, 1),
+            np.zeros(n),
+            np.where(rng.random(n) < 0.01, rng.random(n), 0.0),
+            rng.integers(1, 2 ** 23, n).astype(np.int32).view(np.float32)
+            .astype(np.float64),
+            rng.standard_normal(n) ** 2,
+            rng.standard_normal(n) ** 2,
+            np.full(n, 0.37),
+            10.0 ** rng.uniform(-12, 8, n)]
+    p = np.stack(rows).astype(np.float32)
+    b = p.view(np.int32)
+    m = min(n, 40)
+    b[4, rng.choice(n, m, replace=False)] = 0x7F800000          # +inf
+    b[4, rng.choice(n, m // 2, replace=False)] = 0x7FC00000     # NaN
+    b[5, rng.choice(n, m, replace=False)] = 0x7F800001          # sNaN
+    b[5, rng.choice(n, m // 2, replace=False)] = np.int32(-4194304)  # -NaN
+    b[6, rng.choice(n, m, replace=False)] = np.int32(-2 ** 31)  # -0.0
+    p[6, rng.choice(n, m // 2, replace=False)] = -1.5
+    return p
+
+
+def corpus(batch: int, n: int, seed: int = 0, fs: int = FS) -> np.ndarray:
     """bench.py's harmonic corpus: 4 harmonics of 160-235 Hz, 5 Hz
-    amplitude wobble, 1% white noise, peak 0.7."""
+    amplitude wobble, 1% white noise, peak 0.7, at fs."""
     rng = np.random.default_rng(seed)
-    t = np.arange(n) / FS
+    t = np.arange(n) / fs
     xs = []
     for i in range(batch):
         f0 = 160.0 + 15.0 * (i % 6)
@@ -2697,6 +2751,195 @@ def parity_analysis_cli(counted, devices=("cuda", "cpu"), fs=16000,
                 raise RuntimeError("analysis CLI: the card's files disagree "
                                    "with the CPU's")
         return counts, rec
+    finally:
+        shutil.rmtree(d)
+
+
+# ---------------------------------------------------------------------------
+# the float32 main path at frame grids of no whole number of samples
+# (phase 20): 44.1 and 22.05 kHz at 5 ms, 220.5 and 110.25 samples a frame
+# ---------------------------------------------------------------------------
+
+FAST_GRID_RATES = (44100, 22050)
+# the kernels whose launch shapes the new rates change, replayed
+FAST_GRID_REPLAY = ("frame_window", "stonemask_if", "topk_sum", "fft_r2c",
+                    "fft_c2r")
+
+
+def fast_grid_path(fs: int) -> str:
+    return f"copy_synth_{fs // 1000}k"
+
+
+def fast_grid_lane(counted, profiled, fs: int, device="cuda",
+                   batch: int = BATCH, dur: float = DUR,
+                   timed: int = ITERS):
+    """Phase 20 (a): `batch_copy_synth` of the headline batch's shape (B
+    utterances of `dur` s, 5 ms frames) at fs, where a frame is no whole
+    number of samples (StoneMask's float32 bucket path, the generic
+    windows), counted and recorded (every kernel of the 48 kHz path must
+    launch); its outputs held as phase 2 holds the 48 kHz batch's;
+    audio-s/s over `timed` batches after one, and the device idle share of
+    one batch under the profiler.  Returns (counts, the recorded launches
+    of FAST_GRID_REPLAY's kernels)."""
+    import torch
+    from hts_train_world_tpu_torch import config as cfg
+    from hts_train_world_tpu_torch import kernels
+    from hts_train_world_tpu_torch.parallel import batch as batch_mod
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    L = int(fs * dur)
+    xs = torch.as_tensor(corpus(batch, L, fs=fs), dtype=torch.float32,
+                         device=device)
+    batch_mod.batch_copy_synth(xs, fs, seed=1, device=device)  # warm-up
+    (_, f0, sp, ap, y), counts, rec = counted(
+        fast_grid_path(fs), lambda: batch_mod.batch_copy_synth(
+            xs, fs, seed=1, device=device), record=True)
+    T = cfg.samples_for_dio(fs, L, FRAME_PERIOD)
+    H = cfg.cheaptrick_fft_size(fs) // 2 + 1
+    if f0.shape != (batch, T) or sp.shape != (batch, T, H) \
+            or ap.shape != sp.shape \
+            or y.shape != (batch, cfg.y_length_for(T, FRAME_PERIOD, fs)):
+        raise RuntimeError(f"{fs} Hz: unexpected output shapes")
+    if not all(bool(torch.isfinite(v).all()) for v in (f0, sp, ap, y)) \
+            or not bool((sp > 0).all()) or float(ap.min()) < 0 \
+            or float(ap.max()) > 1:
+        raise RuntimeError(f"{fs} Hz: non-finite or out-of-range output")
+    voiced = float((f0 > 0).float().mean())
+    med_f0 = float(f0[f0 > 0].median())
+    rms = float(y.pow(2).mean().sqrt())
+    per = []
+    for i in range(timed + 1):
+        sync()
+        t0 = time.perf_counter()
+        batch_mod.batch_copy_synth(xs, fs, seed=10 + i, device=device)
+        sync()
+        per.append(time.perf_counter() - t0)
+    dt = float(np.mean(per[1:]))
+    wall, busy, _ = profiled(lambda: batch_mod.batch_copy_synth(
+        xs, fs, seed=20, device=device))
+    idle = 1.0 - busy / wall if wall > 0 else float("nan")
+    print(f"copy-synthesis at {fs} Hz ({fs * FRAME_PERIOD / 1000.0} samples "
+          f"a frame; B={batch} x {dur} s): voiced rate {voiced:.3f}, median "
+          f"f0 {med_f0:.1f} Hz, y rms {rms:.4f}; throughput "
+          f"{batch * dur / dt:.2f} audio-s/s ({1e3 * dt:.1f} ms per batch, "
+          f"mean of {timed} after one; median "
+          f"{1e3 * float(np.median(per[1:])):.1f} ms); one batch under the "
+          f"profiler: wall {1e3 * wall:.1f} ms, device busy "
+          f"{1e3 * busy:.1f} ms, idle {100 * idle:.1f}%", flush=True)
+    if not (0.8 <= voiced <= 1.0 and 150.0 <= med_f0 <= 250.0
+            and 0.05 <= rms <= 1.0):
+        raise RuntimeError(f"{fs} Hz: implausible V/UV rate, f0 or level")
+    return counts, [(n, i) for n, i in rec
+                    if kernels.base_name(n) in FAST_GRID_REPLAY]
+
+
+def fast_grid_card_vs_cpu(devices=("cuda", "cpu"), rates=FAST_GRID_RATES,
+                          dur: float = 0.5):
+    """Phase 20 (b): at each rate, `batch_copy_synth` of 2 x `dur` s with
+    the same injected noise on both devices (phase 4's gates), and
+    `vocoder.estimate_f0` of a float32 wave at its defaults (StoneMask's
+    float32 bucket path) on both: the same frame times, V/UV agreement >=
+    0.98 and f0 within 1e-4 median rel."""
+    import torch
+    from hts_train_world_tpu_torch import config as cfg
+    from hts_train_world_tpu_torch import vocoder
+    from hts_train_world_tpu_torch.ops import synthesis as syn
+    from hts_train_world_tpu_torch.parallel import batch as batch_mod
+    for fs in rates:
+        xsm = corpus(2, int(fs * dur), seed=3, fs=fs)
+        T = cfg.samples_for_dio(fs, xsm.shape[1], FRAME_PERIOD)
+        nz = np.random.default_rng(4).standard_normal(
+            (2, syn.synthesis_stream_len(cfg.y_length_for(T, FRAME_PERIOD,
+                                                           fs))))
+        g, c = ([v.cpu().double() for v in batch_mod.batch_copy_synth(
+            xsm, fs, noise=nz, device=d)] for d in devices)
+        vuv = float(((g[1] > 0) == (c[1] > 0)).double().mean())
+        both = (g[1] > 0) & (c[1] > 0)
+        f0_rel = float(((g[1][both] - c[1][both]).abs()
+                        / c[1][both]).median())
+        dlog = float((g[2].log() - c[2].log()).abs().median())
+        dap = float((g[3] - c[3]).abs().median())
+        e_rel = float(((g[4].pow(2).sum(1) / c[4].pow(2).sum(1)) - 1)
+                      .abs().max())
+        x32 = xsm[0].astype(np.float32)
+        (tg, eg), (tc, ec) = ((v.cpu() for v in vocoder.estimate_f0(
+            x32, fs, FRAME_PERIOD, device=d)) for d in devices)
+        e_vuv = float(((eg > 0) == (ec > 0)).double().mean())
+        eb = (eg > 0) & (ec > 0)
+        e_f0 = float(((eg[eb] - ec[eb]).abs() / ec[eb]).median())
+        print(f"{fs} Hz, {devices[0]} vs {devices[1]} (2 x {dur} s): "
+              f"copy-synthesis V/UV agreement {vuv:.4f}, f0 med rel "
+              f"{f0_rel:.2e}, sp med |dlog| {dlog:.2e}, ap med |d| "
+              f"{dap:.2e}, energy rel {e_rel:.2e}; estimate_f0 (float32, "
+              f"its defaults) t equal {torch.equal(tg, tc)}, V/UV "
+              f"agreement {e_vuv:.4f}, f0 med rel {e_f0:.2e}", flush=True)
+        if not (vuv >= 0.98 and f0_rel <= 1e-4 and dlog <= 0.05
+                and dap <= 0.01 and e_rel <= 0.05 and torch.equal(tg, tc)
+                and e_vuv >= 0.98 and e_f0 <= 1e-4):
+            raise RuntimeError(f"{fs} Hz: the card's float32 path disagrees "
+                               f"with the CPU's")
+
+
+def fast_grid_cli(counted, devices=("cuda", "cpu"), fs: int = 44100,
+                  dur: float = 0.5):
+    """Phase 20 (c): `analysis --f32` at fs on one wav, raw (mgcdim 0)
+    and encoded (mgc 50 / bap 25, counted on the first device), on each
+    device; the first device's files against the second's: V/UV agreement
+    >= 0.98, f0 within 1e-4 median rel (lf0 1e-3 median abs), sp within
+    0.05 median |dlog|, ap within 0.01 (mgc and bap 0.01) median |d|.
+    Returns the encoded run's counts."""
+    from hts_train_world_tpu_torch import cli
+    from hts_train_world_tpu_torch.io import wavio
+    d = tempfile.mkdtemp()
+    try:
+        wav = os.path.join(d, "in.wav")
+        wavio.wavwrite(corpus(1, int(fs * dur), seed=5, fs=fs)[0], fs, wav)
+        counts = None
+        for dims in (("0",), ("0", "50", "25")):
+            files = []
+            for i, dev in enumerate(devices):
+                outs = [os.path.join(d, f"{i}.{k}")
+                        for k in ("lf0", "mgc", "bap")]
+                argv = ["analysis", wav, *outs, str(FRAME_PERIOD), *dims,
+                        "--f32", "--device", dev]
+                if len(dims) > 1 and counts is None:
+                    _, counts, _ = counted("fast_grid_cli",
+                                           lambda: cli.main(argv))
+                else:
+                    cli.main(argv)
+                files.append([np.fromfile(o, dtype=np.float32)
+                              for o in outs])
+            (a0, a1, a2), (b0, b1, b2) = files
+            if any(a.shape != b.shape or not np.isfinite(a).all()
+                   for a, b in zip(*files)):
+                raise RuntimeError("analysis --f32: shapes differ or "
+                                   "non-finite output")
+            vuv = float(((a0 != 0) == (b0 != 0)).mean())
+            both = (a0 != 0) & (b0 != 0)
+            if len(dims) == 1:
+                f0 = float(np.median(np.abs(a0[both] - b0[both]) / b0[both]))
+                sp = float(np.median(np.abs(np.log(a1) - np.log(b1))))
+                ap = float(np.median(np.abs(a2 - b2)))
+                ok = vuv >= 0.98 and f0 <= 1e-4 and sp <= 0.05 and ap <= 0.01
+                text = (f"raw: f0 med rel {f0:.2e}, sp med |dlog| "
+                        f"{sp:.2e}, ap med |d| {ap:.2e}")
+            else:
+                lf0 = float(np.median(np.abs(a0[both] - b0[both])))
+                mg = float(np.median(np.abs(a1 - b1)))
+                bp = float(np.median(np.abs(a2 - b2)))
+                ok = vuv >= 0.98 and lf0 <= 1e-3 and max(mg, bp) <= 0.01
+                text = (f"mgc 50 / bap 25: lf0 med |d| {lf0:.2e}, mgc "
+                        f"{mg:.2e}, bap {bp:.2e}")
+            print(f"analysis --f32 at {fs} Hz, {devices[0]} vs "
+                  f"{devices[1]}: V/UV agreement {vuv:.4f}; {text}",
+                  flush=True)
+            if not ok:
+                raise RuntimeError(f"analysis --f32 at {fs} Hz: the card's "
+                                   f"files disagree with the CPU's")
+        return counts
     finally:
         shutil.rmtree(d)
 
@@ -5535,9 +5778,41 @@ def main() -> int:
             err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, lib_ms=lib_ms,
             by={by: bms})
 
+    def k3_adversarial():
+        """K3 on `topk_rows` (ties at the k-th value, zeros, denormals,
+        +inf and NaN patterns, -0.0 and negatives) at D4C's band widths
+        (1025: 16 and 22.05 kHz; 2049: 44.1 and 48 kHz) and a two-warp
+        width, k = 1, 65, n/3 and n: the threshold bit for bit the twin's
+        on the CPU, the sum within 1e-5 relative where finite and the
+        same inf or NaN where not."""
+        bad = []
+        for n in (1025, 2049, 4097):
+            rows = torch.as_tensor(topk_rows(n))
+            for k in (1, 65, n // 3, n):
+                s, thr = prims.top_k_threshold_sum(rows.to(dev), k)
+                s0, thr0 = prims.top_k_threshold_sum_plain(rows, k)
+                s = s.cpu()
+                fin = torch.isfinite(s0)
+                ok = (torch.equal(thr.cpu().view(torch.int32),
+                                  thr0.view(torch.int32))
+                      and torch.equal(torch.isnan(s), torch.isnan(s0))
+                      and torch.equal(torch.isfinite(s), fin)
+                      and torch.equal(s[torch.isinf(s0)], s0[torch.isinf(s0)])
+                      and bool(((s[fin] - s0[fin]).abs()
+                                <= 1e-5 * s0[fin].abs() + 1e-30).all()))
+                if not ok:
+                    bad.append((n, k))
+        print(f"K3 on adversarial rows (n 1025, 2049, 4097; k 1, 65, n/3, "
+              f"n): threshold bit-equal to the twin and sums held in all: "
+              f"{not bad}{' ' + str(bad) if bad else ''}", flush=True)
+        if bad:
+            raise RuntimeError("K3 disagrees with its twin on adversarial "
+                               "rows")
+
     for path, name, inp in replays:
         replay(path, name, inp)
     k39_table(k39_launches)
+    k3_adversarial()
     k9_routes(next(i for n, i in rec_cs if n == "synth_time_base")["f0"])
     del rec_cs, rec_fl, rec_sl, rec_hl, replays
     torch.cuda.empty_cache()
@@ -6674,6 +6949,23 @@ def main() -> int:
     k37_sizes()
     print(f"phase 19: {time.perf_counter() - t19:.1f} s", flush=True)
 
+    # ---- 20. the float32 main path at frame grids of no whole number of
+    # samples: the headline batch's shape at 44.1 and 22.05 kHz counted,
+    # timed and profiled, the launches whose shapes change replayed; the
+    # card against the CPU; `analysis --f32` at 44.1 kHz ----
+    t20 = time.perf_counter()
+    counts_fg = {}
+    for fs_g in FAST_GRID_RATES:
+        counts_fg[fast_grid_path(fs_g)], rec_g = fast_grid_lane(
+            counted, profiled, fs_g)
+        for name, inp in rec_g:
+            replay(fast_grid_path(fs_g), name, inp)
+        del rec_g
+        torch.cuda.empty_cache()
+    fast_grid_card_vs_cpu()
+    counts_fg["fast_grid_cli"] = fast_grid_cli(counted)
+    print(f"phase 20: {time.perf_counter() - t20:.1f} s", flush=True)
+
     print(smi)
     src = "hts_train_world_tpu_torch/csrc/"
     by_path = {"copy_synth": counts_cs, "feature_lane": counts_fl,
@@ -6693,7 +6985,8 @@ def main() -> int:
                "parity_analysis_cli": counts_pac,
                "parity_harvest": counts_ph17,
                "parity_harvest_cli": counts_phc, "variants": counts_v,
-               "sptk_engine": counts_sp, "sptk_copy": counts_sc}
+               "sptk_engine": counts_sp, "sptk_copy": counts_sc,
+               **counts_fg}
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": src + kernels.KERNELS[kernels.base_name(name)][0],

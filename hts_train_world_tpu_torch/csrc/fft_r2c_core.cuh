@@ -1,7 +1,9 @@
 // K39's FFT core: the M = N/2-point complex FFT of z_m = x_2m + i x_2m+1
 // in float64, held in registers, then the split into the N/2+1 bins of
-// rfft(x, N).  K37's frames (mglsa_filter.cu) run it forward and, on the
-// conjugate of the inverse split, backward.
+// rfft(x, N).  It is the port's one FFT core: K37's frames
+// (mglsa_filter.cu) run it forward and, on the conjugate of the inverse
+// split, backward, and K40 (fft_c2r.cu) runs the inverse that way alone,
+// its outputs stored from registers.
 //
 // Threads.  A row has T = M/16 threads and each thread holds P = 16
 // complex points in registers (v[], float64 pairs).  A pass of radix R
@@ -278,8 +280,10 @@ __device__ __forceinline__ void gather(C2* v, const double* sre,
 
 // KEEP: the last pass keeps its outputs in registers in `last_j`'s
 // pairing where the plan allows it (K39's split on registers); without
-// it every plan ends with Z in natural order in the planes (K37)
-template <int M, bool SP, int p, bool KEEP = true>
+// it every plan ends with Z in natural order in the planes (K37), or,
+// with REG, in registers in the natural butterflies j = t + b T: output r
+// of butterfly j is Z_(j + r M/R) (K40's stores)
+template <int M, bool SP, int p, bool KEEP = true, bool REG = false>
 __device__ __forceinline__ void passes(C2* v, double* sre, double* sim,
                                        const double2* __restrict__ tw,
                                        int t) {
@@ -287,6 +291,7 @@ __device__ __forceinline__ void passes(C2* v, double* sre, double* sim,
   constexpr int T = Geometry<M>::T;
   constexpr bool LAST = p + 1 == n_passes(M, SP);
   constexpr bool PAIR = LAST && KEEP && paired(M, SP);
+  constexpr bool STAY = PAIR || (LAST && REG);
 #pragma unroll
   for (int b = 0; b < P / R; b++) {
     const int j = PAIR ? last_j<M, SP>(t, b) : t + b * T, k = j & (NS - 1);
@@ -299,7 +304,7 @@ __device__ __forceinline__ void passes(C2* v, double* sre, double* sim,
       }
     }
     dft<R>(v + b * R);
-    if constexpr (!PAIR) {
+    if constexpr (!STAY) {
       const int base = (j - k) * R + k;
 #pragma unroll
       for (int r = 0; r < R; r++) {
@@ -309,13 +314,13 @@ __device__ __forceinline__ void passes(C2* v, double* sre, double* sim,
       }
     }
   }
-  if constexpr (!PAIR) __syncthreads();
+  if constexpr (!STAY) __syncthreads();
   if constexpr (!LAST) {
     constexpr bool NEXT_PAIR =
         p + 2 == n_passes(M, SP) && KEEP && paired(M, SP);
     gather<M, radix(M, SP, p + 1), NEXT_PAIR, SP>(v, sre, sim, t);
     __syncthreads();
-    passes<M, SP, p + 1, KEEP>(v, sre, sim, tw, t);
+    passes<M, SP, p + 1, KEEP, REG>(v, sre, sim, tw, t);
   }
 }
 

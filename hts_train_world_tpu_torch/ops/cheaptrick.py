@@ -1,12 +1,16 @@
 """CheapTrick spectral envelope.
 
 Counterpart of `hts_train_world_tpu/ops/cheaptrick.py`
-(externs/WORLD_v2/src/cheaptrick.cpp).  The f32 fast path (the JAX
-package's slab branch) runs on the regular frame grid: per frame a
-pitch-adaptive Hann window scaled to unit energy with its weighted mean
-removed (kernel K1, CHEAPTRICK mode), the power spectrum as a DFT matmul,
-DC correction and linear smoothing over 2*f0/3 (kernel K2), a floor
-relative to the frame peak, and the cepstral lifter as two matmuls.
+(externs/WORLD_v2/src/cheaptrick.cpp).  The f32 fast path runs per frame
+a pitch-adaptive Hann window scaled to unit energy with its weighted mean
+removed (kernel K1, CHEAPTRICK mode), the power spectrum (K39), DC
+correction and linear smoothing over 2*f0/3 (kernel K2), a floor relative
+to the frame peak, and the cepstral lifter around two inverse FFTs (K40).
+Each window sits at round(pos*fs + 0.001) of its frame's position: on a
+frame grid of a whole number of samples held within 2 samples of its grid
+point (the JAX package's slab branch), on any other grid where it falls
+(its generic float32 frame, cheaptrick.py:127-148 with the edge-padded
+`xp`).
 
 The float64 parity path (`cheaptrick_parity`, the JAX package's f64
 frame, cheaptrick.py:127-191) places each window at its own position with
@@ -101,13 +105,9 @@ def cheaptrick_parity(xs, fs: int, temporal_positions, f0,
 def cheaptrick(xs, fs: int, temporal_positions, f0, fft_size: int = 0,
                q1: float = -0.15, grid_step: int = 0):
     """CheapTrick (cheaptrick.cpp:200-228) fast path for f32 xs (B, L),
-    f0 (B, T) on the regular frame grid -> spectrogram (B, T, N/2+1)."""
-    if grid_step <= 0:
-        raise NotImplementedError(
-            "the port's float32 CheapTrick runs on the regular frame grid "
-            "only (grid_step > 0); float32 analysis at a non-integral "
-            "frame grid is ROADMAP.md's Queue A 11")
-    dev = xs.device
+    f0 (B, T) -> spectrogram (B, T, N/2+1): on the regular frame grid of
+    grid_step samples, or with grid_step 0 at any temporal positions (T,)
+    or (B, T)."""
     B, T = f0.shape
     N = fft_size or cfg.cheaptrick_fft_size(fs)
     half = N // 2
@@ -121,11 +121,12 @@ def cheaptrick(xs, fs: int, temporal_positions, f0, fft_size: int = 0,
     cf0 = torch.where(f0 <= f0_floor, torch.full_like(f0, cfg.K_DEFAULT_F0),
                       f0).reshape(-1)
     pos = temporal_positions.expand(B, T).reshape(-1)
-    base = (torch.arange(T, device=dev) * grid_step).repeat(B)
-    s_reg = torch.clamp(prims.matlab_round_i(pos * fs + 0.001) - base, -2, 2)
+    origin = frames.frame_origins(prims.matlab_round_i(pos * fs + 0.001), T,
+                                  grid_step, 2)
+    # cf0 > f0_floor keeps h under the cap (cheaptrick.cpp:196-198)
     h = torch.clamp(prims.matlab_round_i(prims.rdiv(1.5 * fs, cf0)),
                     max=h_cap)
-    wave, _ = frames.frame_windows(xs, base + s_reg, h, cf0, fs, 3.0, width,
+    wave, _ = frames.frame_windows(xs, origin, h, cf0, fs, 3.0, width,
                                    frames.CHEAPTRICK)
     ps = fftmat.rfft_power(wave, N)
     ps = prims.smooth_spectrum(ps, fs, N, f0=cf0, ul_max=ul_max,

@@ -1,8 +1,9 @@
 """D4C band aperiodicity.
 
 Counterpart of `hts_train_world_tpu/ops/d4c.py` (externs/WORLD_v2/src/
-d4c.cpp).  The f32 fast path (the JAX package's slab branch) runs on the
-regular frame grid:
+d4c.cpp).  The f32 fast path (the JAX package's slab branch on a frame
+grid of a whole number of samples, its generic float32 frame on any
+other: d4c.py:35-68 with `xp`, :122-150 and :323-364) runs:
 - LoveTrain (d4c.cpp:258-282): per-frame V/UV from cumulative band power
   at 4000 / 7900 Hz of a Blackman window (K1, MEAN mode);
 - main body (d4c.cpp:290-316): two unit-energy centroid windows at
@@ -349,12 +350,11 @@ def d4c(xs, fs: int, temporal_positions, f0, fft_size: int,
     """D4C (d4c.cpp:337-397) for f32 xs (B, L), f0 (B, T) ->
     (aperiodicity (B, T, fft_size/2+1), LoveTrain ratio (B, T)).
     fft_size is the CheapTrick (output) size; `f0_floor` (the F0
-    estimator's floor) sizes the window trim."""
-    if grid_step <= 0:
-        raise NotImplementedError(
-            "the port's float32 D4C runs on the regular frame grid only "
-            "(grid_step > 0); float32 analysis at a non-integral frame "
-            "grid is ROADMAP.md's Queue A 11")
+    estimator's floor) sizes the window trim.  On the regular frame grid
+    of grid_step samples every window sits within a few samples of its
+    grid point (the JAX package's slab branch); with grid_step 0 at
+    round(p*fs + 0.001) of its own position p, at any temporal positions
+    (T,) or (B, T) (its generic float32 frame)."""
     dtype, dev = xs.dtype, xs.device
     B, T = f0.shape
     fft_d = cfg.d4c_fft_size(fs)
@@ -364,16 +364,23 @@ def d4c(xs, fs: int, temporal_positions, f0, fft_size: int,
     b_max = int(fmax * fft_d / fs) + 1
 
     # processed frames carry f0 >= f0_floor and the body clamps at 47 Hz,
-    # so windows are at most 2*h_cap+1 wide (d4c.py's fast-mode trim)
+    # so windows are at most 2*h_cap+1 wide (d4c.py's fast-mode trim);
+    # the generic frame caps h at what its trimmed row holds
     eff_floor = max(float(f0_floor), cfg.K_FLOOR_F0_D4C)
     h_cap = int(2.0 * fs / eff_floor + 1.0)
     width = min(fft_d, _round_up(2 * h_cap + 1))
+    if grid_step <= 0:
+        h_cap = (width - 1) // 2
     margin = int(0.25 * fs / eff_floor) + 2   # centroid +-0.25/f0 clip
 
     f0r = f0.reshape(-1)
     pos = temporal_positions.expand(B, T).reshape(-1)
-    base = (torch.arange(T, device=dev) * grid_step).repeat(B)
-    s_reg = torch.clamp(prims.matlab_round_i(pos * fs + 0.001) - base, -2, 2)
+
+    def origin(p, lim):
+        return frames.frame_origins(prims.matlab_round_i(p * fs + 0.001), T,
+                                    grid_step, lim)
+
+    o_pos = origin(pos, 2)
 
     # D4CLoveTrain (d4c.cpp:258-282) on a Blackman window (K1)
     n = cfg.d4c_love_train_fft_size(fs)
@@ -384,7 +391,7 @@ def d4c(xs, fs: int, temporal_positions, f0, fft_size: int,
     lf0 = torch.clamp(f0r, min=40.0)
     h0 = torch.clamp(prims.matlab_round_i(
         prims.exact_div(prims.rdiv(3.0 * fs, lf0), 2.0)), max=h_lt)
-    wave, _ = frames.frame_windows(xs, base + s_reg, h0, lf0, fs, 3.0,
+    wave, _ = frames.frame_windows(xs, o_pos, h0, lf0, fs, 3.0,
                                    min(n, _round_up(2 * h_lt + 1)),
                                    frames.MEAN_BLACKMAN)
     ap0, process, cf0 = love_train_sums(fftmat.rfft_power(wave, n),
@@ -395,16 +402,15 @@ def d4c(xs, fs: int, temporal_positions, f0, fft_size: int,
     quarter = prims.rdiv(0.25, cf0)
 
     def centroid(shift):
-        s = prims.matlab_round_i((pos + shift) * fs + 0.001) - base
-        origin = base + torch.clamp(s, -margin, margin)
-        r1_in, r2_in = frames.frame_windows(xs, origin, h, cf0, fs, 4.0,
-                                            width, frames.CENTROID)
+        r1_in, r2_in = frames.frame_windows(xs, origin(pos + shift, margin),
+                                            h, cf0, fs, 4.0, width,
+                                            frames.CENTROID)
         return fftmat.rfft(r1_in, fft_d) + fftmat.rfft(r2_in, fft_d)
 
     sc = prims.dc_correction(
         centroid_sum(*centroid(-quarter), *centroid(quarter)), cf0, fs,
         fft_d, ul_max)
-    wave, _ = frames.frame_windows(xs, base + s_reg, h, cf0, fs, 4.0, width,
+    wave, _ = frames.frame_windows(xs, o_pos, h, cf0, fs, 4.0, width,
                                    frames.MEAN)
     sps = prims.smooth_spectrum(fftmat.rfft_power(wave, fft_d), fs,
                                 fft_d, f0=cf0, ul_max=ul_max, width=cf0,

@@ -15,7 +15,11 @@ kernels on the card and the table products on the CPU:
                          its inverse, each the first N/2+1 samples
                          of irfft(x) * N                            K40
 
-K39 and K40 transform in float64 and round once to the rows' type.
+K39 and K40 transform in float64 and round once to the rows' type, on
+one FFT core (csrc/fft_r2c_core.cuh): K39 runs its passes forward with the
+split on registers, K40 the inverse split in registers and the same
+forward passes on its conjugate (`r2c_plan`, `c2r_plan`, `r2c_table_np`
+mirror the passes and their tables).
 Each function takes the table product (`rfft_matmul`, `rfft_power_matmul`,
 `irfft_scaled_matmul`, `minphase_log_matmul`, `sym_rfft_real_matmul`,
 `irfft_half_matmul`: the plain twins) for a CPU tensor and launches
@@ -205,20 +209,6 @@ def irfft_half_matmul(x, N: int):
 # ---------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
-def _twiddles_np(N: int):
-    """W_N^t = (cos, -sin)(2 pi t / N), t < N, interleaved (N, 2), in
-    float64."""
-    ang = 2.0 * np.pi * np.arange(N) / N
-    return np.ascontiguousarray(np.stack([np.cos(ang), -np.sin(ang)], 1))
-
-
-def _twiddles(N: int, device):
-    """K40's twiddle table (it transforms in float64 whatever the rows'
-    type)."""
-    return _on(_twiddles_np, N, torch.float64, device)
-
-
 # K39's pass plans (csrc/fft_r2c_core.cuh: `n_passes`, `radix`,
 # `sparse_ok`): the N/2 = M-point FFT of z_m = x_2m + i x_2m+1 in passes
 # of radix 16 and one of 2^(log2 M mod 4); where z is zero past M/4 the
@@ -239,6 +229,12 @@ def r2c_plan(N: int, L: int):
         plan.append((R, ns))
         ns *= R
     return sparse, plan
+
+
+def c2r_plan(N: int):
+    """K40's pass plan: K39's dense plan at N (an inverse reads every
+    bin), run on the conjugate of the inverse split."""
+    return r2c_plan(N, N)[1]
 
 
 def _w(num, den):
@@ -340,7 +336,8 @@ def c2r_plain(re, im, N: int, n_out: int):
 def c2r(re, im, N: int, n_out: int):
     """K40: half spectra (Re, Im) (..., N/2+1), Im None for zero ->
     irfft(X) * N, its first n_out samples (n_out = N or N/2+1); Im X_0
-    and Im X_{N/2} count as 0."""
+    and Im X_{N/2} count as 0.  The kernel reads K39's dense table at N
+    (its split entries give W_N^-k)."""
     if not re.is_cuda:
         return c2r_plain(re, im, N, n_out)
     _check("c2r", N, re, *(() if im is None else (im,)))
@@ -353,7 +350,7 @@ def c2r(re, im, N: int, n_out: int):
     lead = re.shape[:-1]
     re2 = re.reshape(-1, H).contiguous()
     im2 = None if im is None else im.reshape(-1, H).contiguous()
-    tw = _twiddles(N, re.device)
+    tw = _r2c_table(N, False, re.device)
     kernels.check_cuda("c2r", re2, tw, *(() if im2 is None else (im2,)))
     R = re2.shape[0]
     out = torch.empty((R, n_out), dtype=re.dtype, device=re.device)

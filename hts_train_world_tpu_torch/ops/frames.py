@@ -12,7 +12,12 @@ cross-products equal those of the JAX slab formulation.
 
 Per-frame integer parameters (window centre `origin`, half-length `h`)
 are computed by the callers in PyTorch, shared by the kernel and its
-plain twin, so both place every window on the same samples.
+plain twin, so both place every window on the same samples.  The
+callers' origins come from `frame_origins`: on a frame grid of a whole
+number of samples, the grid point moved by at most a few samples (the
+JAX package's slab windows); on any other grid (44.1 or 22.05 kHz at 5
+ms), each frame's own rounded position (its generic windows, grid_step
+0).  K1 reads every window from its own origin either way.
 
 Modes (csrc/frame_window.cu); each fixes its window:
 - MEAN:          Hann window, then weighted mean removal (D4C);
@@ -56,6 +61,19 @@ def _check_parity(mode: int, dtype, parity: bool):
 def _row_utterance(R: int, T: int, rowutt, dev):
     return (rowutt.long() if rowutt is not None
             else torch.arange(R, device=dev) // T)[:, None]
+
+
+def frame_origins(u, T: int, grid_step: int, lim: int):
+    """Each frame's window origin from u (B*T,), its rounded sample index:
+    u itself where every frame sits at a position of its own (grid_step
+    0, the JAX package's generic windows), else the grid point f *
+    grid_step moved toward u by at most `lim` samples (the slab windows of
+    the regular frame grid, which absorb only small deviations)."""
+    if grid_step <= 0:
+        return u
+    base = (torch.arange(T, device=u.device) * grid_step).repeat(
+        u.shape[0] // T)
+    return base + torch.clamp(u - base, -lim, lim)
 
 
 def frame_windows_plain(x, origin, h, f0, pos, fs: int, ratio: float,

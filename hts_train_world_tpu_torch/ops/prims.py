@@ -520,14 +520,32 @@ def top_k_threshold_sum_plain(p, k: int):
     return s_gt + (k - n_gt).to(p.dtype) * tie, tie
 
 
+TOPK_MAX_N = 16384
+
+
+def topk_plan(n: int):
+    """K3's plan for rows of n floats (csrc/topk_sum.cu's launcher): (CH,
+    W), CH float4 slots a thread on W warps a row, the least that hold a
+    row (at most n/4 whole float4 past its first 16-byte boundary, and 3 +
+    3 single floats around them)."""
+    if not 1 <= n <= TOPK_MAX_N:
+        raise ValueError(f"topk_plan: 1 <= n <= {TOPK_MAX_N}")
+    for ch, w in ((2, 1), (4, 1), (8, 1), (16, 1), (16, 2), (16, 4)):
+        if n <= 128 * ch * w + 3:
+            return ch, w
+    return 16, 8
+
+
 def top_k_threshold_sum(p, k: int):
     """K3: rows p (R, n) of non-negative f32 -> (sum of the k largest,
-    the k-th largest value), both exact selections."""
+    the k-th largest value), both exact selections: a radix select of
+    the k-th largest pattern, a warp (or `topk_plan`'s W warps) a row."""
     if not p.is_cuda:
         return top_k_threshold_sum_plain(p, k)
     R, n = p.shape
-    if p.dtype != torch.float32 or not 1 <= k <= n:
-        raise ValueError("top_k_threshold_sum: f32 rows and 1 <= k <= n")
+    if p.dtype != torch.float32 or not 1 <= k <= n or n > TOPK_MAX_N:
+        raise ValueError(f"top_k_threshold_sum: f32 rows and 1 <= k <= n "
+                         f"<= {TOPK_MAX_N}")
     p = p.contiguous()
     kernels.check_cuda("top_k_threshold_sum", p)
     s = torch.empty(R, dtype=torch.float32, device=p.device)

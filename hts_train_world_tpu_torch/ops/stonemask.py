@@ -1,23 +1,30 @@
 """StoneMask F0 refinement.
 
 Counterpart of `hts_train_world_tpu/ops/stonemask.py`
-(externs/WORLD_v2/src/stonemask.cpp).  The f32 fast path (the JAX
-package's `_stonemask_slab`) runs on the regular frame grid: each frame's
-Blackman window and its centred-difference derivative (kernel K1,
-STONEMASK mode), ONE B_max-point DFT of each, and the harmonic
-instantaneous-frequency readout at bin stride r = B_max / B_c, which
-equals the frame's own B_c-point DFT because every window is zero beyond
-its 2h+1 samples.  The IF readouts |sm|^2 and Im(conj(sm) sd) do not
-depend on where the window sits in its row.
+(externs/WORLD_v2/src/stonemask.cpp).  The f32 fast path runs
+each frame's Blackman window and its centred-difference derivative
+(kernel K1, STONEMASK mode), ONE B_max-point DFT of each (K39), and the
+harmonic instantaneous-frequency readout at bin stride r = B_max / B_c
+(K24), which equals the frame's own B_c-point DFT because every window is
+zero beyond its 2h+1 samples.  The IF readouts |sm|^2 and Im(conj(sm) sd)
+do not depend on where the window sits in its row.  On a frame grid of a
+whole number of samples it is the JAX package's `_stonemask_slab` (h
+capped, each window's origin within 4 samples of its grid point, every
+ungated frame refined); with grid_step 0 (any frame grid: 44.1 kHz at 5
+ms, or `estimate_f0` without `fast_grid`) it is the JAX package's float32
+bucket path (stonemask.py:154-226, fast=True): each window from its own
+origin round(pos*fs) - h - 1, h not capped, and a frame whose DFT size
+4 * 2^floor(log2(2h+1)) is no bucket's left at 0.  One B_max DFT in place
+of a DFT a bucket: every frame of a bucket B_c has at most B_c/2 samples,
+so its B_c bins are the B_max bins at stride r, and no host read of a
+bucket's frame count is needed.
 
 The parity path (`parity=True`, float64) is the JAX package's bucket
 path (stonemask.py:170-226): the frames of each reachable DFT size B (a
 bucket) are windowed at their own positions, each sample at its own
 rounded index (K1, STONEMASK mode with parity), transformed at B by
 `torch.fft.rfft`, and read out at stride 1 (K24 in float64).  It places
-every window from its own position, so it serves any frame grid.  The
-JAX package's float32 bucket path (grid_step 0) is not ported: ROADMAP.md,
-Queue A 11.
+every window from its own position, so it serves any frame grid.
 
 The readout is kernel K24 (csrc/stonemask_if.cu, `if_readout`), with its
 plain PyTorch twin `if_readout_plain`: the wrapper launches the kernel for
@@ -40,6 +47,14 @@ def _fft_size_for_f0(fs: int, f0: float) -> int:
     return int(2 ** (2 + int(math.log(half * 2.0 + 1.0) / cfg.K_LOG2)))
 
 
+def frame_fft_size(h, dtype):
+    """Each frame's DFT size, 4 * 2^floor(log2(2h+1)) for its half width
+    h (integers), the log taken in `dtype` as the JAX package takes it
+    in the waveform's."""
+    e_c = torch.floor(torch.log((2 * h + 1).to(dtype)) / cfg.K_LOG2).long()
+    return 4 * torch.pow(2, e_c)
+
+
 def stonemask_buckets(fs: int, f0_floor: float = cfg.K_FLOOR_F0,
                       f0_ceil: float = cfg.K_CEIL_F0):
     out = []
@@ -56,37 +71,40 @@ def stonemask(xs, fs: int, temporal_positions, f0,
               parity: bool = False):
     """StoneMask (stonemask.cpp:211-217) for xs (B, L) and f0 (B, T):
     with `parity`, the bucket path (float64 xs) at any temporal positions
-    (T,) or (B, T); else the fast path on the regular frame grid
-    (grid_step samples per frame)."""
+    (T,) or (B, T); else the fast path, on the regular frame grid
+    (grid_step samples per frame: the slab path) or, with grid_step 0,
+    at any temporal positions (the float32 bucket path)."""
     if parity:
         if xs.dtype != torch.float64:
             raise ValueError("stonemask: the bucket path (parity) takes "
                              "float64 waveforms")
         return _stonemask_buckets(xs, fs, temporal_positions, f0, f0_floor,
                                   f0_ceil)
-    if grid_step <= 0:
-        raise NotImplementedError(
-            "the port's fast StoneMask runs on the regular frame grid "
-            "only (grid_step > 0); the float32 bucket path (grid_step 0, "
-            "any frame grid) is ROADMAP.md's Queue A 11")
-    dev = xs.device
     B, T = f0.shape
-    B_max = stonemask_buckets(fs, f0_floor, f0_ceil)[-1]
+    buckets = stonemask_buckets(fs, f0_floor, f0_ceil)
+    B_max = buckets[-1]
     h_cap = (B_max // 2 - 1) // 2
     width = min(B_max, -(-(2 * h_cap + 1) // 128) * 128)
 
     gate = (f0 <= cfg.K_FLOOR_F0_STONEMASK) | (f0 > fs / 12.0)
     f0s = torch.where(gate, torch.full_like(f0, 100.0), f0).reshape(-1)
+    gate = gate.reshape(-1)
     pos = temporal_positions.expand(B, T).reshape(-1)
-    base = (torch.arange(T, device=dev) * grid_step).repeat(B)
     h = torch.clamp(prims.rdiv(1.5 * fs, f0s) + 1.0, max=2.0 ** 30).long()
+    if grid_step <= 0:
+        # the bucket path: a frame whose DFT size (from its own h, in the
+        # waveform's dtype) is no bucket's stays 0; the others' windows
+        # are at most B_c/2 <= B_max/2 samples, so h needs no cap there
+        bc = frame_fft_size(h, xs.dtype)
+        gate = gate | (bc < buckets[0]) | (bc > B_max)
     h = torch.clamp(h, max=h_cap)
-    s0 = torch.clamp(prims.matlab_round_i(pos * fs) - base, -4, 4)
-    segm, segd = frames.frame_windows(xs, base + s0 - 1, h, f0s, fs, 0.0,
-                                      width, frames.STONEMASK, pos=pos)
+    origin = frames.frame_origins(prims.matlab_round_i(pos * fs), T,
+                                  grid_step, 4) - 1
+    segm, segd = frames.frame_windows(xs, origin, h, f0s, fs, 0.0, width,
+                                      frames.STONEMASK, pos=pos)
     smr, smi = fftmat.rfft(segm, B_max)
     sdr, sdi = fftmat.rfft(segd, B_max)
-    return if_readout(smr, smi, sdr, sdi, f0s, h, gate.reshape(-1), fs,
+    return if_readout(smr, smi, sdr, sdi, f0s, h, gate, fs,
                       B_max).reshape(B, T)
 
 
@@ -103,8 +121,7 @@ def _stonemask_buckets(xs, fs: int, temporal_positions, f0,
     gate = (f0r <= cfg.K_FLOOR_F0_STONEMASK) | (f0r > fs / 12.0)
     f0s = torch.where(gate, torch.full_like(f0r, 100.0), f0r)
     h = torch.trunc(prims.rdiv(1.5 * fs, f0s) + 1.0).long()
-    e_c = torch.floor(torch.log((2 * h + 1).to(dtype)) / cfg.K_LOG2).long()
-    frame_fft = 4 * torch.pow(2, e_c)
+    frame_fft = frame_fft_size(h, dtype)
     utt = torch.arange(B * T, device=dev) // T
     refined = torch.zeros_like(f0r)
     for b_c in stonemask_buckets(fs, f0_floor, f0_ceil):
@@ -140,10 +157,8 @@ def if_readout_plain(smr, smi, sdr, sdi, f0s, h, gate, fs: int, b_max: int):
     dtype, dev = smr.dtype, smr.device
     two_pi = (2.0 * np.pi if dtype == torch.float64
               else float(np.float32(2.0 * np.pi)))
-    # per-frame fft size B_c = 4 * 2^floor(log2(2h+1)) and its bin stride
-    e_c = torch.floor(torch.log((2 * h + 1).to(dtype))
-                      / cfg.K_LOG2).long()
-    bc = 4 * torch.pow(2, e_c)
+    # per-frame fft size B_c and its bin stride
+    bc = frame_fft_size(h, dtype)
     r = (b_max // 4) // (bc // 4)
     bcf = bc.to(dtype)
     ks = torch.arange(1, 7, dtype=dtype, device=dev)

@@ -3,7 +3,9 @@
 Counterpart of `hts_train_world_tpu/parallel/batch.py` (fast mode): a
 batch of equal-length utterances runs through DIO -> StoneMask (or
 Harvest, whose refinement is built in, so no StoneMask) -> CheapTrick ->
-D4C as batched tensors; synthesis reads the exact pulse count once on the
+D4C as batched tensors, at any frame grid (on a grid of a whole number of
+samples the JAX package's slab windows, on any other, such as 44.1 or
+22.05 kHz at 5 ms, its generic float32 windows); synthesis reads the exact pulse count once on the
 host (kernel K9, the arithmetic synthesis itself runs) and runs at a
 128-aligned pulse bucket of that count plus slack.  `parity_stages` is
 the float64 parity analysis of a batch (the JAX package's default), on
@@ -24,17 +26,6 @@ from hts_train_world_tpu_torch.ops import stonemask as sm
 from hts_train_world_tpu_torch.ops import synthesis as syn
 
 
-def grid_step_for(fs: int, frame_period: float) -> int:
-    """Samples per frame; the fast path needs an integral number."""
-    gs = cfg.grid_step(fs, frame_period)
-    if not gs:
-        raise NotImplementedError(
-            "the port's fast path needs an integral number of samples per "
-            f"frame (fs={fs}, frame_period={frame_period}); ROADMAP.md "
-            "Queue A 11.  The parity path (float64) runs any frame grid")
-    return gs
-
-
 def analyze_stages(xs, fs: int, frame_period: float = 5.0,
                    d4c_threshold: float = 0.0, algorithm: str = "dio"):
     """The analysis stages one after another, yielding (stage name,
@@ -43,7 +34,7 @@ def analyze_stages(xs, fs: int, frame_period: float = 5.0,
     then "harvest", the 1 ms contour picked onto the frame grid in
     float64 on the host (harvest.cpp:1246-1251)."""
     check_algorithm(algorithm)
-    gs = grid_step_for(fs, frame_period)
+    gs = cfg.grid_step(fs, frame_period)    # 0: each frame at its position
     N = cfg.cheaptrick_fft_size(fs)
     if algorithm == "harvest":
         for stage, f0_1ms in hv.harvest_f0_stages(xs, fs):

@@ -1,7 +1,9 @@
 """High-level WORLD vocoder API of the port.
 
 Counterpart of `hts_train_world_tpu/vocoder.py`.  parity=False is the f32
-fast path: noise-free analysis on the regular frame grid, cumsum phase and
+fast path: noise-free analysis at any frame grid (the slab windows on a
+grid of a whole number of samples; the generic windows and StoneMask's
+float32 bucket path on any other, 44.1 kHz at 5 ms too), cumsum phase and
 `torch.Generator` noise in synthesis.  parity=True (the default) is the
 f64 path with the reference's PRNG streams: `analyze` runs DIO, StoneMask's
 bucket path, CheapTrick and D4C in float64 with each window at its own
@@ -30,13 +32,6 @@ from hts_train_world_tpu_torch.ops import stonemask as sm
 from hts_train_world_tpu_torch.ops import synthesis as syn
 from hts_train_world_tpu_torch.parallel import batch as batch_mod
 
-F32_BUCKETS = ("StoneMask's float32 bucket path (estimate_f0 of a float32 "
-               "waveform with fast_grid=False, or at a frame grid of no "
-               "whole number of samples) is not ported yet; see ROADMAP.md, "
-               "Queue A 11.  Pass fast_grid=True on an integral frame grid, "
-               "or a float64 waveform for the parity path.")
-
-
 @dataclasses.dataclass
 class WorldAnalysis:
     temporal_positions: torch.Tensor
@@ -60,8 +55,7 @@ def estimate_f0(x, fs: int, frame_period: float = 5.0,
     and StoneMask's bucket path at any frame grid, or Harvest in float64;
     anything else runs in float32, where `fast_grid` on an integral frame
     grid takes the slab path and otherwise StoneMask's float32 bucket
-    path, which is not ported (NotImplementedError, ROADMAP.md's Queue A
-    11)."""
+    path (any frame grid)."""
     batch_mod.check_algorithm(algorithm)
     f64 = getattr(x, "dtype", None) in (torch.float64, np.float64)
     dev = device_mod.resolve(device)
@@ -70,15 +64,12 @@ def estimate_f0(x, fs: int, frame_period: float = 5.0,
     if algorithm == "harvest":
         t, f0 = hv.harvest(xs, fs, frame_period, f0_floor, f0_ceil)
         return t, f0[0]
-    gs = fs * frame_period / 1000.0
-    slab = fast_grid and float(gs).is_integer()
-    if refine and not f64 and not slab:
-        raise NotImplementedError(F32_BUCKETS)
     t, f0, _, _ = dio_mod.dio(xs, fs, frame_period, f0_floor, f0_ceil,
                               parity=f64)
     if refine:
         f0 = sm.stonemask(xs, fs, t, f0, f0_floor, f0_ceil,
-                          grid_step=int(gs) if slab else 0,
+                          grid_step=(cfg.grid_step(fs, frame_period)
+                                     if fast_grid else 0),
                           parity=f64)
     return t, f0[0]
 
@@ -103,7 +94,7 @@ def analyze(x, fs: int, frame_period: float = 5.0, q1: float = -0.15,
             algorithm)
         return WorldAnalysis(t[0], f0[0], sp[0], ap[0], fs, N, frame_period)
     xs = device_mod.as_input(x, device)[None]
-    gs = batch_mod.grid_step_for(fs, frame_period)
+    gs = cfg.grid_step(fs, frame_period)    # 0: each frame at its position
     N = fft_size or cfg.cheaptrick_fft_size(fs)
     if algorithm == "harvest":
         t, f0 = hv.harvest(xs, fs, frame_period, f0_floor, f0_ceil)

@@ -119,6 +119,33 @@ def test_k3_kernel_matches_plain(cuda, k):
     assert ((s - s0).abs() / s0).max() <= 1e-5
 
 
+@pytest.mark.parametrize("n", [5, 300, 1025, 2049, 2052, 4097, 9000])
+def test_k3_threshold_bit_equal_on_adversarial_rows(cuda, n):
+    """`chip_smoke.topk_rows` (ties at the k-th value, zeros, denormals,
+    +inf and NaN patterns, -0.0 and negatives) at each plan's sizes, k = 1,
+    2, 65, n/3, n-1 and n, from a 16-byte aligned base and from one 4
+    bytes past it: the threshold bit for bit the twin's, the sum within
+    1e-5 relative where finite and the same inf or NaN where not."""
+    rows = torch.as_tensor(chip_smoke.topk_rows(n))
+    buf = torch.zeros(rows.numel() + 1, dtype=torch.float32, device=cuda)
+    for off in (0, 1):
+        p = buf[off:off + rows.numel()].view(rows.shape)
+        p.copy_(rows)
+        for k in sorted({1, 2, min(65, n), max(1, n // 3), max(1, n - 1),
+                         n}):
+            s, thr = prims.top_k_threshold_sum(p, k)
+            s0, thr0 = prims.top_k_threshold_sum_plain(rows, k)
+            assert torch.equal(thr.cpu().view(torch.int32),
+                               thr0.view(torch.int32))
+            s = s.cpu()
+            fin = torch.isfinite(s0)
+            assert torch.equal(torch.isfinite(s), fin)
+            assert torch.equal(torch.isnan(s), torch.isnan(s0))
+            assert torch.equal(s[torch.isinf(s0)], s0[torch.isinf(s0)])
+            assert ((s[fin] - s0[fin]).abs()
+                    <= 1e-5 * s0[fin].abs() + 1e-30).all()
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_k4_kernel_matches_plain(cuda, seed):
     rng = np.random.default_rng(seed)
@@ -2769,7 +2796,7 @@ def test_sptk_wrappers_reject_what_the_kernels_do_not_take(cuda):
 # K39 / K40: the DFTs
 # ---------------------------------------------------------------------------
 
-FFT_SIZES = (64, 256, 1024, 2048, 4096, 8192)
+FFT_SIZES = (64, 128, 256, 512, 1024, 2048, 4096, 8192)
 
 
 def _fft_rows(R, L, seed, dtype, device):
@@ -2876,12 +2903,13 @@ def test_k39_at_the_batch_launches_by_check_fft_rule(cuda, N, L, mode):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("N", FFT_SIZES)
 def test_k40_kernel_matches_the_twin_and_a_float64_dft(cuda, N, dtype):
-    """Both output lengths, with and without Im, on 5 rows (zeros and an
-    impulse among them): within FFT_TOL of a float64 irfft * N on its
-    error scale, and no farther from it than the table twin."""
+    """Both output lengths, with and without Im, on 70 rows (zeros and
+    an impulse among them; more than a block's rows at every N): within
+    FFT_TOL of a float64 irfft * N on its error scale, and no farther from
+    it than the table twin."""
     H = N // 2 + 1
-    re = _fft_rows(5, H, N + 1, dtype, cuda)
-    im = _fft_rows(5, H, N + 2, dtype, cuda)
+    re = _fft_rows(70, H, N + 1, dtype, cuda)
+    im = _fft_rows(70, H, N + 2, dtype, cuda)
     w = torch.full((H,), 2.0, dtype=torch.float64, device=cuda)
     w[0] = w[-1] = 1.0
     for imag in (im, None):
@@ -2893,7 +2921,7 @@ def test_k40_kernel_matches_the_twin_and_a_float64_dft(cuda, N, dtype):
         for n_out in (N, H):
             got = fftmat.c2r(re, imag, N, n_out)
             twin = fftmat.c2r_plain(re, imag, N, n_out)
-            assert got.dtype == dtype and got.shape == (5, n_out)
+            assert got.dtype == dtype and got.shape == (70, n_out)
             want = ref[:, :n_out]
             e_k = _fft_worst((got,), (want,), rms + want.abs())
             e_t = _fft_worst((twin,), (want,), rms + want.abs())

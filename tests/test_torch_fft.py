@@ -221,12 +221,14 @@ def test_kernel_twins_are_real_dfts(N):
 
 @pytest.mark.parametrize("N", (64, 8192))
 def test_twiddle_table(N):
-    """K39/K40's table: W_N^t = (cos, -sin)(2 pi t / N), t < N, in
-    float64 (both kernels transform in float64), within 2 ulps of 1 of
-    the exact values and equal on the symmetries the FFT's passes pair."""
-    t = fftmat._twiddles(N, torch.device("cpu")).numpy()
-    ang = 2.0 * np.pi * np.arange(N) / N
-    assert t.shape == (N, 2) and t.dtype == np.float64
-    assert np.abs(t - np.stack([np.cos(ang), -np.sin(ang)], 1)).max() \
-        <= 4.5e-16
+    """K40's table is K39's dense table at N (`fftmat.r2c_table_np(N,
+    False)`): its split entries W_N^k = (cos, -sin)(2 pi k / N), k <=
+    N/4, in float64 (both kernels transform in float64), within 2 ulps of
+    1 of the exact values, and W_N^(N/4) exactly -i, where the inverse
+    split's W_N^-k turns from conj W_N^k to -W_N^(N/2-k)."""
+    t = fftmat._r2c_table(N, False, torch.device("cpu")).numpy()
+    ang = 2.0 * np.pi * np.arange(N // 4 + 1) / N
+    assert t.shape[1] == 2 and t.dtype == np.float64
+    assert np.abs(t[:N // 4 + 1] - np.stack([np.cos(ang), -np.sin(ang)], 1)
+                  ).max() <= 4.5e-16
     assert np.abs(t[N // 4, 0]) <= 1e-15 and t[N // 4, 1] == -1.0

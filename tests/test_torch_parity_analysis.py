@@ -487,16 +487,28 @@ def test_estimate_f0_matches_jax(jax_runs):
 
 
 def test_estimate_f0_float32_bucket_path_raises(jax_runs):
-    """A float32 waveform without `fast_grid` (or at a frame grid of no
-    whole number of samples) is StoneMask's float32 bucket path in the
-    JAX package, which the port has not: it raises naming Queue A 11."""
+    """A float32 waveform without `fast_grid`, or with it at a frame grid
+    of no whole number of samples (5.03 ms at 16 kHz), is StoneMask's
+    float32 bucket path, as in the JAX package: it no longer raises, and
+    its f0 has the voiced frames of JAX's bucket path on the same DIO
+    contour (the port's float32 DIO, held to JAX's in
+    tests/test_torch_modules.py) and lies within 1e-4 median rel of it.
+    refine=False is DIO's contour itself."""
     x32 = jax_runs[16000]["x"].astype(np.float32)
-    with pytest.raises(NotImplementedError, match="Queue A 11"):
-        vocoder.estimate_f0(x32, 16000, FP, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A 11"):
-        vocoder.estimate_f0(x32, 16000, 5.03, fast_grid=True, device="cpu")
-    t, f0 = vocoder.estimate_f0(x32, 16000, FP, refine=False, device="cpu")
-    assert f0.dtype == torch.float32 and (f0 > 0).any()
+    for fp, fast_grid in ((FP, False), (5.03, True)):
+        t, f0 = vocoder.estimate_f0(x32, 16000, fp, fast_grid=fast_grid,
+                                    device="cpu")
+        td, f0_dio = vocoder.estimate_f0(x32, 16000, fp, refine=False,
+                                         device="cpu")
+        assert f0.dtype == torch.float32 and torch.equal(t, td)
+        want = np.asarray(jsm.stonemask(jnp.asarray(x32), 16000,
+                                        jnp.asarray(t.numpy()),
+                                        jnp.asarray(f0_dio.numpy())))
+        got = f0.numpy()
+        np.testing.assert_array_equal(got > 0, want > 0)
+        v = want > 0
+        assert v.sum() > 10
+        assert np.median(np.abs(got[v] - want[v]) / want[v]) <= 1e-4
 
 
 def _write_wav(path, x, fs):
