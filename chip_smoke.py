@@ -504,7 +504,8 @@ DEVICE_TIMED = SPTK_KERNELS + FFT + ("synth_time_base", "hsmm_loglik",
                                      "hsmm_mix_loglik", "semitied",
                                      "codec_encode", "d4c_band_sort",
                                      "hsmm_accumulate", "topk_sum",
-                                     "frame_window", "stonemask_if")
+                                     "frame_window", "spectral_smooth",
+                                     "stonemask_if")
 # the HSMM lane: RecipeConfig's defaults (models/recipe.py:45-47)
 HSMM_MODELS, HSMM_STATES, HSMM_MAX_DUR, HSMM_UTTS = 40, 5, 60, 128
 # the recipe lane: train_voice at RecipeConfig's defaults
@@ -3675,15 +3676,73 @@ def sptk_copy_lane(counted, sigs, fs, device="cuda", cpu="cpu"):
 
 
 def library_whole(key, inp):
-    """The whole job of K23, K2 in float64, K32 in float64, K35, K19 and
-    K37 in PyTorch library calls, where `library` in `main` times only a part
-    of it: (the call, a check of its outputs against the kernel's that
-    returns (passed, text naming its bound)), or None for another
-    kernel.  Timed beside the kernel; used nowhere in the port."""
+    """The whole job of K1 in float32, K2, K23, K32 in float64, K35, K19
+    and K37 in PyTorch library calls, where `library` in `main` times only
+    a part of it, or none: (the call, a check of its outputs against the
+    kernel's that returns (passed, text naming its bound)), or None for
+    another kernel.  Timed beside the kernel; used nowhere in the port."""
     import torch
     import torch.nn.functional as tnf
     name = key.split("[", 1)[0]
     f64 = key.endswith("[f64]")
+    if name == "frame_window" and not f64 and inp["noise"] is None:
+        # the gather of every frame's samples, the window by torch.cos on
+        # the position grid, the sums and the mean removal (CHEAPTRICK's
+        # unit window, CENTROID's unit row and its (j+1) row, STONEMASK's
+        # centred difference) in PyTorch calls
+        from hts_train_world_tpu_torch.ops import frames
+        x, W, mode = inp["x"], inp["width"], inp["mode"]
+        fs, ratio, f0 = inp["fs"], inp["ratio"], inp["f0"]
+        B, L = x.shape
+        R = inp["h"].shape[0]
+        j = torch.arange(W, device=x.device)
+        h = inp["h"].long()[:, None]
+        live = j[None] <= 2 * h
+        utt = (inp["rowutt"].long() if inp["rowutt"] is not None
+               else torch.arange(R, device=x.device) // (R // B))[:, None]
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+
+        def windowed():
+            idx = inp["origin"].long()[:, None] - h + j
+            seg = x[utt, idx.clamp(0, L - 1)]
+            if mode == frames.STONEMASK:
+                # time by IEEE division (a product with 1/fs moves t by an
+                # ulp, and the centred difference of the window takes it
+                # to ~1e-3 of dw's scale)
+                div = torch.full((), fs, dtype=x.dtype, device=x.device)
+                tt = idx.to(x.dtype) / div - inp["pos"][:, None]
+                wt = (2 * h + 1).to(x.dtype) / div
+                w = torch.where(live, 0.42 + 0.5 * torch.cos(
+                    (2 * math.pi) * tt / wt) + 0.08 * torch.cos(
+                    (4 * math.pi) * tt / wt), zero)
+                dw = torch.where(live, (tnf.pad(w[:, :-1], (1, 0))
+                                        - tnf.pad(w[:, 1:], (0, 1))) / 2,
+                                 zero)
+                return seg * w, seg * dw
+            arg = (j - h).to(x.dtype) * (f0[:, None] * (2 * math.pi
+                                                        / ratio / fs))
+            w = (0.42 + 0.5 * torch.cos(arg) + 0.08 * torch.cos(2 * arg)
+                 if mode in (frames.MEAN_BLACKMAN, frames.CENTROID)
+                 else 0.5 + 0.5 * torch.cos(arg))
+            w = torch.where(live, w, zero)
+            if mode == frames.CHEAPTRICK:
+                w = w / torch.linalg.vector_norm(w, dim=1, keepdim=True)
+            wave = seg * w
+            wave = torch.where(live, wave - w * (wave.sum(1, keepdim=True)
+                                                 / w.sum(1, keepdim=True)),
+                               zero)
+            if mode != frames.CENTROID:
+                return (wave,)
+            wave = wave / torch.linalg.vector_norm(wave, dim=1, keepdim=True)
+            return wave, wave * (j + 1).to(x.dtype)
+
+        def check(out, out_k):
+            worst = max(float(((o - k).abs().amax(1)
+                               / k.abs().amax(1).clamp(min=1e-30)).max())
+                        for o, k in zip(out, out_k))
+            return worst <= 1e-5, (f"worst row |err| / row max {worst:.1e} "
+                                   f"<= 1e-5")
+        return windowed, check
     if name == "hsmm_accumulate":
         # an index_add_ a table into zeros, then the add into the running
         # table (the merge the E-step made on the host before)
@@ -3719,9 +3778,9 @@ def library_whole(key, inp):
             return worst <= 1e-9, (f"worst |err| / column max {worst:.1e} "
                                    f"<= 1e-9")
         return scaled, check
-    if name == "spectral_smooth" and f64:
+    if name == "spectral_smooth":
         # the DC correction as the replica of the row's own bins, the
-        # mirror with the static extent, one torch.cumsum, the two
+        # mirror with the static extent, one float64 torch.cumsum, the two
         # shifted lerps and their difference (the fast forms' order)
         from hts_train_world_tpu_torch.ops import prims
         ps, fs, N = inp["ps"], inp["fs"], inp["fft_size"]
@@ -3738,6 +3797,14 @@ def library_whole(key, inp):
 
         def check(out, out_k):
             k = out_k[0]
+            if not f64:     # float32 rows: the fast forms' own limit
+                lim = prims.smooth_spectrum_limit(
+                    out=out, **{a: v for a, v in inp.items()
+                                if a != "parity"})
+                worst = float(((out - k).abs() / lim.clamp(min=1e-300))
+                              .max())
+                return worst <= 1.0, (f"|err| <= smooth_spectrum_limit: "
+                                      f"worst err/limit {worst:.3f}")
             worst = float(((out - k).abs().amax(1)
                            / k.abs().amax(1).clamp(min=1e-300)).max())
             return worst <= 1e-9, (f"worst row |err| / row max {worst:.1e} "

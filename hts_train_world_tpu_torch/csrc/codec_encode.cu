@@ -66,8 +66,8 @@ __device__ __forceinline__ double log_t(double a) { return log(a); }
 __device__ __forceinline__ float fma_t(float a, float b, float c) {
   return fmaf(a, b, c);
 }
-// (the float64 forms of fma_t and load4 serve the FMA-pipe build of
-// encode_variants.py, which times the float64 sums there)
+// (the float64 forms of fma_t and load4 serve the FMA-pipe build that
+// kernel_variants.py times: its `sizeof(T) == 8` branches switched off)
 __device__ __forceinline__ double fma_t(double a, double b, double c) {
   return fma(a, b, c);
 }

@@ -52,6 +52,19 @@ MEAN, CHEAPTRICK, CENTROID, STONEMASK, MEAN_BLACKMAN = 0, 1, 2, 3, 4
 _STONEMASK_ROUNDED = 5      # K1's code for STONEMASK with parity
 
 
+def window_plan(width: int):
+    """K1's block for a mode with sums: (NT, K), NT threads of K <= 4
+    chunks of four samples, the fewest that hold a row of `width`;
+    STONEMASK's modes take 128 threads that loop over the row's chunks.
+    A copy of csrc/frame_window.cu's `plan_of` for the CPU's emulation;
+    the card tests hold it to the kernel's `frame_window_plan`."""
+    nq = -(-width // 4)
+    for nt, k in ((128, 2), (128, 4), (256, 4), (512, 4)):
+        if nq <= nt * k:
+            return nt, k
+    return 1024, 4
+
+
 def _check_parity(mode: int, dtype, parity: bool):
     if parity and mode == STONEMASK and dtype != torch.float64:
         raise ValueError("frame_windows: STONEMASK's per-sample index "
@@ -146,7 +159,7 @@ def frame_windows(x, origin, h, f0, fs: int, ratio: float, width: int,
     `noise` (the stream, x's dtype) and `noff` (R,) add the reference's
     noise to the windows (float64); a row whose offset is negative gets
     none.  `parity` (STONEMASK, float64): each sample at its own rounded
-    index.  Requires 2*max(h)+1 <= width."""
+    index.  A window wider than `width` is cut at the row's end."""
     if not x.is_cuda:
         return frame_windows_plain(x, origin, h, f0, pos, fs, ratio, width,
                                    mode, noise, noff, rowutt, parity)
@@ -160,8 +173,8 @@ def frame_windows(x, origin, h, f0, fs: int, ratio: float, width: int,
             or (noise is not None and (noise.dtype != dt or noff is None))):
         raise ValueError("frame_windows: f32 or f64 x, B*T frames or a "
                          "row utterance index, width * itemsize <= 46 KB "
-                         "(the window is staged in shared memory), noise "
-                         "of x's dtype with its offsets")
+                         "(float64's window is staged in shared memory), "
+                         "noise of x's dtype with its offsets")
     f64 = dt == torch.float64
     x = x.contiguous()
     o32 = origin.to(torch.int32).contiguous()

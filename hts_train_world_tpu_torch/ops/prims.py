@@ -441,6 +441,27 @@ def smooth_spectrum_limit(ps, out, fs: int, fft_size: int, f0=None,
             + 2 * torch.finfo(torch.float32).eps * out.abs().double())
 
 
+SMOOTH_RUN_MAX = 23     # K2's mirrored values a thread, at most (odd)
+
+
+def smooth_plan(fft_size: int, b_max: int):
+    """K2's plan for float32 rows of fft_size/2+1 bins (csrc/
+    spectral_smooth.cu's launcher): (TPR, R, RPB), TPR threads a row
+    (32-256), R mirrored values a thread (odd, <= SMOOTH_RUN_MAX; the
+    runs cover the mirrored row of half + 2 b_max + 1 values, or the row
+    itself when b_max is 0), RPB rows a block (128 threads a block, or one
+    row of 256).  None where no plan holds the row.  A copy of the
+    kernel's `spectral_smooth_plan` for the CPU's emulation; the card
+    tests hold the two alike."""
+    n = fft_size // 2 + 1
+    need = max(fft_size // 2 + 2 * b_max + 1 if b_max > 0 else 0, n)
+    for tpr in (32, 64, 128, 256):
+        run = -(-need // tpr) | 1
+        if run <= SMOOTH_RUN_MAX:
+            return tpr, run, max(1, 128 // tpr)
+    return None
+
+
 def smooth_spectrum(ps, fs: int, fft_size: int, f0=None, ul_max: int = 0,
                     width=None, b_max: int = 0, parity: bool = False):
     """K2: rows ps (R, N/2+1) -> linear_smoothing(dc_correction(ps, f0),

@@ -108,6 +108,165 @@ def test_k2_kernel_matches_plain(cuda, dc, ls, rows):
     assert ((got - want).abs() <= limit).all()
 
 
+# every width K1 takes on the float32 paths: 48 kHz (2048, 2816, 3712),
+# 44.1 kHz (2048, 2560, 3328), 22.05 kHz (1024, 1280, 1664); and 4096,
+# the float64 D4C's at 48 kHz
+K1_WIDTHS = (1024, 1280, 1664, 2048, 2560, 2816, 3328, 3712, 4096)
+
+
+@pytest.mark.parametrize("dtype,mode,ratio,parity", [
+    (dt, mode, ratio, False) for dt in (torch.float32, torch.float64)
+    for mode, ratio in ((frames.MEAN, 4.0), (frames.MEAN_BLACKMAN, 3.0),
+                        (frames.CHEAPTRICK, 3.0), (frames.CENTROID, 4.0),
+                        (frames.STONEMASK, 0.0))]
+    + [(torch.float64, frames.STONEMASK, 0.0, True)])
+def test_k1_every_width_mode_and_type(cuda, dtype, mode, ratio, parity):
+    """At every main-path width: frames at both ends of an odd-length x
+    (windows clamped to x[0] and x[L-1]) and inside it, windows from 3
+    samples to the whole row, the rows in order and through `rowutt`
+    (utterances out of order); the sum modes with a noise stream (rows
+    with a negative offset take none), STONEMASK also with its per-sample
+    rounding (float64).  Each row within 1e-5 (float32) or 1e-12
+    (float64) of its largest value, the samples past the window 0."""
+    fs, B = 48000, 2
+    rng = np.random.default_rng(7 * mode + parity)
+    L = 4 * 3712 + 1
+    x = torch.as_tensor(rng.standard_normal((B, L)), dtype=dtype,
+                        device=cuda)
+    noise = torch.as_tensor(rng.standard_normal(40000), dtype=dtype,
+                            device=cuda)
+    rel = 1e-5 if dtype == torch.float32 else 1e-12
+    for width in K1_WIDTHS:
+        hmax = (width - 1) // 2
+        h = np.array([1, hmax, hmax // 2, 37, hmax - 1, 300, hmax, 2] * B)
+        origin = np.array([0, L - 1, 1, L - 2, L // 2, hmax + 3, L - hmax,
+                           hmax] * B)
+        R = h.shape[0]
+        f0 = rng.uniform(40.0, 800.0, R)
+        pos = origin / fs + rng.uniform(-2e-5, 2e-5, R)
+        noff = rng.integers(-1, 30000, R)
+        t = {k: torch.as_tensor(v, device=cuda) for k, v in dict(
+            h=h, origin=origin, noff=noff).items()}
+        f0t, post = (torch.as_tensor(v, dtype=dtype, device=cuda)
+                     for v in (f0, pos))
+        for rowutt in (None, torch.as_tensor(rng.permutation(R) % B,
+                                             device=cuda)):
+            kw = dict(pos=post, rowutt=rowutt, parity=parity)
+            if mode != frames.STONEMASK:
+                kw.update(noise=noise, noff=t["noff"])
+            got = frames.frame_windows(x, t["origin"], t["h"], f0t, fs,
+                                       ratio, width, mode, **kw)
+            want = frames.frame_windows_plain(
+                x, t["origin"], t["h"], f0t, post, fs, ratio, width, mode,
+                kw.get("noise"), kw.get("noff"), rowutt, parity=parity)
+            past = (torch.arange(width, device=cuda)[None, :]
+                    > 2 * t["h"][:, None])
+            for g, w in zip(got, want):
+                assert (g is None) == (w is None)
+                if w is not None:
+                    assert g.dtype == dtype and g.shape == (R, width)
+                    assert (g[past] == 0).all()
+                    _close_rows(g, w, rel)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k1_cuts_windows_wider_than_the_row(cuda, dtype):
+    """Windows of 2h+1 samples past the row (h from half the width to
+    1.5 times it) are cut at the row's end as the twin cuts them, the
+    sums taken over the cut row; at a width of whole 16-byte chunks and
+    at one that is not (1027), in every mode (STONEMASK also with its
+    per-sample rounding in float64): each row within 1e-5 (float32) or
+    1e-12 (float64) of its largest value, no row written past its end."""
+    fs, B = 48000, 2
+    rng = np.random.default_rng(11)
+    L = 5 * 2048 + 1
+    x = torch.as_tensor(rng.standard_normal((B, L)), dtype=dtype,
+                        device=cuda)
+    rel = 1e-5 if dtype == torch.float32 else 1e-12
+    modes = [(frames.MEAN, 4.0, False), (frames.MEAN_BLACKMAN, 3.0, False),
+             (frames.CHEAPTRICK, 3.0, False), (frames.CENTROID, 4.0, False),
+             (frames.STONEMASK, 0.0, False)]
+    if dtype == torch.float64:
+        modes.append((frames.STONEMASK, 0.0, True))
+    for width in (2048, 1027):
+        h = torch.as_tensor(np.array([width // 2, width - 1, width,
+                                      3 * width // 2, 5, width // 2 + 1]
+                                     * B), device=cuda)
+        R = h.shape[0]
+        origin = torch.as_tensor(rng.integers(0, L, R), device=cuda)
+        f0 = torch.as_tensor(rng.uniform(40.0, 400.0, R), dtype=dtype,
+                             device=cuda)
+        pos = origin.to(dtype) / fs
+        for mode, ratio, parity in modes:
+            got = frames.frame_windows(x, origin, h, f0, fs, ratio, width,
+                                       mode, pos=pos, parity=parity)
+            want = frames.frame_windows_plain(x, origin, h, f0, pos, fs,
+                                              ratio, width, mode,
+                                              parity=parity)
+            for g, w in zip(got, want):
+                assert (g is None) == (w is None)
+                if w is not None:
+                    assert g.shape == (R, width)
+                    _close_rows(g, w, rel)
+
+
+def test_k1_k2_plans_are_the_kernels(cuda):
+    """`frames.window_plan` and `prims.smooth_plan`, the CPU emulations'
+    copies of the launchers' plans, give what the kernels' own plan
+    functions (`frame_window_plan`, `spectral_smooth_plan`) give."""
+    import ctypes
+    import os
+    d = kernels.build()
+    fw = ctypes.CDLL(os.path.join(d, "libframe_window.so")).frame_window_plan
+    ss = ctypes.CDLL(os.path.join(d, "libspectral_smooth.so")
+                     ).spectral_smooth_plan
+    a, b, c = (ctypes.c_int() for _ in range(3))
+    for width in list(range(1, 12000, 7)) + [1024, 2048, 2049, 4096, 8192]:
+        fw(width, ctypes.byref(a), ctypes.byref(b))
+        assert frames.window_plan(width) == (a.value, b.value), width
+    for N in (256, 512, 1024, 2048, 4096, 8192, 16384):
+        for b_max in range(0, 1200, 5):
+            ok = ss(N, b_max, ctypes.byref(a), ctypes.byref(b),
+                    ctypes.byref(c))
+            want = prims.smooth_plan(N, b_max)
+            assert (want is None) == (not ok), (N, b_max)
+            if ok:
+                assert want == (a.value, b.value, c.value), (N, b_max)
+
+
+@pytest.mark.parametrize("fs,N,ul_max,b_max", [(48000, 2048, 173, 114),
+                                               (48000, 4096, 344, 342)])
+def test_k2_rows_at_every_alignment(cuda, fs, N, ul_max, b_max):
+    """n = 1025 and 2049 (CheapTrick's and D4C's rows at 48 kHz) starting
+    0-3 floats past a 16-byte boundary (a view into a larger buffer), f0
+    from 40 Hz past the ul_max and b_max edges, the fold alone, the
+    smoothing alone and both: within `smooth_spectrum_limit` element by
+    element, the fold alone bit for bit."""
+    n, R = N // 2 + 1, 37
+    rng = np.random.default_rng(N)
+    fmax = (ul_max - 2) * fs / N
+    f0 = np.concatenate([[40.0, fmax - 1.0, fmax, 1.004 * fmax,
+                          2 * b_max * fs / N],
+                         rng.uniform(60.0, fmax, R - 5)])
+    ps = torch.as_tensor(_k2_rows("harmonic", R, n, rng),
+                         dtype=torch.float32, device=cuda)
+    f0 = torch.as_tensor(f0, dtype=torch.float32, device=cuda)
+    width = f0 if N == 4096 else prims.exact_div(f0 * 2.0, 3.0)
+    buf = torch.zeros(R * n + 4, dtype=torch.float32, device=cuda)
+    for off in range(4):
+        p = buf[off:off + R * n].view(R, n)
+        p.copy_(ps)
+        for dc, ls in ((True, False), (False, True), (True, True)):
+            args = dict(f0=f0 if dc else None, ul_max=ul_max,
+                        width=width if ls else None, b_max=b_max)
+            got = prims.smooth_spectrum(p, fs, N, **args)
+            want = prims.smooth_spectrum_plain(p, fs, N, **args)
+            limit = prims.smooth_spectrum_limit(p, want, fs, N, **args)
+            if not ls:
+                assert torch.equal(got, want)
+            assert ((got - want).abs() <= limit).all()
+
+
 @pytest.mark.parametrize("k", [1, 65, 2049])
 def test_k3_kernel_matches_plain(cuda, k):
     rng = np.random.default_rng(k)
